@@ -1,0 +1,333 @@
+// Dense Block-Shotgun kernels for Hopper (sm_90a), with a plain C interface
+// loaded through ctypes (repro_torch/kernels/_build.py).
+//
+// Every entry returns cudaGetLastError() (0 on success) and launches on the
+// caller's stream without synchronising; the caller allocates every buffer.
+// All three kernels stream column blocks of A from device memory: per round
+// a block of 128 columns costs n·128·sizeof(A) bytes, while the arithmetic
+// is one or two FMAs per element read, so HBM bandwidth (3.35 TB/s on an
+// H100 SXM) bounds them, not compute.
+#include <cooperative_groups.h>
+
+#include "shotgun_block.cuh"
+
+namespace cg = cooperative_groups;
+using namespace sb;
+
+// ---------------------------------------------------------------------------
+// gather_block_matvec — replaces repro/kernels/shotgun_block.py::
+// gather_block_matvec (Pallas, grid (K, T) accumulating over sample tiles).
+// Bound: K·n·128·sizeof(A) bytes of A read once.  Design: one CUDA block per
+// (k, row tile), 128 threads per column set reading whole 512 B rows
+// (coalesced), eight loads in flight per thread; a (K, T, 128) partial,
+// then a second small pass reduces over T in fixed order.
+// ---------------------------------------------------------------------------
+template <typename TA>
+__global__ void __launch_bounds__(THREADS, 4)
+gather_partial_kernel(const TA* __restrict__ A, long long n, long long d,
+                      const float* r, const int* __restrict__ idx, int T,
+                      int rows, float* gpart) {
+  __shared__ float s[2][THREADS];
+  const int k = blockIdx.x / T, t = blockIdx.x - k * T;
+  gather_item<TA, false>(A, n, d, r, nullptr, idx[k], k, t, T, rows, gpart,
+                         nullptr, s);
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+gather_reduce_kernel(const float* gpart, int T, float* g) {
+  __shared__ float s[2][THREADS];
+  const int k = blockIdx.x >> 2, q = blockIdx.x & 3;
+  float gs, hs;
+  reduce_item<false>(gpart, nullptr, k, q, T, s, gs, hs);
+  if (threadIdx.x < 32) g[k * BLOCK + q * 32 + threadIdx.x] = gs;
+}
+
+// ---------------------------------------------------------------------------
+// scatter_block_update — replaces repro/kernels/shotgun_block.py::
+// scatter_block_update (Pallas, grid (T, K) accumulating over blocks).
+// Bound: K·n·128·sizeof(A) bytes of A plus z read and written once.
+// Design: one warp per row (4 rows per warp, 32 per CUDA block), 16 B
+// vector loads, a fixed shuffle tree per row, no atomics.
+// ---------------------------------------------------------------------------
+template <typename TA>
+__global__ void __launch_bounds__(THREADS, 4)
+scatter_kernel(const TA* __restrict__ A, long long d,
+               const int* __restrict__ idx, int K, const float* delta,
+               const float* z_in, float* z_out) {
+  scatter_tile<TA, LOSS_LASSO, false, false>(A, d, idx, K, delta, blockIdx.x,
+                                             z_in, z_out, nullptr, nullptr,
+                                             nullptr, nullptr);
+}
+
+// ---------------------------------------------------------------------------
+// fused_shotgun_rounds — replaces repro/kernels/shotgun_block.py::
+// fused_shotgun_rounds (Pallas body _make_fused_kernel, call _fused_call).
+// Bound: R·K·n·128·sizeof(A) bytes (each drawn block once per round) plus
+// the vectors in and out.  Design: ONE persistent cooperative launch for all
+// R rounds (grid = co-resident blocks), no host sync and nothing read back
+// to the host.  z, x, r, w stay in device memory (L2-resident at these
+// sizes) between phases, separated by grid.sync():
+//   launch start  r = L'(z0)·m (+ w = L''(z0)·m)
+//   per round
+//     1 gather    partials of g_B = A_Bᵀ r (+ h_B = (A_B∘A_B)ᵀ w)
+//     2 reduce    fixed-order sums over row tiles; δ from the pre-round x,
+//                 masked for k >= k_eff
+//     3 scatter   z += A_B δ per row, which also refreshes r (+ w) for the
+//                 next round and writes per-tile loss partials
+//     4 round end (block 0, overlapping the next round's gather)
+//                 x[blk_k] += δ_k in k order, F, nnz and the health flag
+// This reads each drawn block twice per round (gather, then scatter), so it
+// can reach at most half the bound; keeping A_B on chip between the two
+// phases is the next step.
+// ---------------------------------------------------------------------------
+struct FusedArgs {
+  const void* A;
+  const float* y;
+  const float* m;
+  const int* idx;     // (R, K)
+  const float* scal;  // [lam, beta, k_eff, guard_f]
+  float* z;           // (n,)  in: z0, out: z after R rounds
+  float* x;           // (d,)  in: x0, out: x after R rounds
+  float* r;           // (n,)  round-start residual
+  float* w;           // (n,)  round-start curvature weights (Newton)
+  float* gpart;       // (K, T, 128)
+  float* hpart;       // (K, T, 128) (Newton)
+  float* delta;       // (K, 128)
+  float* lpart;       // (n / 32,) loss partial per scatter tile
+  float* f;           // (R,)
+  int* nnz;           // (R,)
+  float* health;      // ()  0 → 1 when a round's F is non-finite or > guard
+  long long n, d;
+  int R, K, rows, T;
+};
+
+template <int LOSS>
+__device__ __forceinline__ void round_end(const FusedArgs& a, int rd,
+                                          const int* idx, float lam,
+                                          float guard, long long n_tiles,
+                                          float (*s)[THREADS], int* s_nnz) {
+  const int tid = threadIdx.x;
+  // Thread c owns column c of every drawn block, so duplicate draws
+  // accumulate in k order (Alg. 2's multiset semantics).
+  if (tid < BLOCK) {
+    for (int k = 0; k < a.K; ++k) {
+      const long long o = (long long)idx[k] * BLOCK + tid;
+      a.x[o] = ldcg(a.x + o) + ldcg(a.delta + k * BLOCK + tid);
+    }
+  }
+  __syncthreads();
+  // One block runs this while the grid waits at the next round's barrier,
+  // so keep UNROLL independent loads in flight per thread.
+  float l1 = 0.f, data = 0.f;
+  int nz = 0;
+  for (long long j0 = tid; j0 < a.d; j0 += (long long)THREADS * UNROLL) {
+    float v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long j = j0 + (long long)u * THREADS;
+      v[u] = j < a.d ? ldcg(a.x + j) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      l1 += fabsf(v[u]);
+      nz += (v[u] != 0.f);
+    }
+  }
+  for (long long t0 = tid; t0 < n_tiles; t0 += (long long)THREADS * UNROLL) {
+    float v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long t = t0 + (long long)u * THREADS;
+      v[u] = t < n_tiles ? ldcg(a.lpart + t) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) data += v[u];
+  }
+  s[0][tid] = l1;
+  s[1][tid] = data;
+  s_nnz[tid] = nz;
+  __syncthreads();
+  for (int off = THREADS / 2; off > 0; off >>= 1) {
+    if (tid < off) {
+      s[0][tid] += s[0][tid + off];
+      s[1][tid] += s[1][tid + off];
+      s_nnz[tid] += s_nnz[tid + off];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const float loss = LOSS == LOSS_LASSO ? 0.5f * s[1][0] : s[1][0];
+    const float f = loss + lam * s[0][0];
+    a.f[rd] = f;
+    a.nnz[rd] = s_nnz[0];
+    if (!isfinite(f) || f > guard) a.health[0] = 1.f;   // max-accumulated
+  }
+  __syncthreads();
+}
+
+template <typename TA, int LOSS, bool NEWTON>
+__global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float s[2][THREADS];
+  __shared__ int s_nnz[THREADS];
+  const TA* A = static_cast<const TA*>(a.A);
+  const float lam = a.scal[0], beta = a.scal[1], guard = a.scal[3];
+  const int k_eff = (int)a.scal[2];
+  const long long n_tiles = a.n / SCATTER_ROWS;
+  const int n_gather = a.K * a.T, n_reduce = a.K * (BLOCK / 32);
+
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < a.n;
+       i += (long long)gridDim.x * THREADS) {
+    float rr, ww, ll;
+    loss_tile<LOSS>(a.z[i], a.y[i], a.m[i], rr, ww, ll);
+    a.r[i] = rr;
+    if constexpr (NEWTON) a.w[i] = ww;
+  }
+  grid.sync();
+
+  for (int rd = 0; rd < a.R; ++rd) {
+    const int* idx = a.idx + (long long)rd * a.K;
+    // 1: gather partials from the round-start r (and w).
+    for (int it = blockIdx.x; it < n_gather; it += gridDim.x) {
+      const int k = it / a.T, t = it - k * a.T;
+      gather_item<TA, NEWTON>(A, a.n, a.d, a.r, a.w, idx[k], k, t, a.T,
+                              a.rows, a.gpart, a.hpart, s);
+    }
+    grid.sync();
+    // 2: g (and h) per column, then δ from the pre-round x.
+    for (int it = blockIdx.x; it < n_reduce; it += gridDim.x) {
+      const int k = it >> 2, q = it & 3;
+      float g, h;
+      reduce_item<NEWTON>(a.gpart, a.hpart, k, q, a.T, s, g, h);
+      if (threadIdx.x < 32) {
+        const int c = q * 32 + threadIdx.x;
+        const float xs = ldcg(a.x + (long long)idx[k] * BLOCK + c);
+        const float hh = NEWTON ? (h < 1e-8f ? 1e-8f : h) : beta;
+        const float xn = soft_threshold(xs - g / hh, lam / hh);
+        a.delta[k * BLOCK + c] = (xn - xs) * (k < k_eff ? 1.f : 0.f);
+      }
+      __syncthreads();
+    }
+    grid.sync();
+    // 3: z += A_B δ; refresh r (and w); loss partial per 32-row tile.
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const float ll = scatter_tile<TA, LOSS, NEWTON, true>(
+          A, a.d, idx, a.K, a.delta, tile, a.z, a.z, a.y, a.m, a.r, a.w);
+      if ((threadIdx.x & 31) == 0) s[0][threadIdx.x >> 5] = ll;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        float tot = 0.f;
+        for (int j = 0; j < WARPS; ++j) tot += s[0][j];
+        a.lpart[tile] = tot;
+      }
+      __syncthreads();
+    }
+    grid.sync();
+    // 4: round end.  The next round's gather does not read x or δ, and its
+    // grid.sync() orders this block's writes before the next δ phase.
+    if (blockIdx.x == 0) round_end<LOSS>(a, rd, idx, lam, guard, n_tiles, s, s_nnz);
+  }
+}
+
+// Co-resident CUDA blocks for a cooperative launch of `kern` (negative CUDA
+// error code on failure).
+static int coop_blocks(const void* kern) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (!coop) return -(int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, 0);
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm * sms;
+}
+
+template <typename TA, int LOSS, bool NEWTON>
+static const void* fused_kernel() {
+  return reinterpret_cast<const void*>(&fused_rounds_kernel<TA, LOSS, NEWTON>);
+}
+
+template <typename TA>
+static const void* pick_fused(int loss) {
+  switch (loss) {
+    case 0: return fused_kernel<TA, LOSS_LASSO, false>();
+    case 1: return fused_kernel<TA, LOSS_LOGISTIC, false>();
+    case 2: return fused_kernel<TA, LOSS_LASSO, true>();
+    case 3: return fused_kernel<TA, LOSS_LOGISTIC, true>();
+    default: return nullptr;
+  }
+}
+
+static const void* pick_fused(int a_bf16, int loss) {
+  return a_bf16 ? pick_fused<__nv_bfloat16>(loss) : pick_fused<float>(loss);
+}
+
+extern "C" {
+
+int sb_gather_block_matvec(const void* A, int a_bf16, const float* r,
+                           const int* idx, float* gpart, float* g,
+                           long long n, long long d, int K, int rows, int T,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_bf16)
+    gather_partial_kernel<__nv_bfloat16><<<K * T, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(A), n, d, r, idx, T, rows, gpart);
+  else
+    gather_partial_kernel<float><<<K * T, THREADS, 0, s>>>(
+        static_cast<const float*>(A), n, d, r, idx, T, rows, gpart);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  gather_reduce_kernel<<<K * (BLOCK / 32), THREADS, 0, s>>>(gpart, T, g);
+  return (int)cudaGetLastError();
+}
+
+int sb_scatter_block_update(const void* A, int a_bf16, const float* z_in,
+                            const int* idx, const float* delta, float* z_out,
+                            long long n, long long d, int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned tiles = (unsigned)(n / SCATTER_ROWS);
+  if (a_bf16)
+    scatter_kernel<__nv_bfloat16><<<tiles, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(A), d, idx, K, delta, z_in, z_out);
+  else
+    scatter_kernel<float><<<tiles, THREADS, 0, s>>>(
+        static_cast<const float*>(A), d, idx, K, delta, z_in, z_out);
+  return (int)cudaGetLastError();
+}
+
+// Grid size (CUDA blocks) of the fused launch for this A type and loss
+// code (bit 0 logistic, bit 1 Newton); negative CUDA error on failure.
+int sb_fused_grid_blocks(int a_bf16, int loss) {
+  const void* kern = pick_fused(a_bf16, loss);
+  if (!kern) return -(int)cudaErrorInvalidValue;
+  return coop_blocks(kern);
+}
+
+int sb_fused_shotgun_rounds(const void* A, int a_bf16, int loss,
+                            const float* y, const float* m, const int* idx,
+                            const float* scal, float* z, float* x, float* r,
+                            float* w, float* gpart, float* hpart,
+                            float* delta, float* lpart, float* f, int* nnz,
+                            float* health, long long n, long long d, int R,
+                            int K, int rows, int T, void* stream) {
+  const void* kern = pick_fused(a_bf16, loss);
+  if (!kern) return (int)cudaErrorInvalidValue;
+  const int blocks = coop_blocks(kern);
+  if (blocks <= 0) return blocks < 0 ? -blocks : (int)cudaErrorInvalidConfiguration;
+  FusedArgs a{A, y, m, idx, scal, z, x, r, w, gpart, hpart, delta, lpart,
+              f, nnz, health, n, d, R, K, rows, T};
+  void* params[] = {&a};
+  cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(THREADS),
+                                              params, 0,
+                                              static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // clear it; the launch never ran
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -11,6 +11,8 @@ jax.config.update("jax_enable_x64", False)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running multi-process / multi-device tests")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's Hopper kernels)")
 
 
 @pytest.fixture(scope="session")
