@@ -5,11 +5,19 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version at the paper's widths, then drives the
-port's main path — ``block_shotgun_solve`` — on a Sparco-style dense Lasso
-(n = 16384, d = 32768, fused and two-kernel rounds, f32 and bf16 A) and a
-zeta-shaped sparse logistic regression with per-block Newton and the
-divergence guard (n = 500,000, d = 2000).  Data are drawn on the card from
-``--seed``.  Any failed check raises, so the script exits non-zero; it also
+port's main path — ``block_shotgun_solve`` — on two legs:
+
+  dense   a Sparco-style Lasso (n = 16384, d = 32768, fused and two-kernel
+          rounds, f32 and bf16 A) and a zeta-shaped logistic regression
+          with per-block Newton and the divergence guard (n = 500,000,
+          d = 2000);
+  sparse  BlockedCSC problems at the shapes of LIBSVM's news20.binary
+          (S1: Lasso, n = 19,996, d = 1,355,191, density 3.36e-4; fused and
+          two-kernel rounds, f32 and bf16 values) and rcv1.binary (S2:
+          logistic with per-block Newton and the guard, n = 20,242,
+          d = 47,236, density 0.16%), never densified.
+
+Data are drawn on the card from ``--seed``.  Any failed check raises, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository.
 
@@ -21,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -46,6 +55,11 @@ TRACE_RTOL = 1e-4
 DEVICE = "cuda"
 LASSO_N, LASSO_D = 16384, 32768
 ZETA_N, ZETA_D = 500_000, 2000
+# Sparse leg: LIBSVM news20.binary and rcv1.binary shapes (n, d, density).
+S1_N, S1_D, S1_DENSITY = 19_996, 1_355_191, 3.36e-4
+S2_N, S2_D, S2_DENSITY = 20_242, 47_236, 0.0016
+S1_P, S2_K = 4096, 8                 # S1 drops to the largest K under P*
+S1_ROUNDS, S1_TWO_ROUNDS, S2_ROUNDS = 512, 64, 256
 
 
 class SmokeFailure(RuntimeError):
@@ -127,6 +141,104 @@ def device_busy(fn) -> tuple[float, float, int]:
     return busy / 1e3, span / 1e3, len(spans)
 
 
+# Worst (max_abs_err, max_rel_err) of each kernel against its plain version.
+WORST: dict[str, list[float]] = {}
+
+
+def check(name, tag, pairs, nnz_pair=None, health_pair=None):
+    """Hold a kernel's outputs against its plain version's; raise on a
+    miss.  ``pairs``: (what, got, want, floor of the relative scale)."""
+    worst = WORST.setdefault(name, [0.0, 0.0])
+    for what, got, want, floor in pairs:
+        err, rel = rel_err(got, want, floor)
+        worst[0], worst[1] = max(worst[0], err), max(worst[1], rel)
+        print(f"check {name} [{tag}] {what}: max_abs_err {err:.3e} "
+              f"rel {rel:.3e}")
+        require(rel <= REL_TOL, f"{name} [{tag}] {what}: rel err {rel:.3e}"
+                f" > {REL_TOL}")
+    if nnz_pair is not None:
+        dn = int((nnz_pair[0] - nnz_pair[1]).abs().max())
+        require(dn <= NNZ_TOL, f"{name} [{tag}] nnz differs by {dn}")
+    if health_pair is not None:
+        require(float(health_pair[0]) == float(health_pair[1]),
+                f"{name} [{tag}] health {float(health_pair[0])} vs "
+                f"{float(health_pair[1])}")
+
+
+def require_repeat(fn, what):
+    """Two runs of ``fn`` give bit-identical outputs."""
+    a, b = fn(), fn()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    require(all(torch.equal(u, v) for u, v in zip(a, b)),
+            f"{what}: repeat not bit-identical")
+    print(f"check {what}: repeat bit-identical")
+
+
+def run_solve(label, ops, health, prob, spec, launches, fused_name,
+              two_names, bytes_per_round, R, runs, **kw):
+    """Drive ``block_shotgun_solve`` once; print time, trace and launches;
+    check F, status, shapes and the launch count of the path."""
+    before = dict(launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ops.block_shotgun_solve(prob, spec=spec, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = {k: launches[k] - before[k] for k in before}
+    f = res.trace.objective.cpu()
+    nnz = res.trace.nnz.cpu()
+    status = int(res.status)
+    gbs = spec.rounds * bytes_per_round / sec / 1e9
+    print(f"solve {label}: {spec.rounds} rounds in {sec * 1e3:.2f} ms "
+          f"({sec / spec.rounds * 1e3:.4f} ms/round, "
+          f"{spec.rounds / sec:.1f} rounds/s, {gbs:.1f} GB/s of drawn "
+          f"blocks counted once per round); status "
+          f"{health.STATUS_NAMES[status]}; launches {got}")
+    marks = sorted({0, 1, R - 1, len(f) // 2, len(f) - 1})
+    print(f"trace {label}: " + ", ".join(
+        f"F[{i}]={float(f[i]):.7g} nnz={int(nnz[i])}" for i in marks))
+    require(bool(torch.all(torch.isfinite(f))), f"{label}: non-finite F")
+    require(float(f[-1]) < float(f[0]), f"{label}: F did not decrease")
+    require(status == health.STATUS_OK, f"{label}: status {status}")
+    require(res.x.shape == (prob.d,) and res.z.shape == (prob.n,),
+            f"{label}: result shapes {res.x.shape} {res.z.shape}")
+    if spec.fused:
+        require(got[fused_name] == spec.rounds // R,
+                f"{label}: {got} != rounds/R = {spec.rounds // R}")
+    else:
+        require(all(got[k] == spec.rounds for k in two_names),
+                f"{label}: {got} != {spec.rounds} rounds")
+    runs.append(dict(label=label, ms_per_round=sec / spec.rounds * 1e3,
+                     rounds_per_s=spec.rounds / sec, gb_per_s=gbs,
+                     status=health.STATUS_NAMES[status]))
+    return res
+
+
+def trace_rel(a, b) -> float:
+    a, b = a.cpu().double(), b.cpu().double()
+    return float(((a - b).abs() / b.abs()).max())
+
+
+def device_ms(fn, kernels: tuple[str, ...], iters: int) -> float | None:
+    """Device time per call of ``fn`` from the profiler: the summed
+    duration of the device events whose names contain one of ``kernels``,
+    over ``iters`` calls (after a warm-up); None when the profiler sees no
+    such event.  For a kernel of a few microseconds the CUDA-event time of
+    back-to-back calls is set by the host enqueue, not by the device."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in kernels))
+    return total / iters / 1e3 if total else None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -140,18 +252,10 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import health
-    from repro_torch.core import objectives as obj
-    from repro_torch.core.health import GuardConfig
-    from repro_torch.core.spec import SolverSpec
-    from repro_torch.data import synthetic as syn
     from repro_torch.kernels import _build
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import shotgun_block as sb
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(f"device: {kind}; count {torch.cuda.device_count()}; "
@@ -162,26 +266,66 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
-          f"(nvcc {_build.build_info['seconds']:.1f} s)")
+          f"(nvcc {_build.build_info['seconds']:.1f} s, one nvcc per source "
+          "in parallel, then the link)")
     for line in _build.build_info["ptxas"].splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
-    for a16 in (0, 1):
-        for code, name in enumerate(("lasso", "logistic", "lasso_newton",
-                                     "logistic_newton")):
-            blocks = lib.sb_fused_grid_blocks(a16, code)
-            require(blocks > 0, f"cooperative grid for {name}: {blocks}")
-            print(f"fused grid: A {'bf16' if a16 else 'f32'} {name}: "
-                  f"{blocks} blocks x 256 threads")
+    for prefix, grid_fn in (("fused", lib.sb_fused_grid_blocks),
+                            ("fused sparse", lib.sp_fused_grid_blocks)):
+        for a16 in (0, 1):
+            for code, name in enumerate(("lasso", "logistic", "lasso_newton",
+                                         "logistic_newton")):
+                blocks = grid_fn(a16, code)
+                require(blocks > 0, f"{prefix} cooperative grid for {name}: "
+                        f"{blocks}")
+                print(f"{prefix} grid: {'bf16' if a16 else 'f32'} {name}: "
+                      f"{blocks} blocks x 256 threads")
 
+    dense_kernels, dense_json = dense_leg(args)
+    sparse_kernels, sparse_json = sparse_leg(args)
+
+    # ---- report -----------------------------------------------------------
+    print(json.dumps({**dense_json, **sparse_json}))
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(json.dumps({"kernels": dense_kernels + sparse_kernels}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_entry(name, source, replaces, launches, t, shape):
+    b, by = t["bound"]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=WORST[name][0],
+                max_rel_err=WORST[name][1], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=b, bound_by=by,
+                library_ms=t.get("library_ms"), shape=shape)
+
+
+def dense_leg(args):
+    """The dense leg: kernels #1, #3, #4 against their plain versions, their
+    times, and the dense main path."""
+    from repro_torch.core import health
+    from repro_torch.core import objectives as obj
+    from repro_torch.core.health import GuardConfig
+    from repro_torch.core.spec import SolverSpec
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import shotgun_block as sb
+
+    dev = torch.device(DEVICE)
     # ---- data on the card -------------------------------------------------
     t0 = time.perf_counter()
-    A, y, _ = syn.sparco_on_device(args.seed, n=LASSO_N, d=LASSO_D)
+    A, y, _ = syn.sparco_on_device(args.seed, n=LASSO_N, d=LASSO_D,
+                                   device=dev)
     lasso = obj.make_problem(A, y, 1.0, device=dev)
     del A
     lasso = lasso._replace(lam=0.1 * obj.lambda_max(lasso.A, lasso.y,
                                                      "lasso"))
-    A, y, _ = syn.logistic_data_on_device(args.seed + 1, n=ZETA_N, d=ZETA_D)
+    A, y, _ = syn.logistic_data_on_device(args.seed + 1, n=ZETA_N, d=ZETA_D,
+                                          device=dev)
     zeta = obj.make_problem(A, y, 1.0, loss="logistic", device=dev)
     del A
     zeta = zeta._replace(lam=0.1 * obj.lambda_max(zeta.A, zeta.y,
@@ -197,26 +341,6 @@ def main() -> int:
     R = 8
 
     # ---- each kernel against its plain version at these widths -----------
-    worst = {k: [0.0, 0.0] for k in ("gather_block_matvec",
-                                      "scatter_block_update",
-                                      "fused_shotgun_rounds")}
-
-    def check(name, tag, pairs, nnz_pair=None, health_pair=None):
-        for what, got, want, floor in pairs:
-            err, rel = rel_err(got, want, floor)
-            worst[name] = [max(worst[name][0], err), max(worst[name][1], rel)]
-            print(f"check {name} [{tag}] {what}: max_abs_err {err:.3e} "
-                  f"rel {rel:.3e}")
-            require(rel <= REL_TOL, f"{name} [{tag}] {what}: rel err {rel:.3e}"
-                    f" > {REL_TOL}")
-        if nnz_pair is not None:
-            dn = int((nnz_pair[0] - nnz_pair[1]).abs().max())
-            require(dn <= NNZ_TOL, f"{name} [{tag}] nnz differs by {dn}")
-        if health_pair is not None:
-            require(float(health_pair[0]) == float(health_pair[1]),
-                    f"{name} [{tag}] health {float(health_pair[0])} vs "
-                    f"{float(health_pair[1])}")
-
     cases = [("lasso", La, Ly, Lm, lasso, 8), ("zeta", Za, Zy, Zm, zeta, 2)]
     for tag, A, yv, m, prob, K in cases:
         nblk = A.shape[1] // sb.BLOCK
@@ -232,12 +356,10 @@ def main() -> int:
             check("scatter_block_update", t, [(
                 "z", sb.scatter_block_update(AA, r, idx, dl),
                 sb.scatter_block_update_plain(AA, r, idx, dl), 0.0)])
-            require(torch.equal(sb.gather_block_matvec(AA, r, idx),
-                                sb.gather_block_matvec(AA, r, idx)),
-                    f"gather repeat not bit-identical [{t}]")
-            require(torch.equal(sb.scatter_block_update(AA, r, idx, dl),
-                                sb.scatter_block_update(AA, r, idx, dl)),
-                    f"scatter repeat not bit-identical [{t}]")
+            require_repeat(lambda: sb.gather_block_matvec(AA, r, idx),
+                           f"gather_block_matvec [{t}]")
+            require_repeat(lambda: sb.scatter_block_update(AA, r, idx, dl),
+                           f"scatter_block_update [{t}]")
 
     fused_cases = [("lasso", "lasso", 0), ("logistic", "zeta", 1),
                    ("logistic_newton", "zeta", 1)]
@@ -258,10 +380,9 @@ def main() -> int:
                       [("x", got[0], want[0], 1.0), ("z", got[1], want[1], 0.0),
                        ("f", got[2], want[2], 0.0)],
                       nnz_pair=(got[3], want[3]), health_pair=(got[4], want[4]))
-                again = sb.fused_shotgun_rounds(*fargs, loss=loss, k_eff=k_eff)
-                require(all(torch.equal(u, v) for u, v in zip(got, again)),
-                        f"fused repeat not bit-identical [{t}]")
-                print(f"check fused_shotgun_rounds [{t}] repeat bit-identical")
+                require_repeat(lambda: sb.fused_shotgun_rounds(
+                    *fargs, loss=loss, k_eff=k_eff),
+                    f"fused_shotgun_rounds [{t}]")
 
     # ---- kernel times at the main path's shapes ---------------------------
     def kernel_times(A, yv, m, prob, K, loss, iters):
@@ -300,80 +421,43 @@ def main() -> int:
 
     t_lasso = kernel_times(La, Ly, Lm, lasso, 8, "lasso", 20)
     t_zeta = kernel_times(Za, Zy, Zm, zeta, 2, "logistic_newton", 10)
-    for tag, tt in (("lasso f32 n=16384 d=32768 K=8 R=8", t_lasso),
-                    ("zeta f32 n=500224 d=2048 K=2 R=8 logistic_newton",
-                     t_zeta)):
-        for name, v in tt.items():
-            b, by = v["bound"]
-            print(f"time {name} [{tag}]: {v['ms']:.4f} ms; plain "
-                  f"{v['plain_ms']:.4f} ms; bound {b:.4f} ms ({by}); "
-                  f"{100 * b / v['ms']:.1f}% of bound")
+    lasso_shape = f"lasso f32 n={La.shape[0]} d={La.shape[1]} K=8"
+    print_times(((lasso_shape + f" R={R}", t_lasso),
+                 (f"zeta f32 n={Za.shape[0]} d={Za.shape[1]} K=2 R={R} "
+                  "logistic_newton", t_zeta)))
 
-    # ---- the main path ----------------------------------------------------
-    sb.reset_launches()
+    # ---- the main path (dense leg) ----------------------------------------
     runs = []
 
     def solve(label, prob, spec, **kw):
-        before = dict(sb.LAUNCHES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = ops.block_shotgun_solve(prob, spec=spec, **kw)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        launches = {k: sb.LAUNCHES[k] - before[k] for k in before}
-        f = res.trace.objective.cpu()
-        nnz = res.trace.nnz.cpu()
-        status = int(res.status)
         K = max(1, -(-spec.P // sb.BLOCK))
-        ab = prob.A.element_size()
-        n_pad = prob.n + (-prob.n) % sb.TILE_N
-        gbs = spec.rounds * K * n_pad * sb.BLOCK * ab / sec / 1e9
-        print(f"solve {label}: {spec.rounds} rounds in {sec * 1e3:.2f} ms "
-              f"({sec / spec.rounds * 1e3:.4f} ms/round, "
-              f"{spec.rounds / sec:.1f} rounds/s, {gbs:.1f} GB/s of A_B "
-              f"streamed once per round); status "
-              f"{health.STATUS_NAMES[status]}; launches {launches}")
-        marks = sorted({0, 1, R - 1, len(f) // 2, len(f) - 1})
-        print(f"trace {label}: " + ", ".join(
-            f"F[{i}]={float(f[i]):.7g} nnz={int(nnz[i])}" for i in marks))
-        require(bool(torch.all(torch.isfinite(f))), f"{label}: non-finite F")
-        require(float(f[-1]) < float(f[0]), f"{label}: F did not decrease")
-        require(status == health.STATUS_OK, f"{label}: status {status}")
-        require(res.x.shape == (prob.d,) and res.z.shape == (prob.n,),
-                f"{label}: result shapes {res.x.shape} {res.z.shape}")
-        if spec.fused:
-            require(launches["fused_shotgun_rounds"] == spec.rounds // R,
-                    f"{label}: {launches} != rounds/R = {spec.rounds // R}")
-        else:
-            require(launches["gather_block_matvec"] == spec.rounds
-                    and launches["scatter_block_update"] == spec.rounds,
-                    f"{label}: {launches} != {spec.rounds} rounds")
-        runs.append(dict(label=label, ms_per_round=sec / spec.rounds * 1e3,
-                         rounds_per_s=spec.rounds / sec, gb_per_s=gbs,
-                         status=health.STATUS_NAMES[status]))
-        return res
+        rows = prob.n + (-prob.n) % sb.TILE_N
+        return run_solve(label, ops, health, prob, spec, sb.LAUNCHES,
+                         "fused_shotgun_rounds",
+                         ("gather_block_matvec", "scatter_block_update"),
+                         K * rows * sb.BLOCK * prob.A.element_size(), R, runs,
+                         **kw)
 
     lasso_idx = draws(256, 8, LASSO_D // sb.BLOCK, g, dup=False)
     spec = SolverSpec(loss="lasso", P=1024, rounds=256, fused=True)
+    zeta_spec = SolverSpec(loss="logistic", P=256, rounds=64, fused=True,
+                           newton=True, guard=GuardConfig())
+    sb.reset_launches()
     fused = solve("lasso fused f32", lasso, spec, blk_idx=lasso_idx)
     two = solve("lasso two-kernel f32", lasso,
                 SolverSpec(loss="lasso", P=1024, rounds=32),
                 blk_idx=lasso_idx[:32])
     solve("lasso fused bf16", lasso._replace(A=lasso.A.to(torch.bfloat16)),
           spec, blk_idx=lasso_idx)
-    solve("zeta logistic newton guarded fused f32", zeta,
-          SolverSpec(loss="logistic", P=256, rounds=64, fused=True,
-                     newton=True, guard=GuardConfig()),
+    solve("zeta logistic newton guarded fused f32", zeta, zeta_spec,
           generator=torch.Generator(device=dev).manual_seed(args.seed + 3))
     counts = dict(sb.LAUNCHES)
-    print(f"main path launches: {counts}")
+    print(f"main path launches (dense leg): {counts}")
     require(all(v > 0 for v in counts.values()),
-            f"a kernel of the main path never launched: {counts}")
+            f"a kernel of the dense leg never launched: {counts}")
 
     # Fused and two-kernel rounds on the same draws follow one trajectory.
-    f_fused = fused.trace.objective[:32].double()
-    f_two = two.trace.objective.double()
-    rel = float(((f_fused - f_two).abs() / f_two.abs()).max())
+    rel = trace_rel(fused.trace.objective[:32], two.trace.objective)
     print(f"check fused vs two-kernel F trace (32 rounds, same draws): "
           f"max rel {rel:.3e}")
     require(rel <= TRACE_RTOL, f"fused vs two-kernel trace rel {rel:.3e}")
@@ -381,19 +465,10 @@ def main() -> int:
     # Device busy share over a fused solve (profiler; outside the counts).
     for label, prob, spec_, kw in (
             ("lasso fused f32", lasso, spec, dict(blk_idx=lasso_idx)),
-            ("zeta logistic newton guarded fused f32", zeta,
-             SolverSpec(loss="logistic", P=256, rounds=64, fused=True,
-                        newton=True, guard=GuardConfig()),
+            ("zeta logistic newton guarded fused f32", zeta, zeta_spec,
              dict(generator=torch.Generator(device=dev).manual_seed(1)))):
-        busy, span, n_ev = device_busy(
-            lambda: ops.block_shotgun_solve(prob, spec=spec_, **kw))
-        if n_ev:
-            print(f"profile {label}: device busy {busy:.3f} ms of a "
-                  f"{span:.3f} ms span ({n_ev} device events); idle share "
-                  f"{1 - busy / span:.3f}")
-        else:
-            print(f"profile {label}: not measured (the profiler saw no "
-                  "device activity)")
+        print_busy(label, lambda: ops.block_shotgun_solve(prob, spec=spec_,
+                                                          **kw))
 
     # A small problem solved on the card and by the plain versions on the CPU.
     A, y, _ = syn.sparco(seed=args.seed, n=1000, d=700)
@@ -403,42 +478,350 @@ def main() -> int:
                                       spec=small_spec, blk_idx=small_idx)
     on_cpu = ops.block_shotgun_solve(obj.make_problem(A, y, 5.0, device="cpu"),
                                      spec=small_spec, blk_idx=small_idx)
-    rel = float(((on_card.trace.objective.cpu().double()
-                  - on_cpu.trace.objective.double()).abs()
-                 / on_cpu.trace.objective.double().abs()).max())
+    rel = trace_rel(on_card.trace.objective, on_cpu.trace.objective)
     print(f"check small solve card vs CPU plain: F trace max rel {rel:.3e}")
     require(rel <= TRACE_RTOL, f"small solve card vs CPU rel {rel:.3e}")
 
-    # ---- report -----------------------------------------------------------
-    sources = {
-        "fused_shotgun_rounds": "src/repro/kernels/shotgun_block.py:535",
-        "gather_block_matvec": "src/repro/kernels/shotgun_block.py:81",
-        "scatter_block_update": "src/repro/kernels/shotgun_block.py:127",
-    }
-    kernels = []
-    for name in ("fused_shotgun_rounds", "gather_block_matvec",
-                 "scatter_block_update"):
-        v = t_lasso[name]
-        b, by = v["bound"]
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/csrc/shotgun_block.cu",
-            replaces=sources[name], launches=counts[name],
-            max_abs_err=worst[name][0], max_rel_err=worst[name][1],
-            ms=v["ms"], plain_ms=v["plain_ms"],
-            bound_ms=b, bound_by=by, library_ms=None,
-            shape="lasso f32 n=16384 d=32768 K=8" + (" R=8" if "fused" in name
-                                                      else "")))
-    print(json.dumps({"zeta_kernel_times": {
+    src = "src/repro_torch/csrc/shotgun_block.cu"
+    kernels = [
+        kernel_entry("fused_shotgun_rounds", src,
+                     "src/repro/kernels/shotgun_block.py:535",
+                     counts["fused_shotgun_rounds"],
+                     t_lasso["fused_shotgun_rounds"], lasso_shape + f" R={R}"),
+        kernel_entry("gather_block_matvec", src,
+                     "src/repro/kernels/shotgun_block.py:81",
+                     counts["gather_block_matvec"],
+                     t_lasso["gather_block_matvec"], lasso_shape),
+        kernel_entry("scatter_block_update", src,
+                     "src/repro/kernels/shotgun_block.py:127",
+                     counts["scatter_block_update"],
+                     t_lasso["scatter_block_update"], lasso_shape),
+    ]
+    extra = {"zeta_kernel_times": {
         k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
                 bound_by=v["bound"][1]) for k, v in t_zeta.items()},
-        "solves": runs}))
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(json.dumps({"kernels": kernels}))
-    print(nvidia_smi_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+        "dense_solves": runs}
+    return kernels, extra
+
+
+def print_times(groups):
+    for tag, tt in groups:
+        for name, v in tt.items():
+            b, by = v["bound"]
+            lib = v.get("library_ms")
+            dms = v.get("device_ms")
+            print(f"time {name} [{tag}]: {v['ms']:.4f} ms; plain "
+                  f"{v['plain_ms']:.4f} ms; bound {b:.4f} ms ({by}); "
+                  f"{100 * b / v['ms']:.1f}% of bound"
+                  + ("" if dms is None else
+                     f"; device {dms:.4f} ms ({100 * b / dms:.1f}% of bound)")
+                  + ("" if lib is None else f"; library {lib:.4f} ms"))
+
+
+def print_busy(label, fn):
+    busy, span, n_ev = device_busy(fn)
+    if n_ev:
+        print(f"profile {label}: device busy {busy:.3f} ms of a "
+              f"{span:.3f} ms span ({n_ev} device events); idle share "
+              f"{1 - busy / span:.3f}")
+    else:
+        print(f"profile {label}: not measured (the profiler saw no device "
+              "activity)")
+
+
+def drawn_csr(S, idx):
+    """CSR copies of the drawn blocks, A_B (n, K·128) and A_Bᵀ, for the
+    cuSPARSE yardstick (built outside any timing)."""
+    idx = idx.long()
+    K = idx.shape[0]
+    rows = S.rows[idx].long()
+    vals = S.vals[idx].float()
+    cols = torch.arange(K * S.block, device=rows.device).reshape(
+        K, 1, S.block).expand(rows.shape)
+    keep = vals != 0
+    r, c, v = rows[keep], cols[keep], vals[keep]
+    shape = (S.n, K * S.block)
+    a = torch.sparse_coo_tensor(torch.stack([r, c]), v, shape).coalesce()
+    at = torch.sparse_coo_tensor(torch.stack([c, r]), v,
+                                 shape[::-1]).coalesce()
+    return a.to_sparse_csr(), at.to_sparse_csr()
+
+
+def sparse_leg(args):
+    """The sparse leg: kernels #2, #5, #6 against their plain versions at
+    S1 and S2, their times and phase breakdown, and the sparse main path."""
+    from repro_torch.core import health
+    from repro_torch.core import objectives as obj
+    from repro_torch.core import spectral
+    from repro_torch.core.health import GuardConfig
+    from repro_torch.core.spec import SolverSpec
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import shotgun_sparse as ss
+
+    dev = torch.device(DEVICE)
+    B = 128
+    R = 8
+    g = torch.Generator(device=dev).manual_seed(args.seed + 20)
+
+    # ---- data on the card, never densified --------------------------------
+    t0 = time.perf_counter()
+    S, y, _ = syn.large_sparse_bcsc_on_device(
+        args.seed + 10, n=S1_N, d=S1_D, density=S1_DENSITY, device=dev)
+    s1 = obj.make_problem(S, y, 1.0, device=dev)
+    s1 = s1._replace(lam=0.1 * obj.lambda_max(s1.A, s1.y, "lasso"))
+    S, y, _ = syn.logistic_bcsc_on_device(
+        args.seed + 11, n=S2_N, d=S2_D, density=S2_DENSITY, device=dev)
+    s2 = obj.make_problem(S, y, 1.0, loss="logistic", device=dev)
+    s2 = s2._replace(lam=0.1 * obj.lambda_max(s2.A, s2.y, "logistic"))
+    del S
+    torch.cuda.synchronize()
+    print(f"data (sparse): {time.perf_counter() - t0:.1f} s")
+    K_of = {}
+    for tag, prob, want_K in (("S1", s1, S1_P // B), ("S2", s2, S2_K)):
+        A = prob.A
+        t0 = time.perf_counter()
+        rho = float(spectral.spectral_radius(
+            A, torch.Generator(device=dev).manual_seed(args.seed + 12)))
+        pstar = int(math.ceil(A.d / max(rho, 1.0) - 0.01))
+        K = want_K
+        if tag == "S1" and K * B >= pstar:
+            K = max(1, (pstar - 1) // B)             # largest K under P*
+        K_of[tag] = K
+        nbytes = A.rows.numel() * 4 + A.vals.numel() * A.vals.element_size()
+        print(f"problem {tag} ({prob.loss}): n {A.n} d {A.d} d_pad {A.d_pad} "
+              f"nblk {A.nblk} tile {A.tile} nnz {int(A.nnz)} (density "
+              f"{int(A.nnz) / (A.n * A.d):.3e}); rows+vals {nbytes / 1e6:.1f}"
+              f" MB f32; lam {float(prob.lam):.6g}; rho {rho:.4f}; "
+              f"P* = d/rho = {A.d / rho:.1f}; K {K} (P {K * B}); "
+              f"{time.perf_counter() - t0:.1f} s")
+        require(K * B < pstar, f"{tag}: P = {K * B} not below P* = {pstar}")
+    s1_16 = s1._replace(A=s1.A.astype(torch.bfloat16))
+    s2_16 = s2._replace(A=s2.A.astype(torch.bfloat16))
+    for prob in (s1, s1_16, s2, s2_16):                # build the layouts
+        prob.A.scatter_order()
+    K1, K2 = K_of["S1"], K_of["S2"]
+
+    # ---- each kernel against its plain version at S1 and S2 ---------------
+    for tag, probs, K, losses in (
+            ("S1", (("f32", s1), ("bf16", s1_16)), K1, ("lasso",)),
+            ("S2", (("f32", s2), ("bf16", s2_16)), K2,
+             ("logistic", "logistic_newton"))):
+        for store, prob in probs:
+            A = prob.A
+            od = A.scatter_order()
+            idx = draws(1, K, A.nblk, g)[0]
+            idx[-1] = idx[0]                              # duplicate block
+            r = torch.randn(A.n, generator=g, device=dev)
+            dl = torch.randn(K, B, generator=g, device=dev) * 0.01
+            t = f"{tag} {store} K={K}"
+            check("sparse_gather_block_matvec", t, [(
+                "g", ss.sparse_gather_block_matvec(A.rows, A.vals, r, idx),
+                ss.sparse_gather_block_matvec_plain(A.rows, A.vals, r, idx),
+                0.0)])
+            check("sparse_scatter_block_update", t, [(
+                "z", ss.sparse_scatter_block_update(A.rows, A.vals, r, idx,
+                                                    dl, order=od),
+                ss.sparse_scatter_block_update_plain(A.rows, A.vals, r, idx,
+                                                     dl), 0.0)])
+            require_repeat(lambda: ss.sparse_gather_block_matvec(
+                A.rows, A.vals, r, idx), f"sparse_gather_block_matvec [{t}]")
+            require_repeat(lambda: ss.sparse_scatter_block_update(
+                A.rows, A.vals, r, idx, dl, order=od),
+                f"sparse_scatter_block_update [{t}]")
+            for loss in losses:
+                idx = draws(R, K, A.nblk, g)
+                x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
+                x0[A.d:] = 0.0
+                z0 = A.matvec(x0)
+                for k_eff in (None, K - 1):
+                    t = f"{loss} {tag} {store} K={K} R={R} k_eff={k_eff}"
+                    fargs = (A.rows, A.vals, z0, x0, idx, prob.lam,
+                             prob.beta, prob.y)
+                    got = ss.fused_sparse_shotgun_rounds(
+                        *fargs, loss=loss, k_eff=k_eff, order=od)
+                    want = ss.fused_sparse_shotgun_rounds_plain(
+                        *fargs, loss=loss, k_eff=k_eff)
+                    check("fused_sparse_shotgun_rounds", t,
+                          [("x", got[0], want[0], 1.0),
+                           ("z", got[1], want[1], 0.0),
+                           ("f", got[2], want[2], 0.0)],
+                          nnz_pair=(got[3], want[3]),
+                          health_pair=(got[4], want[4]))
+                    require_repeat(lambda: ss.fused_sparse_shotgun_rounds(
+                        *fargs, loss=loss, k_eff=k_eff, order=od),
+                        f"fused_sparse_shotgun_rounds [{t}]")
+
+    # ---- kernel times and the fused launch's phases -----------------------
+    def kernel_times(prob, K, loss, iters):
+        A = prob.A
+        n, d_pad, tile = A.n, A.d_pad, A.tile
+        vb = A.vals.element_size()
+        od = A.scatter_order()
+        idx = draws(R, K, A.nblk, g, dup=False)
+        x0 = torch.zeros(d_pad, device=dev)
+        z0 = torch.zeros(n, device=dev)
+        r = torch.randn(n, generator=g, device=dev)
+        dl = torch.randn(K, B, generator=g, device=dev) * 0.01
+        fargs = (A.rows, A.vals, z0, x0, idx, prob.lam, prob.beta, prob.y)
+        newton = 1 if ss.resolve_loss(loss).newton else 0
+        slots = K * tile * B
+        tiles = slots * (4 + vb)
+        a_csr, at_csr = drawn_csr(A, idx[0])
+        out = {}
+        out["fused_sparse_shotgun_rounds"] = dict(
+            ms=time_ms(lambda: ss.fused_sparse_shotgun_rounds(
+                *fargs, loss=loss, order=od), iters),
+            plain_ms=time_ms(lambda: ss.fused_sparse_shotgun_rounds_plain(
+                *fargs, loss=loss), max(2, iters // 4), warmup=1),
+            bound=bound(R * tiles + 4 * (3 * n + 2 * d_pad) + 8 * R,
+                        R * ((4 + 3 * newton) * slots + (K + 10) * n
+                             + 2 * d_pad)))
+        out["sparse_gather_block_matvec"] = dict(
+            ms=time_ms(lambda: ss.sparse_gather_block_matvec(
+                A.rows, A.vals, r, idx[0]), iters),
+            plain_ms=time_ms(lambda: ss.sparse_gather_block_matvec_plain(
+                A.rows, A.vals, r, idx[0]), iters),
+            library_ms=time_ms(lambda: torch.mv(at_csr, r), iters),
+            bound=bound(tiles + 4 * n + 512 * K, 2 * slots))
+        out["sparse_scatter_block_update"] = dict(
+            ms=time_ms(lambda: ss.sparse_scatter_block_update(
+                A.rows, A.vals, z0, idx[0], dl, order=od), iters),
+            plain_ms=time_ms(lambda: ss.sparse_scatter_block_update_plain(
+                A.rows, A.vals, z0, idx[0], dl), iters),
+            library_ms=time_ms(lambda: torch.addmv(z0, a_csr, dl.reshape(-1)),
+                               iters),
+            bound=bound(tiles + 8 * n + 512 * K, 2 * slots + K * n))
+        calls = {
+            "fused_sparse_shotgun_rounds": (
+                ("fused_sparse_kernel",),
+                lambda: ss.fused_sparse_shotgun_rounds(*fargs, loss=loss,
+                                                       order=od)),
+            "sparse_gather_block_matvec": (
+                ("sparse_gather_kernel",),
+                lambda: ss.sparse_gather_block_matvec(A.rows, A.vals, r,
+                                                      idx[0])),
+            "sparse_scatter_block_update": (
+                ("scatter_runs_kernel", "combine_kernel"),
+                lambda: ss.sparse_scatter_block_update(
+                    A.rows, A.vals, z0, idx[0], dl, order=od))}
+        for name, (kern, fn) in calls.items():
+            out[name]["device_ms"] = device_ms(fn, kern, iters)
+        # Phase breakdown of one launch: block 0's clock at each barrier,
+        # scaled to the kernel's device time per launch.
+        stamps = torch.zeros(3 * R + 4, dtype=torch.int64, device=dev)
+        ss.fused_sparse_shotgun_rounds(*fargs, loss=loss, order=od,
+                                       stamps=stamps)
+        torch.cuda.synchronize()
+        st = stamps.cpu().double()
+        cyc = st[1:] - st[:-1]
+        ms = out["fused_sparse_shotgun_rounds"]["device_ms"] or (
+            out["fused_sparse_shotgun_rounds"]["ms"])
+        per_cycle = ms / float(st[-1] - st[0])
+        rounds = cyc[1:1 + 3 * R].reshape(R, 3)
+        out["phases"] = {
+            "launch_ms": ms, "launch_cycles": float(st[-1] - st[0]),
+            "launch_start_ms": float(cyc[0]) * per_cycle,
+            "round_ms": float(rounds.sum(1).mean()) * per_cycle,
+            "A_gather_delta_xpartial_ms": float(rounds[:, 0].mean()) * per_cycle,
+            "B_runs_finish_ms": float(rounds[:, 1].mean()) * per_cycle,
+            "C_combine_xupdate_ms": float(rounds[:, 2].mean()) * per_cycle,
+            "final_A_xpartial_only_ms": float(cyc[1 + 3 * R]) * per_cycle,
+            "final_B_finish_only_ms": float(cyc[2 + 3 * R]) * per_cycle}
+        return out
+
+    t_s1 = kernel_times(s1, K1, "lasso", 20)
+    t_s2 = kernel_times(s2, K2, "logistic_newton", 20)
+    ph = {"S1": t_s1.pop("phases"), "S2": t_s2.pop("phases")}
+    print_times(((f"S1 lasso f32 K={K1} R={R}", t_s1),
+                 (f"S2 f32 K={K2} R={R} logistic_newton", t_s2)))
+    for tag, p in ph.items():
+        print(f"phases fused_sparse_shotgun_rounds [{tag}]: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in p.items()))
+
+    # ---- the main path (sparse leg) ---------------------------------------
+    runs = []
+
+    def solve(label, prob, spec, **kw):
+        K = max(1, -(-spec.P // B))
+        return run_solve(label, ops, health, prob, spec, ss.LAUNCHES,
+                         "fused_sparse_shotgun_rounds",
+                         ("sparse_gather_block_matvec",
+                          "sparse_scatter_block_update"),
+                         K * prob.A.tile * B * (4 + prob.A.vals.element_size()),
+                         R, runs, **kw)
+
+    s1_idx = draws(S1_ROUNDS, K1, s1.A.nblk, g, dup=False)
+    s1_spec = SolverSpec(loss="lasso", P=K1 * B, rounds=S1_ROUNDS, fused=True)
+    s2_spec = SolverSpec(loss="logistic", P=K2 * B, rounds=S2_ROUNDS,
+                         fused=True, newton=True, guard=GuardConfig())
+    ss.reset_launches()
+    fused = solve("S1 lasso fused f32", s1, s1_spec, blk_idx=s1_idx)
+    two = solve("S1 lasso two-kernel f32", s1,
+                SolverSpec(loss="lasso", P=K1 * B, rounds=S1_TWO_ROUNDS),
+                blk_idx=s1_idx[:S1_TWO_ROUNDS])
+    solve("S1 lasso fused bf16", s1_16, s1_spec, blk_idx=s1_idx)
+    solve("S2 logistic newton guarded fused f32", s2, s2_spec,
+          generator=torch.Generator(device=dev).manual_seed(args.seed + 13))
+    counts = dict(ss.LAUNCHES)
+    print(f"main path launches (sparse leg): {counts}")
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel of the sparse leg never launched: {counts}")
+
+    rel = trace_rel(fused.trace.objective[:S1_TWO_ROUNDS],
+                    two.trace.objective)
+    print(f"check sparse fused vs two-kernel F trace ({S1_TWO_ROUNDS} rounds, "
+          f"same draws): max rel {rel:.3e}")
+    require(rel <= TRACE_RTOL, f"sparse fused vs two-kernel rel {rel:.3e}")
+
+    for label, prob, spec_, kw in (
+            ("S1 lasso fused f32", s1, s1_spec, dict(blk_idx=s1_idx)),
+            ("S2 logistic newton guarded fused f32", s2, s2_spec,
+             dict(generator=torch.Generator(device=dev).manual_seed(1)))):
+        print_busy(label, lambda: ops.block_shotgun_solve(prob, spec=spec_,
+                                                          **kw))
+
+    # A small problem solved sparse and dense on the card: one trajectory.
+    Ad, y, _ = syn.large_sparse(seed=args.seed, n=2000, d=3000, density=0.01)
+    Sd, _, _ = syn.large_sparse(seed=args.seed, n=2000, d=3000, density=0.01,
+                                layout="bcsc")
+    small_idx = draws(16, 2, Sd.nblk, g, dup=False).cpu()
+    for fused_ in (True, False):
+        spec_ = SolverSpec(loss="lasso", P=2 * B, rounds=16, fused=fused_)
+        rd = ops.block_shotgun_solve(obj.make_problem(Ad, y, 1.0, device=dev),
+                                     spec=spec_, blk_idx=small_idx)
+        rs = ops.block_shotgun_solve(obj.make_problem(Sd, y, 1.0, device=dev),
+                                     spec=spec_, blk_idx=small_idx)
+        rel = trace_rel(rs.trace.objective, rd.trace.objective)
+        print(f"check small problem sparse vs dense on the card "
+              f"({'fused' if fused_ else 'two-kernel'}, same draws): F trace "
+              f"max rel {rel:.3e}")
+        require(rel <= TRACE_RTOL, f"small sparse vs dense rel {rel:.3e}")
+
+    src = "src/repro_torch/csrc/shotgun_sparse.cu"
+    shape = (f"S1 lasso f32 n={S1_N} d={S1_D} tile={s1.A.tile} K={K1}")
+    kernels = [
+        kernel_entry("fused_sparse_shotgun_rounds", src,
+                     "src/repro/kernels/shotgun_sparse.py:389",
+                     counts["fused_sparse_shotgun_rounds"],
+                     t_s1["fused_sparse_shotgun_rounds"], shape + f" R={R}"),
+        kernel_entry("sparse_gather_block_matvec", src,
+                     "src/repro/kernels/shotgun_sparse.py:96",
+                     counts["sparse_gather_block_matvec"],
+                     t_s1["sparse_gather_block_matvec"], shape),
+        kernel_entry("sparse_scatter_block_update", src,
+                     "src/repro/kernels/shotgun_sparse.py:151",
+                     counts["sparse_scatter_block_update"],
+                     t_s1["sparse_scatter_block_update"], shape),
+    ]
+    extra = {"s2_kernel_times": {
+        k: dict(ms=v["ms"], device_ms=v["device_ms"], plain_ms=v["plain_ms"],
+                bound_ms=v["bound"][0], bound_by=v["bound"][1],
+                library_ms=v.get("library_ms"))
+        for k, v in t_s2.items()},
+        "s1_device_ms": {k: v["device_ms"] for k, v in t_s1.items()},
+        "sparse_phases": ph, "sparse_solves": runs}
+    return kernels, extra
 
 
 if __name__ == "__main__":

@@ -3,8 +3,10 @@ shared library with a plain C interface, loaded with ctypes).
 
 ``load()`` compiles at first use into ``build/repro_torch/`` at the repo
 root (listed in ``.gitignore``), from the sources in the checkout only, and
-caches the loaded library.  The library's name carries a hash of the
-sources and flags, so an edited source is rebuilt.  A missing ``nvcc`` or
+caches the loaded library.  Each source compiles in its own ``nvcc``, all
+started together, and one more ``nvcc`` links the objects.  The library's
+name carries a hash of the sources and flags, so an edited source is
+rebuilt.  A missing ``nvcc`` or
 a failed build raises: there is no fallback to the plain versions.
 """
 from __future__ import annotations
@@ -19,11 +21,11 @@ import time
 
 PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
-SOURCES = ("shotgun_block.cu",)
+SOURCES = ("shotgun_block.cu", "shotgun_sparse.cu")
 HEADERS = ("shotgun_block.cuh",)
 BUILD_DIR = PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 # Filled by load(): seconds spent in nvcc (0.0 when the library was
@@ -39,6 +41,11 @@ _ARGTYPES = {
     "sb_fused_shotgun_rounds": [_P, _I, _I] + [_P] * 15
                                + [_L, _L, _I, _I, _I, _I, _P],
     "sb_fused_grid_blocks": [_I, _I],
+    "sp_gather_block_matvec": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
+    "sp_scatter_block_update": [_P, _P, _I] + [_P] * 9 + [_L, _I, _I, _P],
+    "sp_fused_shotgun_rounds": [_P, _P, _I, _I] + [_P] * 20
+                               + [_L, _L, _I, _I, _I, _P],
+    "sp_fused_grid_blocks": [_I, _I],
 }
 
 
@@ -60,24 +67,40 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> list[tuple[list[str], int, str]]:
+    """Start every command at once; wait for all; (cmd, rc, output)."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    return [(c, p.wait(), p.stdout.read()) for c, p in procs]
+
+
 def build() -> pathlib.Path:
     """Compile the sources into the build directory (if not there yet) and
     return the library's path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = BUILD_DIR / f"libshotgun_block-{_digest()}.so"
+    digest = _digest()
+    target = BUILD_DIR / f"librepro_torch-{digest}.so"
     if target.exists():
         build_info["seconds"] = 0.0
         return target
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{digest}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{pathlib.Path(s).stem}-{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                        for s, o in zip(SOURCES, objs)])
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              str(tmp), *map(str, objs)]])
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["ptxas"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    build_info["ptxas"] = "".join(out for _, _, out in results)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, rc, out in results:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     # atomic rename: a concurrent build never sees half a file
     os.replace(tmp, target)
     return target

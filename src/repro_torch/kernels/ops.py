@@ -1,10 +1,12 @@
-"""Block-Shotgun solvers over the Hopper kernels (port of the dense half of
+"""Block-Shotgun solvers over the Hopper kernels (port of
 ``repro.kernels.ops``).
 
 ``block_shotgun_round``   one synchronous round: K aligned blocks of 128
                           coordinates updated in parallel (P_eff = K·128),
                           two kernel launches (gather, scatter).
-``block_shotgun_solve``   full solver.  ``spec.fused=False`` loops over
+``sparse_block_shotgun_round``  the same round on BlockedCSC nnz tiles.
+``block_shotgun_solve``   full solver, dense or BlockedCSC.
+                          ``spec.fused=False`` loops over
                           rounds (two launches each); ``spec.fused=True``
                           loops over *launches* of ``rounds_per_launch``
                           fused rounds.  Both consume the same block stream,
@@ -14,8 +16,8 @@ Block draws: JAX's threefry stream cannot be reproduced in torch, so every
 solver takes an explicit ``blk_idx`` of shape (rounds, K) — the parity
 tests feed it the JAX package's own draws — or draws K distinct blocks per
 round from a ``torch.Generator`` on the problem's device (no host round
-trip).  The BlockedCSC layout and the legacy ``(K, rounds)`` kwargs are not
-ported yet: ``spec=`` is required.
+trip).  The legacy ``(K, rounds)`` kwargs are not ported yet: ``spec=`` is
+required.
 """
 from __future__ import annotations
 
@@ -30,12 +32,17 @@ from repro_torch.core import objectives as obj
 from repro_torch.core.objectives import Problem
 from repro_torch.core.shotgun import Result, Trace
 from repro_torch.core.spec import SolverSpec
+from repro_torch.data.sparse import BlockedCSC
 from repro_torch.device import exact_f32_matmul
 from repro_torch.kernels.shotgun_block import (BLOCK, TILE_N, Loss,
                                                fused_shotgun_rounds,
                                                gather_block_matvec,
                                                resolve_loss,
                                                scatter_block_update)
+from repro_torch.kernels.shotgun_sparse import (block_delta,
+                                                fused_sparse_shotgun_rounds,
+                                                sparse_gather_block_matvec,
+                                                sparse_scatter_block_update)
 
 
 def pad_problem(A, y, block=BLOCK, tile_n=TILE_N):
@@ -93,22 +100,16 @@ def _start(A, x0):
     return x0, A.to(torch.float32) @ x0
 
 
-def _solve(A, y, mask, lam, beta, blk_idx, loss, x0=None, guard=None):
-    """Round loop over the two-kernel round; blk_idx (rounds, K).  x stays
-    f32 also for bf16 A."""
+def _round_loop(step, objective, x, z, blk_idx, guard):
+    """The two-kernel solves' loop over rounds; blk_idx (rounds, K).
+    ``step(z, x, idx, k_eff)`` runs one round and returns (x, z);
+    ``objective(z, x)`` is F.  With ``guard`` each round passes the
+    sentinel (rollback to the last-good snapshot, k_eff halving)."""
     K = blk_idx.shape[1]
-    mask = mask.to(torch.float32)
-    x, z = _start(A, x0)
-
-    def objective(z, x):
-        return (obj.masked_data_loss(z, y, mask, loss)
-                + lam * torch.sum(torch.abs(x)))
-
     fs, nnzs = [], []
     if guard is None:
         for idx in blk_idx:
-            x, z, _ = block_shotgun_round(A, z, x, idx, lam, beta, y, mask,
-                                          loss=loss)
+            x, z = step(z, x, idx, None)
             fs.append(objective(z, x))
             nnzs.append(torch.sum(x != 0))
         fs = torch.stack(fs)
@@ -119,8 +120,7 @@ def _solve(A, y, mask, lam, beta, blk_idx, loss, x0=None, guard=None):
     p_floor = max(1, min(guard.p_min, K))
     gs = health.init_guard_state(x, z, objective(z, x), K)
     for idx in blk_idx:
-        x_new, z_new, _ = block_shotgun_round(A, z, x, idx, lam, beta, y,
-                                              mask, loss=loss, k_eff=gs.p_eff)
+        x_new, z_new = step(z, x, idx, gs.p_eff)
         x, z, f, gs, _ = health.apply_sentinel(
             gs, x_new, z_new, objective(z_new, x_new), factor=guard.factor,
             p_floor=p_floor)
@@ -132,10 +132,10 @@ def _solve(A, y, mask, lam, beta, blk_idx, loss, x0=None, guard=None):
         status=health.status_from_trace(fs, gs.backoffs))
 
 
-def _fused_solve(A, y, mask, lam, beta, blk_idx, loss: Loss, x0=None,
-                 guard=None):
-    """Loop over launches: one fused kernel launch per R rounds; blk_idx
-    (L, R, K).
+def _launch_loop(launch, objective, x, z, blk_idx, guard):
+    """The fused solves' loop over launches; blk_idx (L, R, K).
+    ``launch(z, x, idx, k_eff, guard_f)`` runs R rounds and returns
+    (x, z, f, nnz, health).
 
     With ``guard`` the in-kernel sentinel (health flag + k_eff mask) makes
     the *launch* the rollback granularity: a launch whose health flag trips
@@ -143,13 +143,10 @@ def _fused_solve(A, y, mask, lam, beta, blk_idx, loss: Loss, x0=None,
     snapshot, k_eff halves — all on the device.
     """
     K = blk_idx.shape[2]
-    mask = mask.to(torch.float32)
-    x, z = _start(A, x0)
     fs, nnzs = [], []
     if guard is None:
         for idx in blk_idx:
-            x, z, f, nz, _ = fused_shotgun_rounds(A, z, x, idx, lam, beta, y,
-                                                  mask, loss=loss)
+            x, z, f, nz, _ = launch(z, x, idx, None, None)
             fs.append(f)
             nnzs.append(nz)
         fs = torch.cat(fs)
@@ -158,13 +155,11 @@ def _fused_solve(A, y, mask, lam, beta, blk_idx, loss: Loss, x0=None,
                       status=health.status_from_trace(fs))
 
     p_floor = max(1, min(guard.p_min, K))
-    f0 = (obj.masked_data_loss(z, y, mask, loss.name)
-          + lam * torch.sum(torch.abs(x)))
-    gs = health.init_guard_state(x, z, f0, K)
+    gs = health.init_guard_state(x, z, objective(z, x), K)
     for idx in blk_idx:
-        x_new, z_new, f, nz, h = fused_shotgun_rounds(
-            A, z, x, idx, lam, beta, y, mask, loss=loss, k_eff=gs.p_eff,
-            guard_f=health.guard_threshold(gs.f_good, guard.factor))
+        x_new, z_new, f, nz, h = launch(
+            z, x, idx, gs.p_eff,
+            health.guard_threshold(gs.f_good, guard.factor))
         x, z, f_rep, gs, bad = health.apply_sentinel(
             gs, x_new, z_new, f[-1], factor=guard.factor, p_floor=p_floor,
             health=h)
@@ -176,6 +171,113 @@ def _fused_solve(A, y, mask, lam, beta, blk_idx, loss: Loss, x0=None,
     fs = torch.cat(fs)
     return Result(x=x, z=z, trace=Trace(objective=fs, nnz=torch.cat(nnzs)),
                   status=health.status_from_trace(fs, gs.backoffs))
+
+
+def _objective(y, mask, lam, loss: str):
+    def objective(z, x):
+        return (obj.masked_data_loss(z, y, mask, loss)
+                + lam * torch.sum(torch.abs(x)))
+    return objective
+
+
+def _solve(A, y, mask, lam, beta, blk_idx, loss, x0=None, guard=None):
+    """Round loop over the two-kernel round; blk_idx (rounds, K).  x stays
+    f32 also for bf16 A."""
+    mask = mask.to(torch.float32)
+    x, z = _start(A, x0)
+
+    def step(z, x, idx, k_eff):
+        x, z, _ = block_shotgun_round(A, z, x, idx, lam, beta, y, mask,
+                                      loss=loss, k_eff=k_eff)
+        return x, z
+
+    return _round_loop(step, _objective(y, mask, lam, loss), x, z, blk_idx,
+                       guard)
+
+
+def _fused_solve(A, y, mask, lam, beta, blk_idx, loss: Loss, x0=None,
+                 guard=None):
+    """Loop over launches: one fused kernel launch per R rounds; blk_idx
+    (L, R, K)."""
+    mask = mask.to(torch.float32)
+    x, z = _start(A, x0)
+
+    def launch(z, x, idx, k_eff, guard_f):
+        return fused_shotgun_rounds(A, z, x, idx, lam, beta, y, mask,
+                                    loss=loss, k_eff=k_eff, guard_f=guard_f)
+
+    return _launch_loop(launch, _objective(y, mask, lam, loss.name), x, z,
+                        blk_idx, guard)
+
+
+# ---------------------------------------------------------------------------
+# BlockedCSC solves: no sample padding, z stays full length (n,)
+# ---------------------------------------------------------------------------
+
+def sparse_block_shotgun_round(rows, vals, z, x, blk_idx, lam, beta, y,
+                               loss: str = obj.LASSO, k_eff=None, *,
+                               order=None):
+    """One Block-Shotgun round on BlockedCSC nnz tiles (two launches:
+    gather, scatter; no mask — the sparse path never pads samples).
+    ``order`` is the container's ``scatter_order()``.  Returns
+    (x_new, z_new, delta)."""
+    nblk, tile, block = rows.shape
+    r = obj.residual_like(z, y, loss)
+    g = sparse_gather_block_matvec(rows, vals, r, blk_idx)
+    idx = blk_idx.long()
+    xb = x.reshape(nblk, block)
+    delta = block_delta(xb[idx], g, lam, beta)
+    if k_eff is not None:
+        delta = delta * health.live_mask(idx.shape[0], k_eff,
+                                         device=delta.device)[:, None]
+    z_new = sparse_scatter_block_update(rows, vals, z, blk_idx, delta,
+                                        order=order)
+    return _add_blocks(xb, idx, delta).reshape(-1), z_new, delta
+
+
+def _sparse_start(S: BlockedCSC, x0):
+    """(x0, z0 = A x0) in f32 at the padded width; a cold start is exactly
+    zero (what A·0 gives), with no product."""
+    if x0 is None:
+        return (torch.zeros(S.d_pad, dtype=torch.float32, device=S.device),
+                torch.zeros(S.n, dtype=torch.float32, device=S.device))
+    x0 = x0.to(torch.float32)
+    return x0, S.matvec(x0)
+
+
+def _sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss, x0=None,
+                  guard=None):
+    """Round loop over the sparse two-kernel round; blk_idx (rounds, K).
+    x stays f32 also for bf16 vals."""
+    x, z = _sparse_start(S, x0)
+    order = S.scatter_order()
+    ones = torch.ones_like(y, dtype=torch.float32)
+
+    def step(z, x, idx, k_eff):
+        x, z, _ = sparse_block_shotgun_round(S.rows, S.vals, z, x, idx, lam,
+                                             beta, y, loss=loss, k_eff=k_eff,
+                                             order=order)
+        return x, z
+
+    return _round_loop(step, _objective(y, ones, lam, loss), x, z, blk_idx,
+                       guard)
+
+
+def _fused_sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss: Loss,
+                        x0=None, guard=None):
+    """Loop over launches of the fused sparse kernel, one per R rounds;
+    blk_idx (L, R, K); launch-granular rollback with ``guard``."""
+    x, z = _sparse_start(S, x0)
+    order = S.scatter_order()
+    ones = torch.ones_like(y, dtype=torch.float32)
+
+    def launch(z, x, idx, k_eff, guard_f):
+        return fused_sparse_shotgun_rounds(S.rows, S.vals, z, x, idx, lam,
+                                           beta, y, loss=loss, k_eff=k_eff,
+                                           guard_f=guard_f, order=order)
+
+    return _launch_loop(launch, _objective(y, ones, lam, loss.name), x, z,
+                        blk_idx, guard)
 
 
 def _block_stream(blk_idx, generator, rounds: int, K: int, nblk: int,
@@ -216,16 +318,15 @@ def block_shotgun_solve(prob: Problem, generator: torch.Generator | None = None,
     ``generator`` (a ``torch.Generator`` on the problem's device).  ``x0``
     warm-starts the iterate (zero-padded to the block-padded width, margin
     z0 = A x0).
+
+    A ``BlockedCSC`` problem runs the sparse kernels on the same draws: no
+    sample padding (n is arbitrary), x kept in f32 at the padded width and
+    sliced to d, z full length (n,).
     """
     if spec is None:
         raise TypeError("block_shotgun_solve needs spec=SolverSpec(...); the "
                         "legacy (K, rounds) kwargs are not ported yet")
     spec.check_loss(prob.loss)
-    if not (isinstance(prob.A, torch.Tensor) and prob.A.dim() == 2):
-        raise NotImplementedError(
-            f"block_shotgun_solve takes a dense (n, d) tensor design, got "
-            f"{type(prob.A).__name__}: the BlockedCSC path is the port's "
-            "next slice (ROADMAP Queue 1 #5)")
     K = max(1, -(-spec.P // BLOCK))
     rounds = spec.rounds
     if spec.fused and rounds % rounds_per_launch:
@@ -234,6 +335,25 @@ def block_shotgun_solve(prob: Problem, generator: torch.Generator | None = None,
     loss = resolve_loss(prob.loss)
     if spec.newton:
         loss = loss._replace(newton=True)
+    if isinstance(prob.A, BlockedCSC):
+        S = prob.A
+        if S.block != BLOCK:
+            raise ValueError(f"BlockedCSC block {S.block} != {BLOCK}")
+        dev = S.device
+        if x0 is not None:
+            x0 = F.pad(torch.as_tensor(x0, dtype=torch.float32, device=dev),
+                       (0, S.d_pad - prob.d))
+        idx = _block_stream(blk_idx, generator, rounds, K, S.nblk, dev)
+        if spec.fused:
+            res = _fused_sparse_solve(
+                S, prob.y, prob.lam, prob.beta,
+                idx.reshape(rounds // rounds_per_launch, rounds_per_launch,
+                            K), loss, x0=x0, guard=spec.guard)
+        else:
+            res = _sparse_solve(S, prob.y, prob.lam, prob.beta, idx,
+                                prob.loss, x0=x0, guard=spec.guard)
+        return Result(x=res.x[: prob.d], z=res.z, trace=res.trace,
+                      status=res.status)
     A, y, mask = pad_problem(prob.A, prob.y)
     dev = A.device
     if x0 is not None:

@@ -1,7 +1,8 @@
-"""Plain-torch oracles for the dense Block-Shotgun kernels (port of
-``repro.kernels.ref``).  They are written against ``core.objectives``, not
-against the kernels' ``Loss`` seam, so they stay an independent formulation
-of what the kernels and their plain versions compute."""
+"""Plain-torch oracles for the Block-Shotgun kernels, dense and BlockedCSC
+(port of ``repro.kernels.ref``).  They are written against
+``core.objectives``, not against the kernels' ``Loss`` seam, so they stay an
+independent formulation of what the kernels and their plain versions
+compute."""
 from __future__ import annotations
 
 import torch
@@ -70,6 +71,47 @@ def fused_shotgun_rounds_ref(A, z, x, blk_idx, lam, beta, y, mask, loss,
         z = scatter_block_update_ref(A32, z, idx_t, delta, block)
         x = xb.index_put((idx_t.long(),), delta, accumulate=True).reshape(-1)
         fs.append(obj.masked_data_loss(z, y, mask, ls.name)
+                  + lam * torch.sum(torch.abs(x)))
+        nnzs.append(torch.sum(x != 0))
+    return x, z, torch.stack(fs), torch.stack(nnzs).to(torch.int32)
+
+
+def fused_sparse_shotgun_rounds_ref(rows, vals, z, x, blk_idx, lam, beta, y,
+                                    loss):
+    """Multi-round oracle for ``fused_sparse_shotgun_rounds`` — the same
+    trajectory computed from the nnz tiles: g_B = Σ_tile vals·r[rows], the
+    margin by one scatter-add of vals·δ at rows per round, x by an
+    accumulating index_put (duplicates add).  rows/vals (nblk, tile,
+    block); x (nblk·block,); blk_idx (R, K).  Newton specs divide by
+    max(Σ vals²·w[rows], 1e-8).  Returns (x (nblk·block,) f32, z (n,) f32,
+    f (R,) f32, nnz (R,) int32)."""
+    ls = resolve_loss(loss)
+    nblk, tile, block = rows.shape
+    x = x.float()
+    z = z.float()
+    y = y.float()
+    ones = torch.ones_like(y)
+    fs, nnzs = [], []
+    for idx_t in blk_idx:
+        idx_t = idx_t.long()
+        r = obj.residual_like(z, y, ls.name)
+        rows_k = rows[idx_t].long()                      # (K, tile, B)
+        vals_k = vals[idx_t].float()
+        g = torch.sum(vals_k * r[rows_k], dim=1)         # (K, B)
+        if ls.newton:
+            w = _curvature_weights_ref(z, y, ones, ls.name)
+            h = torch.clamp_min(torch.sum(vals_k * vals_k * w[rows_k], dim=1),
+                                1e-8)
+        else:
+            h = beta
+        xb = x.reshape(nblk, block)
+        x_sel = xb[idx_t]
+        delta = obj.soft_threshold(x_sel - g / h, lam / h) - x_sel
+        z = z.index_put((rows_k.reshape(-1),),
+                        (vals_k * delta[:, None, :]).reshape(-1),
+                        accumulate=True)
+        x = xb.index_put((idx_t,), delta, accumulate=True).reshape(-1)
+        fs.append(obj.masked_data_loss(z, y, ones, ls.name)
                   + lam * torch.sum(torch.abs(x)))
         nnzs.append(torch.sum(x != 0))
     return x, z, torch.stack(fs), torch.stack(nnzs).to(torch.int32)

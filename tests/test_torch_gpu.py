@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card against their plain versions on the
-same inputs, bit-identical repeat runs, and the launch counters.  Marked
+"""The port's CUDA kernels (dense and BlockedCSC) on the card against their
+plain versions on the same inputs, bit-identical repeat runs, and the
+launch counters.  Marked
 ``gpu``; each test skips (inside the ``cuda`` fixture, so every worker
 collects the same tests) when ``torch.cuda.is_available()`` is false.
 
@@ -19,6 +20,7 @@ from repro_torch.core.spec import SolverSpec  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import shotgun_block as tsb  # noqa: E402
+from repro_torch.kernels import shotgun_sparse as tss  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 BLOCK = 128
@@ -130,3 +132,157 @@ def test_solve_on_card_matches_cpu_and_counts_launches(cuda, fused):
                                cpu.trace.objective, rtol=1e-4, atol=0)
     torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=1e-4, atol=1e-4)
     assert int(gpu.status) == 0
+
+
+# ---------------------------------------------------------------------------
+# BlockedCSC kernels
+# ---------------------------------------------------------------------------
+
+def _sparse(loss, dev, n=1500, d=3000, seed=0):
+    name = "lasso" if loss == "lasso" else "logistic"
+    if name == "lasso":
+        S, y, _ = tsyn.large_sparse(seed=seed, n=n, d=d, density=0.01,
+                                    layout="bcsc")
+    else:
+        S, y, _ = tsyn.logistic_data(seed=seed, n=n, d=d, density=0.02,
+                                     layout="bcsc")
+    return tobj.make_problem(S, y, 0.3 if name == "lasso" else 0.5,
+                             loss=name, device=dev)
+
+
+def _sparse_inputs(S, R=8, K=3, seed=1):
+    g = torch.Generator(device=S.device).manual_seed(seed)
+    x = torch.randn(S.d_pad, generator=g, device=S.device) * 0.05
+    x[S.d:] = 0.0
+    idx = torch.randint(0, S.nblk, (R, K), generator=g, device=S.device,
+                        dtype=torch.int32)
+    idx[R // 2, -1] = idx[R // 2, 0]                   # duplicate draw
+    return x, S.matvec(x), idx
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+def test_sparse_gather_and_scatter_match_plain(cuda, store):
+    prob = _sparse("lasso", cuda)
+    S = prob.A.astype(torch.bfloat16) if store == "bf16" else prob.A
+    g = torch.Generator(device=cuda).manual_seed(2)
+    r = torch.randn(S.n, generator=g, device=cuda)
+    idx = torch.tensor([2, 0, 2, 5], dtype=torch.int32, device=cuda)
+    delta = torch.randn(4, BLOCK, generator=g, device=cuda) * 0.1
+    got = tss.sparse_gather_block_matvec(S.rows, S.vals, r, idx)
+    torch.testing.assert_close(
+        got, tss.sparse_gather_block_matvec_plain(S.rows, S.vals, r, idx),
+        rtol=1e-4, atol=1e-4)
+    zk = tss.sparse_scatter_block_update(S.rows, S.vals, r, idx, delta,
+                                         order=S.scatter_order())
+    torch.testing.assert_close(
+        zk, tss.sparse_scatter_block_update_plain(S.rows, S.vals, r, idx,
+                                                  delta),
+        rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, tss.sparse_gather_block_matvec(S.rows, S.vals,
+                                                           r, idx))
+    assert torch.equal(zk, tss.sparse_scatter_block_update(
+        S.rows, S.vals, r, idx, delta))
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
+def test_fused_sparse_matches_plain_and_repeats_bitwise(cuda, loss, store):
+    prob = _sparse(loss, cuda)
+    S = prob.A.astype(torch.bfloat16) if store == "bf16" else prob.A
+    x, z, idx = _sparse_inputs(S)
+    for k_eff in (None, 2):
+        args = (S.rows, S.vals, z, x, idx, prob.lam, prob.beta, prob.y)
+        got = tss.fused_sparse_shotgun_rounds(*args, loss=loss, k_eff=k_eff,
+                                              order=S.scatter_order())
+        want = tss.fused_sparse_shotgun_rounds_plain(*args, loss=loss,
+                                                     k_eff=k_eff)
+        for u, v in zip(got[:3], want[:3]):
+            torch.testing.assert_close(u, v, rtol=1e-4, atol=1e-4)
+        assert torch.all((got[3] - want[3]).abs() <= 1)
+        assert float(got[4]) == float(want[4]) == 0.0
+        again = tss.fused_sparse_shotgun_rounds(*args, loss=loss,
+                                                k_eff=k_eff)
+        for u, v in zip(got, again):
+            assert torch.equal(u, v)
+
+
+def test_fused_sparse_invariants_on_card(cuda):
+    prob = _sparse("logistic", cuda)
+    S = prob.A
+    x, z, idx = _sparse_inputs(S)
+    args = (S.rows, S.vals, z, x, idx, prob.lam, prob.beta, prob.y)
+    full = tss.fused_sparse_shotgun_rounds(*args, loss="logistic")
+    same = tss.fused_sparse_shotgun_rounds(*args, loss="logistic",
+                                           k_eff=torch.tensor(3, device=cuda))
+    for u, v in zip(full, same):
+        assert torch.equal(u, v)
+    xo, zo, _, _, h = tss.fused_sparse_shotgun_rounds(*args, loss="logistic",
+                                                      k_eff=0)
+    assert torch.equal(xo, x) and torch.equal(zo, z) and float(h) == 0.0
+    *_, h = tss.fused_sparse_shotgun_rounds(
+        *args, loss="logistic", guard_f=full[2].min() * 0.5)
+    assert float(h) == 1.0
+    # a NaN iterate in a column with padding slots reaches z[0] (0·NaN)
+    b, c = map(int, torch.nonzero(S.scatter_order().zmask)[0])
+    xn = x.clone()
+    xn[b * BLOCK + c] = float("nan")
+    one = torch.tensor([[b]], dtype=torch.int32, device=cuda)
+    xo, zo, _, _, h = tss.fused_sparse_shotgun_rounds(
+        S.rows, S.vals, z, xn, one, prob.lam, prob.beta, prob.y,
+        loss="logistic")
+    assert float(h) == 1.0 and bool(torch.isnan(zo[0]))
+    # the phase stamps: one per barrier, in order, outputs unchanged
+    stamps = torch.zeros(3 * idx.shape[0] + 4, dtype=torch.int64,
+                         device=cuda)
+    timed = tss.fused_sparse_shotgun_rounds(*args, loss="logistic",
+                                            stamps=stamps)
+    for u, v in zip(full, timed):
+        assert torch.equal(u, v)
+    assert bool(torch.all(stamps[1:] >= stamps[:-1])) and int(stamps[0]) > 0
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_sparse_solve_on_card_matches_cpu_and_counts_launches(cuda, fused):
+    S, y, _ = tsyn.large_sparse(seed=3, n=1500, d=3000, density=0.01,
+                                layout="bcsc")
+    spec = SolverSpec(loss="lasso", P=512, rounds=16, fused=fused)
+    rng = np.random.default_rng(0)
+    idx = np.stack([rng.permutation(24)[:4] for _ in range(16)]).astype(
+        np.int32)
+    res = {}
+    for dev in ("cpu", cuda):
+        prob = tobj.make_problem(S, y, 1.0, device=dev)
+        tss.reset_launches()
+        res[str(dev)] = tops.block_shotgun_solve(prob, spec=spec,
+                                                 blk_idx=idx)
+        counts = dict(tss.LAUNCHES)
+    assert counts == (
+        {"fused_sparse_shotgun_rounds": 2, "sparse_gather_block_matvec": 0,
+         "sparse_scatter_block_update": 0} if fused else
+        {"fused_sparse_shotgun_rounds": 0, "sparse_gather_block_matvec": 16,
+         "sparse_scatter_block_update": 16})
+    cpu, gpu = res["cpu"], res["cuda"]
+    torch.testing.assert_close(gpu.trace.objective.cpu(),
+                               cpu.trace.objective, rtol=1e-4, atol=0)
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=1e-4, atol=1e-4)
+    assert int(gpu.status) == 0 and gpu.z.shape == (1500,)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_warm_started_sparse_solves_are_bit_identical(cuda, fused):
+    """The warm-start margin z0 = A x0 is summed in a fixed order on the
+    card (no float atomics), so two warm-started solves agree bit for
+    bit."""
+    S, y, _ = tsyn.large_sparse_bcsc_on_device(seed=4, n=3000, d=20000,
+                                               density=0.002, device=cuda)
+    prob = tobj.make_problem(S, y, 0.5, device=cuda)
+    x0 = torch.randn(prob.d, generator=torch.Generator(cuda).manual_seed(1),
+                     device=cuda) * 0.1
+    spec = SolverSpec(loss="lasso", P=1024, rounds=16, fused=fused)
+    runs = [tops.block_shotgun_solve(
+        prob, torch.Generator(cuda).manual_seed(2), spec=spec, x0=x0)
+        for _ in range(2)]
+    assert torch.equal(runs[0].x, runs[1].x)
+    assert torch.equal(runs[0].z, runs[1].z)
+    assert torch.equal(runs[0].trace.objective, runs[1].trace.objective)
+    assert torch.equal(prob.A.matvec(x0), prob.A.matvec(x0))

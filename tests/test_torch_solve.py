@@ -26,7 +26,6 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.batched import batched_draw_blocks  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import health as thealth  # noqa: E402
-from repro_torch.core.objectives import Problem  # noqa: E402
 from repro_torch.core.spec import SolverSpec  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
@@ -181,19 +180,6 @@ def test_solve_rejections():
                                  blk_idx=np.zeros((8, 2), np.int32))
     with pytest.raises(ValueError, match="Generator"):
         tops.block_shotgun_solve(tp, spec=SolverSpec(P=128, rounds=8))
-
-
-def test_blocked_csc_problem_is_the_next_slice():
-    S, y, _ = jsyn.logistic_data(seed=4, n=64, d=128, density=0.1,
-                                 layout="bcsc")
-    jp = jobj.make_problem(S, y, lam=0.3, loss="logistic")
-    prob = Problem(A=jp.A, y=torch.tensor(np.asarray(jp.y)),
-                   lam=torch.tensor(0.3), loss="logistic")
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        tops.block_shotgun_solve(prob, spec=SolverSpec(loss="logistic",
-                                                       P=128, rounds=8,
-                                                       fused=True),
-                                 blk_idx=np.zeros((8, 1), np.int32))
 
 
 def _rounds_to(f, fstar, tol):
