@@ -28,6 +28,7 @@ card's name and power limit as nvidia-smi reports them, and as the last line
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
 import pathlib
@@ -60,6 +61,11 @@ S1_N, S1_D, S1_DENSITY = 19_996, 1_355_191, 3.36e-4
 S2_N, S2_D, S2_DENSITY = 20_242, 47_236, 0.0016
 S1_P, S2_K = 4096, 8                 # S1 drops to the largest K under P*
 S1_ROUNDS, S1_TWO_ROUNDS, S2_ROUNDS = 512, 64, 256
+# Sharded leg: rounds of the one-rank solves and of the two-rank solves
+# (K per rank: dense 4, S1 half of the single-device K, so P matches).
+SH_ROUND_ROUNDS, SH_LAUNCH_ROUNDS, SH_TWO_KERNEL_ROUNDS = 32, 256, 16
+SH_DENSE_ROUNDS2, SH_S1_ROUNDS2 = 64, 512
+ONE_RANK_BACKEND = "nccl"
 
 
 class SmokeFailure(RuntimeError):
@@ -275,20 +281,26 @@ def main() -> int:
                             ("fused sparse", lib.sp_fused_grid_blocks)):
         for a16 in (0, 1):
             for code, name in enumerate(("lasso", "logistic", "lasso_newton",
-                                         "logistic_newton")):
+                                         "logistic_newton", "delta lasso",
+                                         "delta logistic",
+                                         "delta lasso_newton",
+                                         "delta logistic_newton")):
                 blocks = grid_fn(a16, code)
                 require(blocks > 0, f"{prefix} cooperative grid for {name}: "
                         f"{blocks}")
                 print(f"{prefix} grid: {'bf16' if a16 else 'f32'} {name}: "
                       f"{blocks} blocks x 256 threads")
 
-    dense_kernels, dense_json = dense_leg(args)
-    sparse_kernels, sparse_json = sparse_leg(args)
+    dense_kernels, dense_json, dense_data = dense_leg(args)
+    sparse_kernels, sparse_json, sparse_data = sparse_leg(args)
+    sharded_kernels, sharded_json = sharded_leg(args, dense_data, sparse_data,
+                                                dense_json, sparse_json)
 
     # ---- report -----------------------------------------------------------
-    print(json.dumps({**dense_json, **sparse_json}))
+    print(json.dumps({**dense_json, **sparse_json, **sharded_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(json.dumps({"kernels": dense_kernels + sparse_kernels}))
+    print(json.dumps({"kernels": dense_kernels + sparse_kernels
+                      + sharded_kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -301,7 +313,8 @@ def kernel_entry(name, source, replaces, launches, t, shape):
                 launches=launches, max_abs_err=WORST[name][0],
                 max_rel_err=WORST[name][1], ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=b, bound_by=by,
-                library_ms=t.get("library_ms"), shape=shape)
+                library_ms=t.get("library_ms"), device_ms=t.get("device_ms"),
+                shape=shape)
 
 
 def dense_leg(args):
@@ -451,7 +464,8 @@ def dense_leg(args):
           spec, blk_idx=lasso_idx)
     solve("zeta logistic newton guarded fused f32", zeta, zeta_spec,
           generator=torch.Generator(device=dev).manual_seed(args.seed + 3))
-    counts = dict(sb.LAUNCHES)
+    counts = {k: sb.LAUNCHES[k] for k in (
+        "fused_shotgun_rounds", "gather_block_matvec", "scatter_block_update")}
     print(f"main path launches (dense leg): {counts}")
     require(all(v > 0 for v in counts.values()),
             f"a kernel of the dense leg never launched: {counts}")
@@ -501,7 +515,9 @@ def dense_leg(args):
         k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
                 bound_by=v["bound"][1]) for k, v in t_zeta.items()},
         "dense_solves": runs}
-    return kernels, extra
+    data = dict(lasso=lasso, zeta=zeta, La=La, Ly=Ly, Lm=Lm, Za=Za, Zy=Zy,
+                Zm=Zm, La16=La16, Za16=Za16, lasso_idx=lasso_idx)
+    return kernels, extra, data
 
 
 def print_times(groups):
@@ -519,14 +535,17 @@ def print_times(groups):
 
 
 def print_busy(label, fn):
+    """Print the device idle share over ``fn``; return it (None when the
+    profiler saw no device activity)."""
     busy, span, n_ev = device_busy(fn)
     if n_ev:
         print(f"profile {label}: device busy {busy:.3f} ms of a "
               f"{span:.3f} ms span ({n_ev} device events); idle share "
               f"{1 - busy / span:.3f}")
-    else:
-        print(f"profile {label}: not measured (the profiler saw no device "
-              "activity)")
+        return 1 - busy / span
+    print(f"profile {label}: not measured (the profiler saw no device "
+          "activity)")
+    return None
 
 
 def drawn_csr(S, idx):
@@ -763,7 +782,9 @@ def sparse_leg(args):
     solve("S1 lasso fused bf16", s1_16, s1_spec, blk_idx=s1_idx)
     solve("S2 logistic newton guarded fused f32", s2, s2_spec,
           generator=torch.Generator(device=dev).manual_seed(args.seed + 13))
-    counts = dict(ss.LAUNCHES)
+    counts = {k: ss.LAUNCHES[k] for k in (
+        "fused_sparse_shotgun_rounds", "sparse_gather_block_matvec",
+        "sparse_scatter_block_update")}
     print(f"main path launches (sparse leg): {counts}")
     require(all(v > 0 for v in counts.values()),
             f"a kernel of the sparse leg never launched: {counts}")
@@ -821,6 +842,492 @@ def sparse_leg(args):
         for k, v in t_s2.items()},
         "s1_device_ms": {k: v["device_ms"] for k, v in t_s1.items()},
         "sparse_phases": ph, "sparse_solves": runs}
+    data = dict(s1=s1, s2=s2, s1_16=s1_16, s2_16=s2_16, K1=K1, K2=K2,
+                s1_idx=s1_idx)
+    return kernels, extra, data
+
+
+# ---------------------------------------------------------------------------
+# The sharded leg: kernels #7 and #8, shotgun_sharded_solve on one NCCL rank
+# and on two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _solve_stats(label, fn, rounds, runs, sync, decrease=True):
+    """Run a solve under the host clock; print and record ms/round; check
+    a finite F trace (decreasing with ``decrease``), status OK."""
+    sync()
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    sec = time.perf_counter() - t0
+    f = res.trace.objective.cpu()
+    print(f"solve {label}: {rounds} rounds in {sec * 1e3:.2f} ms "
+          f"({sec / rounds * 1e3:.4f} ms/round); status {int(res.status)}; "
+          f"F[0]={float(f[0]):.7g} F[-1]={float(f[-1]):.7g}")
+    require(bool(torch.all(torch.isfinite(f))), f"{label}: non-finite F")
+    require(not decrease or float(f[-1]) < float(f[0]),
+            f"{label}: F did not decrease")
+    require(int(res.status) == 0, f"{label}: status {int(res.status)}")
+    runs.append(dict(label=label, ms_per_round=sec / rounds * 1e3,
+                     rounds=rounds))
+    return res
+
+
+def _host_loop(prob, engine, shards, K, R, idx, trace_every):
+    """The sharded schedule (merge="launch", synchronous) on one process:
+    every shard's engine.run against the same merged z, then z += Σ Δz.
+    Returns the F trace.  idx (shards, rounds, K)."""
+    from repro_torch.core import objectives as obj
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.engines import make_engine
+    from repro_torch.data.sparse import pad_feature_blocks
+    from repro_torch.kernels import ops
+    if engine == "sparse_fused":
+        A = pad_feature_blocks(prob.A, shards)
+        nb = A.nblk // shards
+        parts = [A.col_blocks(s * nb, (s + 1) * nb) for s in range(shards)]
+        y = prob.y
+        mask = torch.ones_like(y)
+        d_local = nb * A.block
+    else:
+        A, y, mask = ops.pad_problem(prob.A, prob.y)
+        A = sh.pad_features(A, shards * 128)
+        d_local = A.shape[1] // shards
+        parts = [A[:, s * d_local:(s + 1) * d_local].contiguous()
+                 for s in range(shards)]
+        mask = mask.float()
+    eng = make_engine(engine, loss=prob.loss, K=K)
+    p_eff = torch.tensor(K, dtype=torch.int32, device=y.device)
+    x_l = [torch.zeros(d_local, device=y.device) for _ in range(shards)]
+    z = torch.zeros(y.shape[0], device=y.device)
+    fs = []
+    for m in range(idx.shape[1] // R):
+        dz = []
+        for s in range(shards):
+            x_l[s], d, h = eng.run(parts[s], y, mask, prob.lam, prob.beta, z,
+                                   x_l[s], idx[s, m * R:(m + 1) * R], p_eff)
+            dz.append(d)
+        z = z + sum(dz[1:], dz[0])
+        if (m + 1) % trace_every == 0:
+            fs.append(obj.masked_data_loss(z, y, mask, prob.loss)
+                      + prob.lam * sum(torch.sum(torch.abs(v)) for v in x_l))
+    return torch.stack(fs)
+
+
+def _two_rank_main(rank, cfg):
+    """One of two gloo ranks on the card (spawned): the dense Lasso and S1
+    solves through shotgun_sharded_solve, a bf16 wire, and on rank 0 the
+    same schedule rerun through the port's engines on one process."""
+    sys.path.insert(0, cfg["src"])
+    import torch.distributed as dist
+    from repro_torch.core import objectives as obj
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.spec import SolverSpec
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import shotgun_block as sb
+    from repro_torch.kernels import shotgun_sparse as ss
+
+    dev = torch.device(cfg["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # a rank that waits for a collective the other never makes fails
+    # within minutes instead of gloo's default half hour
+    dist.init_process_group("gloo", store=dist.FileStore(cfg["store"], 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=240))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # The same problems as the parent's legs, drawn on the card from the
+    # same seeds; every rank checks that it holds what the other holds.
+    A, y, _ = syn.sparco_on_device(cfg["seed"], n=cfg["lasso_n"],
+                                   d=cfg["lasso_d"], device=dev)
+    lasso = obj.make_problem(A, y, 1.0, device=dev)
+    del A
+    lasso = lasso._replace(lam=0.1 * obj.lambda_max(lasso.A, lasso.y,
+                                                     "lasso"))
+    S, y, _ = syn.large_sparse_bcsc_on_device(
+        cfg["seed"] + 10, n=cfg["s1_n"], d=cfg["s1_d"],
+        density=cfg["s1_density"], device=dev)
+    s1 = obj.make_problem(S, y, 1.0, device=dev)
+    s1 = s1._replace(lam=0.1 * obj.lambda_max(s1.A, s1.y, "lasso"))
+    del S
+    mine = torch.stack([lasso.A.sum(), lasso.lam, s1.A.vals.float().sum(),
+                        s1.lam]).cpu()
+    both = [torch.zeros_like(mine) for _ in range(2)]
+    dist.all_gather(both, mine)
+    require(torch.equal(both[0], both[1]),
+            f"rank {rank}: the ranks drew different problems {both}")
+
+    g = torch.Generator(device=dev).manual_seed(cfg["seed"] + 40)
+    R = 8
+    cells = (("dense", lasso, "fused", cfg["dense_k"], cfg["dense_rounds"],
+              (-(-lasso.d // 128)) // 2),
+             ("S1", s1, "sparse_fused", cfg["s1_k"], cfg["s1_rounds"],
+              s1.A.nblk // 2))
+    sb.reset_launches()
+    ss.reset_launches()
+    out = {"runs": []}
+    idx_of, f_of = {}, {}
+    for tag, prob, engine, K, rounds, nblk_local in cells:
+        idx = torch.stack([draws(rounds, K, nblk_local, g, dup=False)
+                           for _ in range(2)])
+        idx_of[tag] = idx
+        spec = SolverSpec(loss="lasso", rounds=rounds, merge="launch")
+        kw = dict(spec=spec, engine=engine, K=K, rounds_per_launch=R,
+                  trace_every=1, blk_idx=idx)
+        res = _solve_stats(f"{tag} {engine} merge=launch R={R} K={K}/rank "
+                           f"2 gloo ranks [rank {rank}]",
+                           lambda: sh.shotgun_sharded_solve(prob, **kw),
+                           rounds, out["runs"], sync)
+        f_of[tag] = res.trace.objective
+        require(res.x.shape == (prob.d,) and res.z.shape == (prob.n,),
+                f"{tag}: result shapes {res.x.shape} {res.z.shape}")
+        if tag == "dense":
+            wire = sh.shotgun_sharded_solve(prob, compression="bf16", **kw)
+            f16, f32 = (float(wire.trace.objective[-1]),
+                        float(res.trace.objective[-1]))
+            rel = abs(f16 - f32) / abs(f32)
+            print(f"check {tag} bf16 wire vs f32 wire [rank {rank}]: final F "
+                  f"{f16:.7g} vs {f32:.7g}, rel {rel:.3e}")
+            require(rel <= 0.01, f"bf16 wire final F rel {rel:.3e} > 1%")
+            out["bf16_wire_rel"] = rel
+        if dev.type == "cuda":
+            # every rank runs the solve (its collectives need both); rank 0
+            # reports what its profiler saw of its own device work
+            busy, span, n_ev = device_busy(
+                lambda: sh.shotgun_sharded_solve(prob, **kw))
+            if rank == 0:
+                out[f"{tag}_idle_share"] = (1 - busy / span) if n_ev else None
+                print(f"profile {tag} 2 gloo ranks [rank 0's own device "
+                      "work]: " + (f"busy {busy:.3f} ms of {span:.3f} ms; "
+                                   f"idle share {1 - busy / span:.3f}"
+                                   if n_ev else "not measured"))
+        dist.barrier()
+    out["launches"] = {**sb.LAUNCHES, **ss.LAUNCHES}
+    dist.destroy_process_group()
+    if rank == 0:
+        for tag, prob, engine, K, rounds, _ in cells:
+            f_ref = _host_loop(prob, engine, 2, K, R, idx_of[tag], 1)
+            rel = trace_rel(f_of[tag], f_ref)
+            print(f"check {tag} 2 gloo ranks vs the engines' host loop on "
+                  f"one process: F trace max rel {rel:.3e}")
+            require(rel <= 1e-5, f"{tag}: 2-rank trace vs host loop rel "
+                    f"{rel:.3e} > 1e-5")
+            out[f"{tag}_vs_host_loop_rel"] = rel
+        with open(cfg["out"], "w") as fh:
+            json.dump(out, fh)
+
+
+def sharded_leg(args, dd, sd, dense_json, sparse_json):
+    """The sharded leg: kernels #7 and #8 against their plain versions at
+    the dense and sparse widths, their times, then the main path —
+    shotgun_sharded_solve on a one-rank NCCL group and on two gloo ranks
+    sharing the card."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.health import GuardConfig
+    from repro_torch.core.spec import SolverSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import shotgun_block as sb
+    from repro_torch.kernels import shotgun_sparse as ss
+
+    dev = torch.device(DEVICE)
+    B, R = 128, 8
+    g = torch.Generator(device=dev).manual_seed(args.seed + 30)
+    lasso, zeta = dd["lasso"], dd["zeta"]
+    s1, s2, K1, K2 = sd["s1"], sd["s2"], sd["K1"], sd["K2"]
+
+    # ---- #7 against its plain version at the dense widths -----------------
+    cases = [("lasso", "lasso", dd["La"], dd["La16"], dd["Ly"], dd["Lm"],
+              lasso, 8),
+             ("logistic_newton", "zeta", dd["Za"], dd["Za16"], dd["Zy"],
+              dd["Zm"], zeta, 2)]
+    for loss, tag, A32, A16, yv, m, prob, K in cases:
+        nblk = A32.shape[1] // B
+        idx = draws(R, K, nblk, g)
+        x0 = torch.randn(A32.shape[1], generator=g, device=dev) * 0.01
+        for store, A in (("f32", A32), ("bf16", A16)):
+            z0 = A.float() @ x0
+            for k_eff in (None, K - 1):
+                t = f"{loss} {tag} {store} K={K} R={R} k_eff={k_eff}"
+                fargs = (A, z0, x0, idx, prob.lam, prob.beta, yv, m)
+                got = sb.fused_shotgun_delta_rounds(*fargs, loss=loss,
+                                                    k_eff=k_eff)
+                want = sb.fused_shotgun_delta_rounds_plain(*fargs, loss=loss,
+                                                           k_eff=k_eff)
+                check("fused_shotgun_delta_rounds", t,
+                      [("x", got[0], want[0], 1.0),
+                       ("dz", got[1], want[1], 0.0)],
+                      health_pair=(got[2], want[2]))
+                require(float(got[2]) == 0.0, f"#7 [{t}] health tripped")
+                require_repeat(lambda: sb.fused_shotgun_delta_rounds(
+                    *fargs, loss=loss, k_eff=k_eff),
+                    f"fused_shotgun_delta_rounds [{t}]")
+            xn = x0.clone()
+            xn[int(idx[0, 0]) * B + 7] = float("nan")
+            nargs = (A, z0, xn, idx, prob.lam, prob.beta, yv, m)
+            h = sb.fused_shotgun_delta_rounds(*nargs, loss=loss)[2]
+            hp = sb.fused_shotgun_delta_rounds_plain(*nargs, loss=loss)[2]
+            require(float(h) == float(hp) == 1.0,
+                    f"#7 [{tag} {store}] NaN iterate: health {float(h)} "
+                    f"plain {float(hp)}")
+            print(f"check fused_shotgun_delta_rounds [{tag} {store}]: a NaN "
+                  "iterate trips health")
+
+    # ---- #8 against its plain version at S1 and S2 ------------------------
+    for tag, probs, K, loss in (("S1", (("f32", s1), ("bf16", sd["s1_16"])),
+                                 K1, "lasso"),
+                                ("S2", (("f32", s2), ("bf16", sd["s2_16"])),
+                                 K2, "logistic_newton")):
+        for store, prob in probs:
+            A = prob.A
+            od = A.scatter_order()
+            idx = draws(R, K, A.nblk, g)
+            x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
+            x0[A.d:] = 0.0
+            z0 = A.matvec(x0)
+            for k_eff in (None, K - 1):
+                t = f"{loss} {tag} {store} K={K} R={R} k_eff={k_eff}"
+                fargs = (A.rows, A.vals, z0, x0, idx, prob.lam, prob.beta,
+                         prob.y)
+                got = ss.fused_sparse_shotgun_delta_rounds(
+                    *fargs, loss=loss, k_eff=k_eff, order=od)
+                want = ss.fused_sparse_shotgun_delta_rounds_plain(
+                    *fargs, loss=loss, k_eff=k_eff)
+                check("fused_sparse_shotgun_delta_rounds", t,
+                      [("x", got[0], want[0], 1.0),
+                       ("dz", got[1], want[1], 0.0)],
+                      health_pair=(got[2], want[2]))
+                require(float(got[2]) == 0.0, f"#8 [{t}] health tripped")
+                require_repeat(lambda: ss.fused_sparse_shotgun_delta_rounds(
+                    *fargs, loss=loss, k_eff=k_eff, order=od),
+                    f"fused_sparse_shotgun_delta_rounds [{t}]")
+            # a NaN iterate in a column with padding slots reaches dz[0]
+            b, c = map(int, torch.nonzero(od.zmask)[0])
+            xn = x0.clone()
+            xn[b * B + c] = float("nan")
+            one = torch.full((1, 1), b, dtype=torch.int32, device=dev)
+            nargs = (A.rows, A.vals, z0, xn, one, prob.lam, prob.beta,
+                     prob.y)
+            _, dz, h = ss.fused_sparse_shotgun_delta_rounds(
+                *nargs, loss=loss, order=od)
+            hp = ss.fused_sparse_shotgun_delta_rounds_plain(*nargs,
+                                                            loss=loss)[2]
+            require(float(h) == float(hp) == 1.0
+                    and bool(torch.isnan(dz[0])),
+                    f"#8 [{tag} {store}] NaN iterate: health {float(h)}")
+            print(f"check fused_sparse_shotgun_delta_rounds [{tag} {store}]:"
+                  " a NaN iterate reaches dz[0] and trips health")
+
+    # ---- kernel times at the main path's shapes ---------------------------
+    def dense_times(A, yv, m, prob, K, loss, iters):
+        n, d = A.shape
+        idx = draws(R, K, d // B, g, dup=False)
+        x0, z0 = torch.zeros(d, device=dev), torch.zeros(n, device=dev)
+        fargs = (A, z0, x0, idx, prob.lam, prob.beta, yv, m)
+        newton = 1 if sb.resolve_loss(loss).newton else 0
+        fn = lambda: sb.fused_shotgun_delta_rounds(*fargs, loss=loss)  # noqa: E731
+        return dict(
+            ms=time_ms(fn, iters),
+            device_ms=device_ms(fn, ("fused_rounds_kernel",), iters),
+            plain_ms=time_ms(lambda: sb.fused_shotgun_delta_rounds_plain(
+                *fargs, loss=loss), max(2, iters // 4), warmup=1),
+            bound=bound(R * K * n * B * A.element_size()
+                        + 4 * (4 * n + 2 * d) + 4 * R * K,
+                        R * (4 + 3 * newton) * K * n * B))
+
+    def sparse_times(prob, K, loss, iters):
+        A = prob.A
+        n, d_pad, tile = A.n, A.d_pad, A.tile
+        od = A.scatter_order()
+        idx = draws(R, K, A.nblk, g, dup=False)
+        x0, z0 = torch.zeros(d_pad, device=dev), torch.zeros(n, device=dev)
+        fargs = (A.rows, A.vals, z0, x0, idx, prob.lam, prob.beta, prob.y)
+        newton = 1 if ss.resolve_loss(loss).newton else 0
+        slots = K * tile * B
+        fn = lambda: ss.fused_sparse_shotgun_delta_rounds(  # noqa: E731
+            *fargs, loss=loss, order=od)
+        return dict(
+            ms=time_ms(fn, iters),
+            device_ms=device_ms(fn, ("fused_sparse_kernel",), iters),
+            plain_ms=time_ms(lambda: ss.fused_sparse_shotgun_delta_rounds_plain(
+                *fargs, loss=loss), max(2, iters // 4), warmup=1),
+            bound=bound(R * slots * (4 + A.vals.element_size())
+                        + 4 * (3 * n + 2 * d_pad) + 4 * R * K,
+                        R * ((4 + 3 * newton) * slots + (K + 10) * n)))
+
+    t7 = {"lasso": dense_times(dd["La"], dd["Ly"], dd["Lm"], lasso, 8,
+                               "lasso", 20),
+          "zeta": dense_times(dd["Za"], dd["Zy"], dd["Zm"], zeta, 2,
+                              "logistic_newton", 10)}
+    t8 = {"S1": sparse_times(s1, K1, "lasso", 20),
+          "S2": sparse_times(s2, K2, "logistic_newton", 20)}
+    print_times([(f"{k} R={R}", {"fused_shotgun_delta_rounds": v})
+                 for k, v in t7.items()]
+                + [(f"{k} R={R}", {"fused_sparse_shotgun_delta_rounds": v})
+                   for k, v in t8.items()])
+
+    # ---- the main path: one NCCL rank, then two gloo ranks ----------------
+    runs = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    lasso_idx = dd["lasso_idx"]
+    K = lasso_idx.shape[1]
+    # the single-device fused solve that merge="round" on one rank follows
+    ref = ops.block_shotgun_solve(
+        lasso, spec=SolverSpec(loss="lasso", P=K * B, rounds=SH_ROUND_ROUNDS,
+                               fused=True),
+        blk_idx=lasso_idx[:SH_ROUND_ROUNDS])
+    sb.reset_launches()
+    ss.reset_launches()
+    dist.init_process_group(ONE_RANK_BACKEND, store=dist.FileStore(
+        os.path.join(tmp, "store1"), 1), rank=0, world_size=1)
+    dist.all_reduce(torch.zeros(1, device=dev))   # set up the communicator
+    sync()
+    rnd = _solve_stats(
+        "lasso fused merge=round 1 rank", lambda: sh.shotgun_sharded_solve(
+            lasso, spec=SolverSpec(loss="lasso", rounds=SH_ROUND_ROUNDS,
+                                   merge="round"),
+            engine="fused", K=K, blk_idx=lasso_idx[None, :SH_ROUND_ROUNDS]),
+        SH_ROUND_ROUNDS, runs, sync)
+    rel = trace_rel(rnd.trace.objective, ref.trace.objective)
+    print(f"check merge=round on 1 rank vs block_shotgun_solve(fused=True), "
+          f"same draws: F trace max rel {rel:.3e}")
+    require(rel <= TRACE_RTOL, f"merge=round vs fused solve rel {rel:.3e}")
+    n_launch = min(SH_LAUNCH_ROUNDS, lasso_idx.shape[0])
+    kw = dict(engine="fused", K=K, rounds_per_launch=R,
+              blk_idx=lasso_idx[None, :n_launch])
+    sync_res = _solve_stats(
+        f"lasso fused merge=launch R={R} 1 rank",
+        lambda: sh.shotgun_sharded_solve(lasso, spec=SolverSpec(
+            loss="lasso", rounds=n_launch, merge="launch"), **kw),
+        n_launch, runs, sync)
+    pipe = _solve_stats(
+        f"lasso fused merge=launch R={R} pipeline 1 rank",
+        lambda: sh.shotgun_sharded_solve(lasso, spec=SolverSpec(
+            loss="lasso", rounds=n_launch, merge="launch", pipeline=True),
+            **kw),
+        n_launch, runs, sync)
+    require(torch.equal(pipe.x, sync_res.x),
+            "pipelined x differs from synchronous x on one rank")
+    thin = _solve_stats(
+        f"lasso fused merge=launch R={R} trace_every=4 1 rank",
+        lambda: sh.shotgun_sharded_solve(lasso, spec=SolverSpec(
+            loss="lasso", rounds=n_launch, merge="launch"), trace_every=4,
+            **kw),
+        n_launch, runs, sync, decrease=False)
+    require(torch.equal(thin.x, sync_res.x)
+            and torch.equal(thin.trace.objective,
+                            sync_res.trace.objective[3::4]),
+            "trace_every=4 changed the trajectory")
+    zrel = rel_err(pipe.z, sync_res.z)[1]
+    print(f"check pipeline vs synchronous on 1 rank: x bit-identical, z rel "
+          f"{zrel:.3e}")
+    require(zrel <= 1e-5, f"pipelined z rel {zrel:.3e}")
+    s1_idx = sd["s1_idx"]
+    s1_run = _solve_stats(
+        f"S1 sparse_fused merge=launch R={R} K={K1} 1 rank",
+        lambda: sh.shotgun_sharded_solve(
+            s1, spec=SolverSpec(loss="lasso", rounds=s1_idx.shape[0],
+                                merge="launch"),
+            engine="sparse_fused", K=K1, rounds_per_launch=R,
+            blk_idx=s1_idx[None]),
+        s1_idx.shape[0], runs, sync)
+    _solve_stats(
+        f"S2 sparse_fused newton guarded merge=launch R={R} K={K2} 1 rank",
+        lambda: sh.shotgun_sharded_solve(
+            s2, spec=SolverSpec(loss="logistic", rounds=S2_ROUNDS,
+                                merge="launch", fused=True, newton=True,
+                                guard=GuardConfig()),
+            engine="sparse_fused", K=K2, rounds_per_launch=R,
+            seed=args.seed + 31),
+        S2_ROUNDS, runs, sync)
+    for engine, prob, KK, idx in (("block", lasso, K, lasso_idx),
+                                  ("sparse_block", s1, K1, s1_idx)):
+        _solve_stats(
+            f"{engine} merge=round 1 rank", lambda: sh.shotgun_sharded_solve(
+                prob, spec=SolverSpec(loss="lasso",
+                                      rounds=SH_TWO_KERNEL_ROUNDS,
+                                      merge="round"),
+                engine=engine, K=KK,
+                blk_idx=idx[None, :SH_TWO_KERNEL_ROUNDS]),
+            SH_TWO_KERNEL_ROUNDS, runs, sync)
+    one_rank_counts = {**sb.LAUNCHES, **ss.LAUNCHES}
+    idle = {}
+    for label, prob, eng, KK, idx in (
+            ("lasso fused merge=launch 1 rank", lasso, "fused", K,
+             lasso_idx[:n_launch]),
+            ("S1 sparse_fused merge=launch 1 rank", s1, "sparse_fused", K1,
+             s1_idx)):
+        idle[label] = print_busy(label, lambda: sh.shotgun_sharded_solve(
+            prob, spec=SolverSpec(loss="lasso", rounds=idx.shape[0],
+                                  merge="launch"),
+            engine=eng, K=KK, rounds_per_launch=R, blk_idx=idx[None]))
+    dist.destroy_process_group()
+
+    cfg = dict(src=str(ROOT / "src"), device=DEVICE, seed=args.seed,
+               store=os.path.join(tmp, "store2"),
+               out=os.path.join(tmp, "two_ranks.json"),
+               lasso_n=LASSO_N, lasso_d=LASSO_D, s1_n=S1_N, s1_d=S1_D,
+               s1_density=S1_DENSITY, dense_k=K // 2, s1_k=max(1, K1 // 2),
+               dense_rounds=SH_DENSE_ROUNDS2, s1_rounds=SH_S1_ROUNDS2)
+    t0 = time.perf_counter()
+    mp.spawn(_two_rank_main, args=(cfg,), nprocs=2, join=True)
+    print(f"two gloo ranks: spawned, solved, joined in "
+          f"{time.perf_counter() - t0:.1f} s")
+    with open(cfg["out"]) as fh:
+        two = json.load(fh)
+    path = ("fused_shotgun_delta_rounds", "fused_sparse_shotgun_delta_rounds",
+            "gather_block_matvec", "scatter_block_update",
+            "sparse_gather_block_matvec", "sparse_scatter_block_update")
+    counts = {k: one_rank_counts[k] + two["launches"][k] for k in path}
+    print(f"main path launches (sharded leg; one rank + rank 0 of two): "
+          f"{counts}")
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel of the sharded leg never launched: {counts}")
+
+    single = {r["label"]: r["ms_per_round"] for r in
+              dense_json["dense_solves"] + sparse_json["sparse_solves"]}
+    print(f"time per round, single-device fused solve at the same size: "
+          f"lasso {single.get('lasso fused f32', float('nan')):.4f} ms "
+          f"(K=8), S1 {single.get('S1 lasso fused f32', float('nan')):.4f}"
+          f" ms (K={K1})")
+
+    kernels = [
+        kernel_entry("fused_shotgun_delta_rounds",
+                     "src/repro_torch/csrc/shotgun_block.cu",
+                     "src/repro/kernels/shotgun_block.py:572",
+                     counts["fused_shotgun_delta_rounds"], t7["lasso"],
+                     f"lasso f32 n={LASSO_N} d={LASSO_D} K=8 R={R}"),
+        kernel_entry("fused_sparse_shotgun_delta_rounds",
+                     "src/repro_torch/csrc/shotgun_sparse.cu",
+                     "src/repro/kernels/shotgun_sparse.py:420",
+                     counts["fused_sparse_shotgun_delta_rounds"], t8["S1"],
+                     f"S1 lasso f32 n={S1_N} d={S1_D} K={K1} R={R}"),
+    ]
+    extra = {"sharded": {
+        "kernel_times": {
+            k: dict(ms=v["ms"], device_ms=v["device_ms"],
+                    plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                    bound_by=v["bound"][1])
+            for k, v in {**{f"#7 {a}": b for a, b in t7.items()},
+                         **{f"#8 {a}": b for a, b in t8.items()}}.items()},
+        "one_rank_backend": ONE_RANK_BACKEND, "one_rank_solves": runs,
+        "one_rank_idle_share": idle, "two_gloo_ranks": two,
+        "single_device_ms_per_round": single}}
     return kernels, extra
 
 

@@ -140,6 +140,15 @@ def soft_threshold(v: torch.Tensor, t) -> torch.Tensor:
     return torch.copysign(torch.clamp_min(v.abs() - t, 0.0), v)
 
 
+def shooting_delta(x_j, g_j, lam, beta):
+    """Signed-form coordinate update (equivalent to Eq. 5 on the duplicated
+    problem): minimize the Assumption-2.1 quadratic model plus λ|x_j + δ|.
+
+        x_j_new = S(x_j − g_j / β, λ / β),   δ = x_j_new − x_j
+    """
+    return soft_threshold(x_j - g_j / beta, lam / beta) - x_j
+
+
 def masked_data_loss(z: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                      loss: str) -> torch.Tensor:
     """Data loss restricted to real samples (``mask`` zeros out the rows

@@ -21,8 +21,9 @@ class SolverSpec:
     P         target coordinate parallelism per round.  Block solvers
               round up to K = ceil(P / 128) blocks.
     rounds    number of (outer) rounds.
-    merge     sharded merge policy ("round" / "async" / ...); ignored
-              elsewhere.
+    merge     sharded merge cadence, "round" (one Δz all-reduce per round)
+              or "launch" (``rounds_per_launch`` stale rounds per merge);
+              ``core.sharded`` rejects any other value.  Ignored elsewhere.
     pipeline  sharded double-buffered merge pipeline; ignored elsewhere.
     guard     ``health.GuardConfig`` enabling the divergence sentinel +
               adaptive-P backoff (DESIGN §9), or None.

@@ -79,6 +79,15 @@ scatter_kernel(const TA* __restrict__ A, long long d,
 // This reads each drawn block twice per round (gather, then scatter), so it
 // can reach at most half the bound; keeping A_B on chip between the two
 // phases is the next step.
+//
+// EMIT_DZ = true is fused_shotgun_delta_rounds — replaces repro/kernels/
+// shotgun_block.py::fused_shotgun_delta_rounds (the emit_dz variant of the
+// same Pallas body), the round engine of the sharded driver.  z0 is a
+// read-only margin snapshot; launch start copies it into the live view
+// (the z buffer) and zeroes dz; the scatter adds each row's Σ_k A_B δ_k to
+// the view and to dz and raises health on a non-finite view row; there are
+// no loss partials, F or nnz, and block 0's round end is the x update
+// alone.  Same bound as above with dz written once instead of z.
 // ---------------------------------------------------------------------------
 struct FusedArgs {
   const void* A;
@@ -97,18 +106,18 @@ struct FusedArgs {
   float* f;           // (R,)
   int* nnz;           // (R,)
   float* health;      // ()  0 → 1 when a round's F is non-finite or > guard
+                      //     (EMIT_DZ: when a row of the view is non-finite)
   long long n, d;
   int R, K, rows, T;
+  const float* z0;    // (n,)  EMIT_DZ: read-only margin snapshot (z = view)
+  float* dz;          // (n,)  EMIT_DZ: out, the launch's own Σ A_B δ
 };
 
-template <int LOSS>
-__device__ __forceinline__ void round_end(const FusedArgs& a, int rd,
-                                          const int* idx, float lam,
-                                          float guard, long long n_tiles,
-                                          float (*s)[THREADS], int* s_nnz) {
+// x[blk_k] += δ_k in k order.  Thread c owns column c of every drawn
+// block, so duplicate draws accumulate in k order (Alg. 2's multiset
+// semantics).
+__device__ __forceinline__ void x_update(const FusedArgs& a, const int* idx) {
   const int tid = threadIdx.x;
-  // Thread c owns column c of every drawn block, so duplicate draws
-  // accumulate in k order (Alg. 2's multiset semantics).
   if (tid < BLOCK) {
     for (int k = 0; k < a.K; ++k) {
       const long long o = (long long)idx[k] * BLOCK + tid;
@@ -116,6 +125,15 @@ __device__ __forceinline__ void round_end(const FusedArgs& a, int rd,
     }
   }
   __syncthreads();
+}
+
+template <int LOSS>
+__device__ __forceinline__ void round_end(const FusedArgs& a, int rd,
+                                          const int* idx, float lam,
+                                          float guard, long long n_tiles,
+                                          float (*s)[THREADS], int* s_nnz) {
+  const int tid = threadIdx.x;
+  x_update(a, idx);
   // One block runs this while the grid waits at the next round's barrier,
   // so keep UNROLL independent loads in flight per thread.
   float l1 = 0.f, data = 0.f;
@@ -165,7 +183,7 @@ __device__ __forceinline__ void round_end(const FusedArgs& a, int rd,
   __syncthreads();
 }
 
-template <typename TA, int LOSS, bool NEWTON>
+template <typename TA, int LOSS, bool NEWTON, bool EMIT_DZ>
 __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float s[2][THREADS];
@@ -178,8 +196,15 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
 
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < a.n;
        i += (long long)gridDim.x * THREADS) {
-    float rr, ww, ll;
-    loss_tile<LOSS>(a.z[i], a.y[i], a.m[i], rr, ww, ll);
+    float rr, ww, ll, zi;
+    if constexpr (EMIT_DZ) {
+      zi = a.z0[i];
+      a.z[i] = zi;
+      a.dz[i] = 0.f;
+    } else {
+      zi = a.z[i];
+    }
+    loss_tile<LOSS>(zi, a.y[i], a.m[i], rr, ww, ll);
     a.r[i] = rr;
     if constexpr (NEWTON) a.w[i] = ww;
   }
@@ -209,10 +234,13 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
       __syncthreads();
     }
     grid.sync();
-    // 3: z += A_B δ; refresh r (and w); loss partial per 32-row tile.
+    // 3: z += A_B δ (EMIT_DZ: also dz); refresh r (and w); loss partial
+    // per 32-row tile.
     for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const float ll = scatter_tile<TA, LOSS, NEWTON, true>(
-          A, a.d, idx, a.K, a.delta, tile, a.z, a.z, a.y, a.m, a.r, a.w);
+      const float ll = scatter_tile<TA, LOSS, NEWTON, true, EMIT_DZ>(
+          A, a.d, idx, a.K, a.delta, tile, a.z, a.z, a.y, a.m, a.r, a.w,
+          a.dz, a.health);
+      if constexpr (EMIT_DZ) continue;
       if ((threadIdx.x & 31) == 0) s[0][threadIdx.x >> 5] = ll;
       __syncthreads();
       if (threadIdx.x == 0) {
@@ -225,7 +253,12 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
     grid.sync();
     // 4: round end.  The next round's gather does not read x or δ, and its
     // grid.sync() orders this block's writes before the next δ phase.
-    if (blockIdx.x == 0) round_end<LOSS>(a, rd, idx, lam, guard, n_tiles, s, s_nnz);
+    if (blockIdx.x == 0) {
+      if constexpr (EMIT_DZ)
+        x_update(a, idx);
+      else
+        round_end<LOSS>(a, rd, idx, lam, guard, n_tiles, s, s_nnz);
+    }
   }
 }
 
@@ -245,24 +278,47 @@ static int coop_blocks(const void* kern) {
   return per_sm * sms;
 }
 
-template <typename TA, int LOSS, bool NEWTON>
+template <typename TA, int LOSS, bool NEWTON, bool EMIT_DZ>
 static const void* fused_kernel() {
-  return reinterpret_cast<const void*>(&fused_rounds_kernel<TA, LOSS, NEWTON>);
+  return reinterpret_cast<const void*>(
+      &fused_rounds_kernel<TA, LOSS, NEWTON, EMIT_DZ>);
 }
 
-template <typename TA>
+template <typename TA, bool EMIT_DZ>
 static const void* pick_fused(int loss) {
   switch (loss) {
-    case 0: return fused_kernel<TA, LOSS_LASSO, false>();
-    case 1: return fused_kernel<TA, LOSS_LOGISTIC, false>();
-    case 2: return fused_kernel<TA, LOSS_LASSO, true>();
-    case 3: return fused_kernel<TA, LOSS_LOGISTIC, true>();
+    case 0: return fused_kernel<TA, LOSS_LASSO, false, EMIT_DZ>();
+    case 1: return fused_kernel<TA, LOSS_LOGISTIC, false, EMIT_DZ>();
+    case 2: return fused_kernel<TA, LOSS_LASSO, true, EMIT_DZ>();
+    case 3: return fused_kernel<TA, LOSS_LOGISTIC, true, EMIT_DZ>();
     default: return nullptr;
   }
 }
 
-static const void* pick_fused(int a_bf16, int loss) {
-  return a_bf16 ? pick_fused<__nv_bfloat16>(loss) : pick_fused<float>(loss);
+// Loss code: bit 0 logistic, bit 1 Newton, bit 2 EMIT_DZ (the delta kernel).
+static const void* pick_fused(int a_bf16, int code) {
+  const int loss = code & 3;
+  if (code & ~7) return nullptr;
+  if (code & 4)
+    return a_bf16 ? pick_fused<__nv_bfloat16, true>(loss)
+                  : pick_fused<float, true>(loss);
+  return a_bf16 ? pick_fused<__nv_bfloat16, false>(loss)
+                : pick_fused<float, false>(loss);
+}
+
+static int launch_fused(const void* kern, FusedArgs a, void* stream) {
+  if (!kern) return (int)cudaErrorInvalidValue;
+  const int blocks = coop_blocks(kern);
+  if (blocks <= 0) return blocks < 0 ? -blocks : (int)cudaErrorInvalidConfiguration;
+  void* params[] = {&a};
+  cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(THREADS),
+                                              params, 0,
+                                              static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // clear it; the launch never ran
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -299,7 +355,8 @@ int sb_scatter_block_update(const void* A, int a_bf16, const float* z_in,
 }
 
 // Grid size (CUDA blocks) of the fused launch for this A type and loss
-// code (bit 0 logistic, bit 1 Newton); negative CUDA error on failure.
+// code (bit 0 logistic, bit 1 Newton, bit 2 the delta kernel); negative
+// CUDA error on failure.
 int sb_fused_grid_blocks(int a_bf16, int loss) {
   const void* kern = pick_fused(a_bf16, loss);
   if (!kern) return -(int)cudaErrorInvalidValue;
@@ -313,21 +370,25 @@ int sb_fused_shotgun_rounds(const void* A, int a_bf16, int loss,
                             float* delta, float* lpart, float* f, int* nnz,
                             float* health, long long n, long long d, int R,
                             int K, int rows, int T, void* stream) {
-  const void* kern = pick_fused(a_bf16, loss);
-  if (!kern) return (int)cudaErrorInvalidValue;
-  const int blocks = coop_blocks(kern);
-  if (blocks <= 0) return blocks < 0 ? -blocks : (int)cudaErrorInvalidConfiguration;
+  if (loss & ~3) return (int)cudaErrorInvalidValue;
   FusedArgs a{A, y, m, idx, scal, z, x, r, w, gpart, hpart, delta, lpart,
-              f, nnz, health, n, d, R, K, rows, T};
-  void* params[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(THREADS),
-                                              params, 0,
-                                              static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) {
-    cudaGetLastError();   // clear it; the launch never ran
-    return (int)e;
-  }
-  return (int)cudaGetLastError();
+              f, nnz, health, n, d, R, K, rows, T, nullptr, nullptr};
+  return launch_fused(pick_fused(a_bf16, loss), a, stream);
+}
+
+// The delta kernel: z0 read-only, view (n,) scratch, dz (n,) out, x in/out.
+int sb_fused_shotgun_delta_rounds(const void* A, int a_bf16, int loss,
+                                  const float* y, const float* m,
+                                  const int* idx, const float* scal,
+                                  const float* z0, float* view, float* dz,
+                                  float* x, float* r, float* w, float* gpart,
+                                  float* hpart, float* delta, float* health,
+                                  long long n, long long d, int R, int K,
+                                  int rows, int T, void* stream) {
+  if (loss & ~3) return (int)cudaErrorInvalidValue;
+  FusedArgs a{A, y, m, idx, scal, view, x, r, w, gpart, hpart, delta,
+              nullptr, nullptr, nullptr, health, n, d, R, K, rows, T, z0, dz};
+  return launch_fused(pick_fused(a_bf16, loss | 4), a, stream);
 }
 
 }  // extern "C"

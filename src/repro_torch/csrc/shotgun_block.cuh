@@ -164,13 +164,15 @@ __device__ __forceinline__ void reduce_item(
 // lane 0 writes z_out[i] = z_in[i] + Σ.  No atomics: each row has one owner.
 // FUSED also refreshes the round-start residual r (and Newton weights w)
 // from the new margin and returns this warp's loss sum over its rows (in
-// row order) in lane 0.
-template <typename TA, int LOSS, bool NEWTON, bool FUSED>
+// row order) in lane 0.  EMIT_DZ also adds each row's Σ to dz[i] and sets
+// health[0] = 1 when the new margin is not finite (every row is written
+// every round, so this checks the whole margin view).
+template <typename TA, int LOSS, bool NEWTON, bool FUSED, bool EMIT_DZ = false>
 __device__ __forceinline__ float scatter_tile(
     const TA* __restrict__ A, long long d, const int* __restrict__ idx, int K,
     const float* delta, long long tile, const float* z_in, float* z_out,
     const float* __restrict__ y, const float* __restrict__ m, float* r,
-    float* w) {
+    float* w, float* dz = nullptr, float* health = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long i0 = tile * SCATTER_ROWS + warp * ROWS_PER_WARP;
   float acc[ROWS_PER_WARP];
@@ -200,6 +202,10 @@ __device__ __forceinline__ float scatter_tile(
       const long long i = i0 + j;
       const float zn = ldcg(z_in + i) + v;
       z_out[i] = zn;
+      if constexpr (EMIT_DZ) {
+        dz[i] = ldcg(dz + i) + v;
+        if (!isfinite(zn)) health[0] = 1.f;   // max-accumulated, no atomics
+      }
       if constexpr (FUSED) {
         float rr, ww, ll;
         loss_tile<LOSS>(zn, y[i], m[i], rr, ww, ll);

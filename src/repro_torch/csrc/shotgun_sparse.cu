@@ -135,19 +135,11 @@ __device__ __forceinline__ void scatter_runs(
   }
 }
 
-// Combine tile q (rows q·256 ..): z_out[i] = z_in[i] + Σ_k buf[k][i] in k
-// order (+ the padding terms on row 0), zeroing buf as it is read.  FUSED
-// also refreshes r (and w) from the new margin and returns this thread's
-// per-sample loss (0 past n).
-template <int LOSS, bool NEWTON, bool FUSED>
-__device__ __forceinline__ float combine_row(long long i, long long n, int K,
-                                             const float* z_in, float* z_out,
-                                             float* buf,
-                                             const float* padterm,
-                                             const float* __restrict__ y,
-                                             float* r, float* w) {
-  if (i >= n) return 0.f;
-  float acc = ldcg(z_in + i);
+// acc + Σ_k buf[k][i] in k order (+ the padding terms on row 0), zeroing
+// buf as it is read.
+__device__ __forceinline__ float combine_sum(float acc, long long i,
+                                             long long n, int K, float* buf,
+                                             const float* padterm) {
   int k = 0;
   for (; k + UNROLL <= K; k += UNROLL) {
     float v[UNROLL];
@@ -165,6 +157,21 @@ __device__ __forceinline__ float combine_row(long long i, long long n, int K,
   }
   if (i == 0)
     for (int kk = 0; kk < K; ++kk) acc += ldcg(padterm + kk);
+  return acc;
+}
+
+// Combine tile q (rows q·256 ..): z_out[i] = z_in[i] + Σ_k buf[k][i].  FUSED
+// also refreshes r (and w) from the new margin and returns this thread's
+// per-sample loss (0 past n).
+template <int LOSS, bool NEWTON, bool FUSED>
+__device__ __forceinline__ float combine_row(long long i, long long n, int K,
+                                             const float* z_in, float* z_out,
+                                             float* buf,
+                                             const float* padterm,
+                                             const float* __restrict__ y,
+                                             float* r, float* w) {
+  if (i >= n) return 0.f;
+  const float acc = combine_sum(ldcg(z_in + i), i, n, K, buf, padterm);
   z_out[i] = acc;
   if constexpr (FUSED) {
     float rr, ww, ll;
@@ -174,6 +181,26 @@ __device__ __forceinline__ float combine_row(long long i, long long n, int K,
     return ll;
   }
   return 0.f;
+}
+
+// The delta kernel's combine: c = Σ_k buf[k][i] (+ the padding terms on
+// row 0) is added to the live view and to dz; a non-finite view row raises
+// health (every row is visited every round); r (and w) from the new view.
+template <int LOSS, bool NEWTON>
+__device__ __forceinline__ void combine_delta_row(
+    long long i, long long n, int K, float* view, float* dz, float* buf,
+    const float* padterm, const float* __restrict__ y, float* r, float* w,
+    float* health) {
+  if (i >= n) return;
+  const float c = combine_sum(0.f, i, n, K, buf, padterm);
+  const float zn = ldcg(view + i) + c;
+  view[i] = zn;
+  dz[i] = ldcg(dz + i) + c;
+  if (!isfinite(zn)) health[0] = 1.f;   // max-accumulated, no atomics
+  float rr, ww, ll;
+  loss_tile<LOSS>(zn, y[i], 1.f, rr, ww, ll);
+  r[i] = rr;
+  if constexpr (NEWTON) w[i] = ww;
 }
 
 }  // namespace
@@ -243,7 +270,17 @@ combine_kernel(const float* z_in, float* z_out, float* buf,
 //      x[blk_k] += δ_k in k order (one owner per distinct drawn block)
 // After the last round one more A/B pair finishes it.  Every reduction has
 // a fixed owner and order, independent of the grid size, so repeat runs
-// are bit-identical.  With a non-null `stamps`, block 0 records clock64()
+// are bit-identical.
+//
+// EMIT_DZ = true is fused_sparse_shotgun_delta_rounds — replaces repro/
+// kernels/shotgun_sparse.py::fused_sparse_shotgun_delta_rounds (the
+// emit_dz variant of the same Pallas body), the sharded driver's round
+// engine.  z0 is read-only; launch start copies it into the live view (the
+// z buffer) and zeroes dz; phase A drops the |x| / nnz partials, phase B
+// drops block 0's finish, and phase C adds each row's combined value to the
+// view and to dz and raises health on a non-finite view row (the padding
+// term's NaN reaches row 0 there).  No final A/B pair.  Bound per launch:
+// R·K·tile·128·(4 + value bytes) + 4·(3n + 2·d_pad).  With a non-null `stamps`, block 0 records clock64()
 // at launch start, after every grid.sync() and at the end (3R + 4 stamps):
 // the per-phase breakdown of a launch, barrier included.
 // ---------------------------------------------------------------------------
@@ -269,9 +306,12 @@ struct SparseArgs {
   float* f;           // (R,)
   int* nnz;           // (R,)
   float* health;      // ()  0 → 1 when a round's F is non-finite or > guard
+                      //     (EMIT_DZ: when a row of the view is non-finite)
   long long* stamps;  // (3R + 4,) phase clock stamps, or null
   long long n, d_pad;
   int R, K, tile;
+  const float* z0;    // (n,)  EMIT_DZ: read-only margin snapshot (z = view)
+  float* dz;          // (n,)  EMIT_DZ: out, the launch's own Σ A_B δ
 };
 
 __device__ __forceinline__ void x_partial(const SparseArgs& a, int q,
@@ -321,7 +361,7 @@ __device__ __forceinline__ void finish_round(const SparseArgs& a, int rd,
   }
 }
 
-template <typename TV, int LOSS, bool NEWTON>
+template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ>
 __global__ void __launch_bounds__(THREADS)
 fused_sparse_kernel(SparseArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -336,7 +376,7 @@ fused_sparse_kernel(SparseArgs a) {
   const int nq = tile * BLOCK / THREADS;          // run-sum items per k
   const int n_runs = K * nq;
   const int n_lt = (int)((n + THREADS - 1) / THREADS);
-  const int n_xc = (int)((a.d_pad + XCHUNK - 1) / XCHUNK);
+  const int n_xc = EMIT_DZ ? 0 : (int)((a.d_pad + XCHUNK - 1) / XCHUNK);
   const int sub = threadIdx.x >> 7, c = threadIdx.x & (BLOCK - 1);
   const bool stamp = a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
   int ns = 0;
@@ -345,8 +385,15 @@ fused_sparse_kernel(SparseArgs a) {
   // launch start: r (and w) from z0; the scatter buffer zeroed.
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
        i += (long long)gridDim.x * THREADS) {
-    float rr, ww, ll;
-    loss_tile<LOSS>(a.z[i], a.y[i], 1.f, rr, ww, ll);
+    float rr, ww, ll, zi;
+    if constexpr (EMIT_DZ) {
+      zi = a.z0[i];
+      a.z[i] = zi;
+      a.dz[i] = 0.f;
+    } else {
+      zi = a.z[i];
+    }
+    loss_tile<LOSS>(zi, a.y[i], 1.f, rr, ww, ll);
     a.r[i] = rr;
     if constexpr (NEWTON) a.w[i] = ww;
   }
@@ -357,6 +404,7 @@ fused_sparse_kernel(SparseArgs a) {
   if (stamp) a.stamps[ns++] = clock64();
 
   for (int rd = 0; rd <= a.R; ++rd) {
+    if (EMIT_DZ && rd == a.R) break;   // no round end to finish
     const int* idx = a.idx + (long long)min(rd, a.R - 1) * K;
     // A: δ of round rd; |x| / nnz partials of round rd − 1.
     const int n_a = (rd < a.R ? n_pair : 0) + (rd > 0 ? n_xc : 0);
@@ -378,7 +426,7 @@ fused_sparse_kernel(SparseArgs a) {
     grid.sync();
     if (stamp) a.stamps[ns++] = clock64();
     // B: run sums of round rd; block 0 finishes round rd − 1.
-    if (rd > 0 && blockIdx.x == 0)
+    if (!EMIT_DZ && rd > 0 && blockIdx.x == 0)
       finish_round<LOSS>(a, rd - 1, lam, guard, n_xc, n_lt, s, si);
     if (rd == a.R) {
       if (stamp) a.stamps[ns++] = clock64();
@@ -395,10 +443,15 @@ fused_sparse_kernel(SparseArgs a) {
     for (int it = blockIdx.x; it < n_lt + n_pair; it += gridDim.x) {
       if (it < n_lt) {
         const long long i = (long long)it * THREADS + threadIdx.x;
-        const float ll = combine_row<LOSS, NEWTON, true>(
-            i, n, K, a.z, a.z, a.buf, a.padterm, a.y, a.r, a.w);
-        const float tot = block_sum(ll, s);
-        if (threadIdx.x == 0) a.lpart[it] = tot;
+        if constexpr (EMIT_DZ) {
+          combine_delta_row<LOSS, NEWTON>(i, n, K, a.z, a.dz, a.buf,
+                                          a.padterm, a.y, a.r, a.w, a.health);
+        } else {
+          const float ll = combine_row<LOSS, NEWTON, true>(
+              i, n, K, a.z, a.z, a.buf, a.padterm, a.y, a.r, a.w);
+          const float tot = block_sum(ll, s);
+          if (threadIdx.x == 0) a.lpart[it] = tot;
+        }
       } else {
         const int k = (it - n_lt) * HALF + sub;
         if (k < K) {
@@ -439,24 +492,47 @@ int sparse_coop_blocks(const void* kern) {
   return (per_sm < 2 ? per_sm : 2) * sms;
 }
 
-template <typename TV, int LOSS, bool NEWTON>
+template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ>
 const void* sparse_kernel() {
-  return reinterpret_cast<const void*>(&fused_sparse_kernel<TV, LOSS, NEWTON>);
+  return reinterpret_cast<const void*>(
+      &fused_sparse_kernel<TV, LOSS, NEWTON, EMIT_DZ>);
 }
 
-template <typename TV>
+template <typename TV, bool EMIT_DZ>
 const void* pick_sparse(int loss) {
   switch (loss) {
-    case 0: return sparse_kernel<TV, LOSS_LASSO, false>();
-    case 1: return sparse_kernel<TV, LOSS_LOGISTIC, false>();
-    case 2: return sparse_kernel<TV, LOSS_LASSO, true>();
-    case 3: return sparse_kernel<TV, LOSS_LOGISTIC, true>();
+    case 0: return sparse_kernel<TV, LOSS_LASSO, false, EMIT_DZ>();
+    case 1: return sparse_kernel<TV, LOSS_LOGISTIC, false, EMIT_DZ>();
+    case 2: return sparse_kernel<TV, LOSS_LASSO, true, EMIT_DZ>();
+    case 3: return sparse_kernel<TV, LOSS_LOGISTIC, true, EMIT_DZ>();
     default: return nullptr;
   }
 }
 
-const void* pick_sparse(int v_bf16, int loss) {
-  return v_bf16 ? pick_sparse<__nv_bfloat16>(loss) : pick_sparse<float>(loss);
+// Loss code: bit 0 logistic, bit 1 Newton, bit 2 EMIT_DZ (the delta kernel).
+const void* pick_sparse(int v_bf16, int code) {
+  const int loss = code & 3;
+  if (code & ~7) return nullptr;
+  if (code & 4)
+    return v_bf16 ? pick_sparse<__nv_bfloat16, true>(loss)
+                  : pick_sparse<float, true>(loss);
+  return v_bf16 ? pick_sparse<__nv_bfloat16, false>(loss)
+                : pick_sparse<float, false>(loss);
+}
+
+int launch_sparse(const void* kern, SparseArgs a, void* stream) {
+  if (!kern) return (int)cudaErrorInvalidValue;
+  const int blocks = sparse_coop_blocks(kern);
+  if (blocks <= 0) return blocks < 0 ? -blocks : (int)cudaErrorInvalidConfiguration;
+  void* params[] = {&a};
+  cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(THREADS),
+                                              params, 0,
+                                              static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // clear it; the launch never ran
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -502,7 +578,8 @@ int sp_scatter_block_update(const int* rows, const void* vals, int v_bf16,
 }
 
 // Grid size (CUDA blocks) of the fused launch for this value type and loss
-// code (bit 0 logistic, bit 1 Newton); negative CUDA error on failure.
+// code (bit 0 logistic, bit 1 Newton, bit 2 the delta kernel); negative
+// CUDA error on failure.
 int sp_fused_grid_blocks(int v_bf16, int loss) {
   const void* kern = pick_sparse(v_bf16, loss);
   if (!kern) return -(int)cudaErrorInvalidValue;
@@ -519,22 +596,30 @@ int sp_fused_shotgun_rounds(const int* rows, const void* vals, int v_bf16,
                             float* health, long long* stamps, long long n,
                             long long d_pad, int R, int K, int tile,
                             void* stream) {
-  const void* kern = pick_sparse(v_bf16, loss);
-  if (!kern) return (int)cudaErrorInvalidValue;
-  const int blocks = sparse_coop_blocks(kern);
-  if (blocks <= 0) return blocks < 0 ? -blocks : (int)cudaErrorInvalidConfiguration;
+  if (loss & ~3) return (int)cudaErrorInvalidValue;
   SparseArgs a{rows, vals, order, count, zmask, y, idx, scal, z, x, r, w,
                buf, padterm, delta, lpart, xl1, xnz, f, nnz, health, stamps,
-               n, d_pad, R, K, tile};
-  void* params[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(THREADS),
-                                              params, 0,
-                                              static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) {
-    cudaGetLastError();   // clear it; the launch never ran
-    return (int)e;
-  }
-  return (int)cudaGetLastError();
+               n, d_pad, R, K, tile, nullptr, nullptr};
+  return launch_sparse(pick_sparse(v_bf16, loss), a, stream);
+}
+
+// The delta kernel: z0 read-only, view (n,) scratch, dz (n,) out, x in/out;
+// buf (K, n) is zeroed by the kernel.
+int sp_fused_shotgun_delta_rounds(const int* rows, const void* vals,
+                                  int v_bf16, int loss, const int* order,
+                                  const int* count, const unsigned char* zmask,
+                                  const float* y, const int* idx,
+                                  const float* scal, const float* z0,
+                                  float* view, float* dz, float* x, float* r,
+                                  float* w, float* buf, float* padterm,
+                                  float* delta, float* health, long long n,
+                                  long long d_pad, int R, int K, int tile,
+                                  void* stream) {
+  if (loss & ~3) return (int)cudaErrorInvalidValue;
+  SparseArgs a{rows, vals, order, count, zmask, y, idx, scal, view, x, r, w,
+               buf, padterm, delta, nullptr, nullptr, nullptr, nullptr,
+               nullptr, health, nullptr, n, d_pad, R, K, tile, z0, dz};
+  return launch_sparse(pick_sparse(v_bf16, loss | 4), a, stream);
 }
 
 }  // extern "C"

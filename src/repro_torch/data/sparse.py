@@ -192,6 +192,20 @@ class BlockedCSC:
         return dataclasses.replace(self, rows=self.rows.to(dev),
                                    vals=self.vals.to(dev))
 
+    def col_blocks(self, start: int, stop: int) -> "BlockedCSC":
+        """Column blocks [start, stop) as a container of their own — one
+        shard's columns in the sharded driver.  The tiles are contiguous
+        views; the slice builds and caches its own ``scatter_order()`` and
+        ``row_table()``.  ``d`` counts the slice's real (unpadded)
+        columns."""
+        if not 0 <= start <= stop <= self.nblk:
+            raise ValueError(f"column blocks [{start}, {stop}) outside "
+                             f"[0, {self.nblk})")
+        d = max(0, min(self.d, stop * self.block) - start * self.block)
+        return BlockedCSC(rows=self.rows[start:stop],
+                          vals=self.vals[start:stop], n=self.n, d=d,
+                          block=self.block)
+
     # ---- derived layouts (cached) ----------------------------------------
 
     def scatter_order(self) -> ScatterOrder:

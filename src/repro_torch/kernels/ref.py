@@ -117,6 +117,25 @@ def fused_sparse_shotgun_rounds_ref(rows, vals, z, x, blk_idx, lam, beta, y,
     return x, z, torch.stack(fs), torch.stack(nnzs).to(torch.int32)
 
 
+def fused_shotgun_delta_rounds_ref(A, z, x, blk_idx, lam, beta, y, mask,
+                                   loss, block: int):
+    """Oracle for ``fused_shotgun_delta_rounds``: the same multi-round
+    trajectory, reported as (x_new, dz) with dz = z_new − z₀ (what the
+    shard contributes to the Δz all-reduce)."""
+    x_new, z_new, _, _ = fused_shotgun_rounds_ref(A, z, x, blk_idx, lam,
+                                                  beta, y, mask, loss, block)
+    return x_new, z_new - z.float()
+
+
+def fused_sparse_shotgun_delta_rounds_ref(rows, vals, z, x, blk_idx, lam,
+                                          beta, y, loss):
+    """Oracle for ``fused_sparse_shotgun_delta_rounds``: the same
+    multi-round trajectory, reported as (x_new, dz) with dz = z_new − z₀."""
+    x_new, z_new, _, _ = fused_sparse_shotgun_rounds_ref(
+        rows, vals, z, x, blk_idx, lam, beta, y, loss)
+    return x_new, z_new - z.float()
+
+
 def block_shotgun_round_ref(A, z, x, blk_idx, lam, beta, y, loss, block: int):
     """One full Block-Shotgun round (oracle for ops.block_shotgun_round)."""
     r = obj.residual_like(z, y, loss)

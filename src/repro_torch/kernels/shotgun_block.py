@@ -1,11 +1,13 @@
 """Dense Block-Shotgun kernels for Hopper and their plain PyTorch versions.
 
-Port of ``repro.kernels.shotgun_block``.  Three kernels, written in CUDA C++
+Port of ``repro.kernels.shotgun_block``.  Four kernels, written in CUDA C++
 in ``csrc/shotgun_block.cu`` and built by ``kernels/_build.py``:
 
-  gather_block_matvec    g[k] = A[:, blk_k]ᵀ r                   (K, 128)
-  scatter_block_update   z + Σ_k A[:, blk_k] δ_k                 (n,)
-  fused_shotgun_rounds   R Block-Shotgun rounds in one launch
+  gather_block_matvec         g[k] = A[:, blk_k]ᵀ r              (K, 128)
+  scatter_block_update        z + Σ_k A[:, blk_k] δ_k            (n,)
+  fused_shotgun_rounds        R Block-Shotgun rounds in one launch
+  fused_shotgun_delta_rounds  R rounds against a margin snapshot,
+                              emitting Δz (the sharded driver's engine)
 
 Each wrapper keeps the JAX signature and return tuple, minus the TPU-only
 ``interpret``/``tile_n`` knobs.  A wrapper given CPU tensors runs its plain
@@ -35,7 +37,7 @@ LOGISTIC = "logistic"
 
 # Kernel launches per wrapper (``reset_launches`` zeroes them).
 LAUNCHES = {"fused_shotgun_rounds": 0, "gather_block_matvec": 0,
-            "scatter_block_update": 0}
+            "scatter_block_update": 0, "fused_shotgun_delta_rounds": 0}
 
 _GATHER_ROW_UNIT = 256    # gather row tiles are multiples of this
 _GATHER_MAX_TILES = 256   # ... chosen so that T = ceil(n / rows) <= this
@@ -114,7 +116,8 @@ LOSSES = {"lasso": SQUARED_LOSS, "logistic": LOGISTIC_LOSS,
 
 
 def _loss_code(ls: Loss) -> int:
-    """Template selector in the CUDA source: bit 0 logistic, bit 1 Newton."""
+    """Template selector in the CUDA source: bit 0 logistic, bit 1 Newton
+    (bit 2, the delta kernels, is set by the C entry itself)."""
     return int(ls.name == LOGISTIC) + 2 * int(ls.newton)
 
 
@@ -288,6 +291,25 @@ def scatter_block_update(A, z, blk_idx, delta):
 # Kernel 3: fused multi-round Block-Shotgun — R rounds per launch
 # ---------------------------------------------------------------------------
 
+def _plain_round(ls: Loss, A, z, xb, idx, lam, beta, y, m, live):
+    """One round of the fused plain versions: every δ from the residual
+    (and Newton weights) of the round-start margin z and the pre-round x;
+    x[blk] += δ in k order in place (duplicates accumulate).  Returns the
+    round's margin contribution Σ_k A_B δ_k."""
+    Ak = _take_blocks(A, idx)                              # (n, K, B)
+    g = torch.einsum("nkb,n->kb", Ak, ls.residual(z, y, m))
+    if ls.newton:
+        w = ls.curvature_weights(z, y, m)
+        h = torch.clamp_min(torch.einsum("nkb,n->kb", Ak * Ak, w), 1e-8)
+    else:
+        h = beta
+    x_sel = xb[idx]
+    dlt = (_soft_threshold(x_sel - g / h, lam / h) - x_sel) * live
+    for k in range(idx.shape[0]):
+        xb.index_add_(0, idx[k:k + 1], dlt[k:k + 1])
+    return torch.einsum("nkb,kb->n", Ak, dlt)
+
+
 def fused_shotgun_rounds_plain(A, z, x, blk_idx, lam, beta, y, mask,
                                loss: str | Loss = LASSO, k_eff=None,
                                guard_f=None):
@@ -312,20 +334,8 @@ def fused_shotgun_rounds_plain(A, z, x, blk_idx, lam, beta, y, mask,
     health = torch.zeros((), dtype=torch.float32, device=A.device)
     fs, nnzs = [], []
     for t in range(R):
-        idx = blk_idx[t].long()
-        r = ls.residual(z, y, m)
-        Ak = _take_blocks(A, idx)                          # (n, K, B)
-        g = torch.einsum("nkb,n->kb", Ak, r)
-        if ls.newton:
-            w = ls.curvature_weights(z, y, m)
-            h = torch.clamp_min(torch.einsum("nkb,n->kb", Ak * Ak, w), 1e-8)
-        else:
-            h = beta
-        x_sel = xb[idx]
-        dlt = (_soft_threshold(x_sel - g / h, lam / h) - x_sel) * live
-        z = z + torch.einsum("nkb,kb->n", Ak, dlt)
-        for k in range(K):
-            xb.index_add_(0, idx[k:k + 1], dlt[k:k + 1])
+        z = z + _plain_round(ls, A, z, xb, blk_idx[t].long(), lam, beta, y,
+                             m, live)
         f = ls.objective(z, y, m, xb, lam)
         bad = ~torch.isfinite(f) | (f > guard)
         health = torch.maximum(health, bad.float())
@@ -396,3 +406,92 @@ def fused_shotgun_rounds(A, z, x, blk_idx, lam, beta, y, mask,
     _check_rc(rc, "fused_shotgun_rounds")
     LAUNCHES["fused_shotgun_rounds"] += 1
     return x_out, z_out, f, nnz, health
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: R fused rounds against a margin snapshot, emitting Δz
+# ---------------------------------------------------------------------------
+
+def fused_shotgun_delta_rounds_plain(A, z, x, blk_idx, lam, beta, y, mask,
+                                     loss: str | Loss = LASSO, k_eff=None):
+    """Plain version of ``fused_shotgun_delta_rounds``, with the kernel's
+    dataflow: a live view z0 + own contributions and a Δz accumulator, each
+    round's contribution Σ_k A_B δ_k added to both; the residual (and Newton
+    weights) of the round-start view; every δ from the pre-round x; x[blk]
+    += δ in k order at round end; health 1 once the view holds a non-finite
+    value after a round."""
+    ls = resolve_loss(loss)
+    n, d = _check_design(A)
+    R, K = blk_idx.shape
+    if A.is_cuda:
+        exact_f32_matmul()
+    lam, beta, k_eff, _ = _scalars(lam, beta, K if k_eff is None else k_eff,
+                                   math.inf, A.device).unbind()
+    y = y.float()
+    m = mask.float()
+    view = z.float().clone()
+    dz = torch.zeros_like(view)
+    xb = x.float().reshape(d // BLOCK, BLOCK).clone()
+    live = (torch.arange(K, device=A.device) < k_eff.int()).float()[:, None]
+    health = torch.zeros((), dtype=torch.float32, device=A.device)
+    for t in range(R):
+        c = _plain_round(ls, A, view, xb, blk_idx[t].long(), lam, beta, y, m,
+                         live)
+        view = view + c
+        dz = dz + c
+        health = torch.maximum(
+            health, (~torch.all(torch.isfinite(view))).float())
+    return xb.reshape(d), dz, health
+
+
+def fused_shotgun_delta_rounds(A, z, x, blk_idx, lam, beta, y, mask,
+                               loss: str | Loss = LASSO, k_eff=None):
+    """The sharded driver's fused engine: R rounds in ONE launch against a
+    read-only margin snapshot ``z`` (the last merged global margin).
+
+    The kernel keeps a live view z + its own contributions (the shard sees
+    its own rounds at once, other shards' only at the next merge) and
+    accumulates those contributions into Δz = A_shard δx for the caller to
+    all-reduce.  No objective or nnz: ``health`` trips when the view holds
+    a non-finite value after a round.  Arguments as ``fused_shotgun_rounds``
+    (no ``guard_f``); ``k_eff`` may be a 0-dim device tensor.
+
+    Returns (x_new (d,) f32, dz (n,) f32, health () f32).
+    """
+    ls = resolve_loss(loss)
+    n, d = _check_design(A)
+    R, K = blk_idx.shape
+    if not _on_cuda(A, z, x, blk_idx, y, mask):
+        return fused_shotgun_delta_rounds_plain(A, z, x, blk_idx, lam, beta,
+                                                y, mask, ls, k_eff)
+    _require_contiguous(A)
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    dev = A.device
+    rows = _gather_rows(n)
+    T = math.ceil(n / rows)
+    scal = _scalars(lam, beta, K if k_eff is None else k_eff, math.inf, dev)
+    idx = _contig(blk_idx, torch.int32)
+    yv = _contig(y, torch.float32)
+    mv = _contig(mask, torch.float32)
+    z0 = _contig(z, torch.float32)
+    x_out = x.to(torch.float32, copy=True).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    view = torch.empty(n, **f32)             # filled from z0 by the kernel
+    dz = torch.empty(n, **f32)               # zeroed by the kernel
+    r = torch.empty(n, **f32)
+    w = torch.empty(n if ls.newton else 1, **f32)
+    gpart = torch.empty((K, T, BLOCK), **f32)
+    hpart = torch.empty((K, T, BLOCK) if ls.newton else (1,), **f32)
+    dlt = torch.empty((K, BLOCK), **f32)
+    health = torch.zeros((), **f32)
+    with torch.cuda.device(dev):
+        rc = lib.sb_fused_shotgun_delta_rounds(
+            _ptr(A), int(A.dtype == torch.bfloat16), _loss_code(ls),
+            _ptr(yv), _ptr(mv), _ptr(idx), _ptr(scal), _ptr(z0), _ptr(view),
+            _ptr(dz), _ptr(x_out), _ptr(r), _ptr(w), _ptr(gpart),
+            _ptr(hpart), _ptr(dlt), _ptr(health), n, d, R, K, rows, T,
+            _stream(dev))
+    _check_rc(rc, "fused_shotgun_delta_rounds")
+    LAUNCHES["fused_shotgun_delta_rounds"] += 1
+    return x_out, dz, health

@@ -1,12 +1,14 @@
 """BlockedCSC Block-Shotgun kernels for Hopper and their plain PyTorch
 versions.
 
-Port of ``repro.kernels.shotgun_sparse``.  Three kernels, written in CUDA
+Port of ``repro.kernels.shotgun_sparse``.  Four kernels, written in CUDA
 C++ in ``csrc/shotgun_sparse.cu`` and built by ``kernels/_build.py``:
 
   sparse_gather_block_matvec   g[k] = Σ_t vals·r[rows] over block k's tile
   sparse_scatter_block_update  z + scatter-add of vals·δ_k at rows
   fused_sparse_shotgun_rounds  R sparse Block-Shotgun rounds in one launch
+  fused_sparse_shotgun_delta_rounds  R rounds against a margin snapshot,
+                               emitting Δz (the sharded driver's engine)
 
 Each wrapper keeps the JAX signature and return tuple, minus ``interpret``;
 the scatter and the fused kernel take the container's row-sorted slot order
@@ -36,7 +38,8 @@ from repro_torch.kernels.shotgun_block import (LASSO, Loss, _check_rc,
 # Kernel launches per wrapper (``reset_launches`` zeroes them).
 LAUNCHES = {"fused_sparse_shotgun_rounds": 0,
             "sparse_gather_block_matvec": 0,
-            "sparse_scatter_block_update": 0}
+            "sparse_scatter_block_update": 0,
+            "fused_sparse_shotgun_delta_rounds": 0}
 
 _THREADS = 256     # CUDA threads per block, every sparse kernel
 _XCHUNK = 4096     # |x| / nnz partial: elements per item (fused kernel)
@@ -188,6 +191,24 @@ def sparse_scatter_block_update(rows, vals, z, blk_idx, delta, *,
 # Kernel 3: fused multi-round sparse Shotgun — R rounds per launch
 # ---------------------------------------------------------------------------
 
+def _plain_round(ls: Loss, rows, vals, z, xb, idx, lam, beta, y, one, live):
+    """One round of the fused plain versions: every δ from the residual
+    (and Newton weights) of the round-start margin z and the pre-round x;
+    x[blk] += δ in k order in place.  Returns the drawn tiles and δ."""
+    rows_k, vals_k = _take_tiles(rows, vals, idx)
+    g = torch.sum(vals_k * ls.residual(z, y, one)[rows_k], dim=1)
+    if ls.newton:
+        w = ls.curvature_weights(z, y, one)
+        h = torch.clamp_min(torch.sum(vals_k * vals_k * w[rows_k], dim=1),
+                            1e-8)
+    else:
+        h = beta
+    dlt = block_delta(xb[idx], g, lam, h) * live
+    for k in range(idx.shape[0]):
+        xb.index_add_(0, idx[k:k + 1], dlt[k:k + 1])
+    return rows_k, vals_k, dlt
+
+
 def fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx, lam, beta,
                                       y, loss: str | Loss = LASSO,
                                       k_eff=None, guard_f=None):
@@ -211,20 +232,10 @@ def fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx, lam, beta,
     health = torch.zeros((), dtype=torch.float32, device=vals.device)
     fs, nnzs = [], []
     for t in range(R):
-        idx = blk_idx[t].long()
-        r = ls.residual(z, y, one)
-        rows_k, vals_k = _take_tiles(rows, vals, idx)
-        g = torch.sum(vals_k * r[rows_k], dim=1)
-        if ls.newton:
-            w = ls.curvature_weights(z, y, one)
-            h = torch.clamp_min(torch.sum(vals_k * vals_k * w[rows_k], dim=1),
-                                1e-8)
-        else:
-            h = beta
-        dlt = block_delta(xb[idx], g, lam, h) * live
+        rows_k, vals_k, dlt = _plain_round(ls, rows, vals, z, xb,
+                                           blk_idx[t].long(), lam, beta, y,
+                                           one, live)
         z = _scatter_plain(rows_k, vals_k, z, dlt)
-        for k in range(K):
-            xb.index_add_(0, idx[k:k + 1], dlt[k:k + 1])
         f = ls.objective(z, y, one, xb, lam)
         bad = ~torch.isfinite(f) | (f > guard)
         health = torch.maximum(health, bad.float())
@@ -306,3 +317,96 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
     _check_rc(rc, "fused_sparse_shotgun_rounds")
     LAUNCHES["fused_sparse_shotgun_rounds"] += 1
     return x_out, z_out, f, nnz, health
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: R fused sparse rounds against a margin snapshot, emitting Δz
+# ---------------------------------------------------------------------------
+
+def fused_sparse_shotgun_delta_rounds_plain(rows, vals, z, x, blk_idx, lam,
+                                            beta, y,
+                                            loss: str | Loss = LASSO,
+                                            k_eff=None):
+    """Plain version of ``fused_sparse_shotgun_delta_rounds``, with the
+    kernel's dataflow: each round's contribution c = Σ_k (row k of the
+    (K, n) buffer), summed in k order from zero, is added to a live view
+    z0 + own contributions and to a Δz accumulator; residual (and Newton
+    weights) of the round-start view; every δ from the pre-round x; x[blk]
+    += δ in k order; health 1 once the view holds a non-finite value."""
+    ls = resolve_loss(loss)
+    nblk, _ = _check_tiles(rows, vals)
+    R, K = blk_idx.shape
+    lam, beta, k_eff, _ = _scalars(lam, beta, K if k_eff is None else k_eff,
+                                   math.inf, vals.device).unbind()
+    y = y.float()
+    one = torch.ones_like(y)
+    view = z.float().clone()
+    dz = torch.zeros_like(view)
+    xb = x.float().reshape(nblk, BLOCK).clone()
+    live = (torch.arange(K, device=vals.device) < k_eff.int()).float()[:, None]
+    health = torch.zeros((), dtype=torch.float32, device=vals.device)
+    for t in range(R):
+        rows_k, vals_k, dlt = _plain_round(ls, rows, vals, view, xb,
+                                           blk_idx[t].long(), lam, beta, y,
+                                           one, live)
+        c = _scatter_plain(rows_k, vals_k, torch.zeros_like(view), dlt)
+        view = view + c
+        dz = dz + c
+        health = torch.maximum(
+            health, (~torch.all(torch.isfinite(view))).float())
+    return xb.reshape(-1), dz, health
+
+
+def fused_sparse_shotgun_delta_rounds(rows, vals, z, x, blk_idx, lam, beta,
+                                      y, loss: str | Loss = LASSO,
+                                      k_eff=None, *,
+                                      order: ScatterOrder | None = None):
+    """The sharded driver's fused sparse engine: R rounds over BlockedCSC
+    tiles in ONE launch against a read-only margin snapshot ``z``.
+
+    A live view z + own contributions and a Δz = A_shard δx accumulator, as
+    ``shotgun_block.fused_shotgun_delta_rounds``; no sample mask, no
+    objective or nnz; ``health`` trips when the view holds a non-finite
+    value after a round (a non-finite δ in a column with padding slots
+    reaches row 0, as in the reference).  Arguments as
+    ``fused_sparse_shotgun_rounds`` (no ``guard_f``).
+
+    Returns (x_new (nblk·128,) f32, dz (n,) f32, health () f32).
+    """
+    ls = resolve_loss(loss)
+    nblk, tile = _check_tiles(rows, vals)
+    R, K = blk_idx.shape
+    n = z.shape[0]
+    if not _on_cuda(rows, vals, z, x, blk_idx, y):
+        return fused_sparse_shotgun_delta_rounds_plain(
+            rows, vals, z, x, blk_idx, lam, beta, y, ls, k_eff)
+    _require_contiguous(rows, vals)
+    od = scatter_order(rows, vals) if order is None else order
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    dev = vals.device
+    scal = _scalars(lam, beta, K if k_eff is None else k_eff, math.inf, dev)
+    idx = _contig(blk_idx, torch.int32)
+    yv = _contig(y, torch.float32)
+    z0 = _contig(z, torch.float32)
+    x_out = x.to(torch.float32, copy=True).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    view = torch.empty(n, **f32)             # filled from z0 by the kernel
+    dz = torch.empty(n, **f32)               # zeroed by the kernel
+    r = torch.empty(n, **f32)
+    w = torch.empty(n if ls.newton else 1, **f32)
+    buf = torch.empty(K * n, **f32)          # zeroed by the kernel
+    padterm = torch.empty(K, **f32)
+    dlt = torch.empty((K, BLOCK), **f32)
+    health = torch.zeros((), **f32)
+    with torch.cuda.device(dev):
+        rc = lib.sp_fused_shotgun_delta_rounds(
+            _ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
+            _loss_code(ls), _ptr(od.order), _ptr(od.count), _ptr(od.zmask),
+            _ptr(yv), _ptr(idx), _ptr(scal), _ptr(z0), _ptr(view), _ptr(dz),
+            _ptr(x_out), _ptr(r), _ptr(w), _ptr(buf), _ptr(padterm),
+            _ptr(dlt), _ptr(health), n, nblk * BLOCK, R, K, tile,
+            _stream(dev))
+    _check_rc(rc, "fused_sparse_shotgun_delta_rounds")
+    LAUNCHES["fused_sparse_shotgun_delta_rounds"] += 1
+    return x_out, dz, health

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (dense and BlockedCSC) on the card against their
-plain versions on the same inputs, bit-identical repeat runs, and the
-launch counters.  Marked
+"""The port's CUDA kernels (dense and BlockedCSC, margin-owning and
+Δz-emitting) on the card against their plain versions on the same inputs,
+bit-identical repeat runs, the launch counters, and the sharded driver on a
+one-rank NCCL group.  Marked
 ``gpu``; each test skips (inside the ``cuda`` fixture, so every worker
 collects the same tests) when ``torch.cuda.is_available()`` is false.
 
@@ -16,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import objectives as tobj  # noqa: E402
+from repro_torch.core import sharded as tsh  # noqa: E402
 from repro_torch.core.spec import SolverSpec  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -124,9 +126,11 @@ def test_solve_on_card_matches_cpu_and_counts_launches(cuda, fused):
                                                  blk_idx=idx)
         counts = dict(tsb.LAUNCHES)
     assert counts == ({"fused_shotgun_rounds": 2, "gather_block_matvec": 0,
-                       "scatter_block_update": 0} if fused else
+                       "scatter_block_update": 0,
+                       "fused_shotgun_delta_rounds": 0} if fused else
                       {"fused_shotgun_rounds": 0, "gather_block_matvec": 16,
-                       "scatter_block_update": 16})
+                       "scatter_block_update": 16,
+                       "fused_shotgun_delta_rounds": 0})
     cpu, gpu = res["cpu"], res["cuda"]
     torch.testing.assert_close(gpu.trace.objective.cpu(),
                                cpu.trace.objective, rtol=1e-4, atol=0)
@@ -258,9 +262,11 @@ def test_sparse_solve_on_card_matches_cpu_and_counts_launches(cuda, fused):
         counts = dict(tss.LAUNCHES)
     assert counts == (
         {"fused_sparse_shotgun_rounds": 2, "sparse_gather_block_matvec": 0,
-         "sparse_scatter_block_update": 0} if fused else
+         "sparse_scatter_block_update": 0,
+         "fused_sparse_shotgun_delta_rounds": 0} if fused else
         {"fused_sparse_shotgun_rounds": 0, "sparse_gather_block_matvec": 16,
-         "sparse_scatter_block_update": 16})
+         "sparse_scatter_block_update": 16,
+         "fused_sparse_shotgun_delta_rounds": 0})
     cpu, gpu = res["cpu"], res["cuda"]
     torch.testing.assert_close(gpu.trace.objective.cpu(),
                                cpu.trace.objective, rtol=1e-4, atol=0)
@@ -286,3 +292,110 @@ def test_warm_started_sparse_solves_are_bit_identical(cuda, fused):
     assert torch.equal(runs[0].z, runs[1].z)
     assert torch.equal(runs[0].trace.objective, runs[1].trace.objective)
     assert torch.equal(prob.A.matvec(x0), prob.A.matvec(x0))
+
+
+# ---------------------------------------------------------------------------
+# Δz-emitting fused kernels (the sharded driver's engines)
+# ---------------------------------------------------------------------------
+
+def _delta_check(got, want, tol):
+    torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+    torch.testing.assert_close(got[1], want[1], rtol=tol, atol=tol)
+    assert float(got[2]) == float(want[2])
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
+def test_fused_delta_matches_plain_and_repeats_bitwise(cuda, loss, store):
+    prob, Ap, yp, mask = _padded(loss, cuda)
+    A = Ap.to(torch.bfloat16) if store == "bf16" else Ap
+    x, z, idx = _inputs(A.float())
+    tol = 1e-3 if store == "bf16" else 1e-4
+    for k_eff in (None, 2):
+        args = (A, z, x, idx, prob.lam, prob.beta, yp, mask)
+        got = tsb.fused_shotgun_delta_rounds(*args, loss=loss, k_eff=k_eff)
+        want = tsb.fused_shotgun_delta_rounds_plain(*args, loss=loss,
+                                                    k_eff=k_eff)
+        _delta_check(got, want, tol)
+        assert float(got[2]) == 0.0
+        again = tsb.fused_shotgun_delta_rounds(*args, loss=loss, k_eff=k_eff)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+    xn = x.clone()
+    xn[int(idx[0, 0]) * BLOCK + 5] = float("nan")
+    args = (A, z, xn, idx, prob.lam, prob.beta, yp, mask)
+    got = tsb.fused_shotgun_delta_rounds(*args, loss=loss)
+    assert float(got[2]) == 1.0 == float(
+        tsb.fused_shotgun_delta_rounds_plain(*args, loss=loss)[2])
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
+def test_fused_sparse_delta_matches_plain_and_repeats_bitwise(cuda, loss,
+                                                              store):
+    prob = _sparse(loss, cuda)
+    S = prob.A.astype(torch.bfloat16) if store == "bf16" else prob.A
+    x, z, idx = _sparse_inputs(S)
+    od = S.scatter_order()
+    for k_eff in (None, 2):
+        args = (S.rows, S.vals, z, x, idx, prob.lam, prob.beta, prob.y)
+        got = tss.fused_sparse_shotgun_delta_rounds(*args, loss=loss,
+                                                    k_eff=k_eff, order=od)
+        want = tss.fused_sparse_shotgun_delta_rounds_plain(*args, loss=loss,
+                                                           k_eff=k_eff)
+        _delta_check(got, want, 1e-4)
+        assert float(got[2]) == 0.0
+        again = tss.fused_sparse_shotgun_delta_rounds(*args, loss=loss,
+                                                      k_eff=k_eff)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+    # a NaN iterate in a column with padding slots reaches dz[0]
+    b, c = map(int, torch.nonzero(od.zmask)[0])
+    xn = x.clone()
+    xn[b * BLOCK + c] = float("nan")
+    one = torch.tensor([[b]], dtype=torch.int32, device=cuda)
+    _, dz, h = tss.fused_sparse_shotgun_delta_rounds(
+        S.rows, S.vals, z, xn, one, prob.lam, prob.beta, prob.y, loss=loss)
+    assert float(h) == 1.0 and bool(torch.isnan(dz[0]))
+
+
+@pytest.fixture
+def nccl_rank(cuda, tmp_path):
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_one_rank_nccl_sharded_solve_matches_block_solve(cuda, nccl_rank,
+                                                         kind):
+    """merge="round" on one NCCL rank follows the fused block solve on the
+    same draws, one delta-kernel launch per round."""
+    if kind == "dense":
+        A, y, _ = tsyn.sparco(seed=3, n=900, d=1000)
+    else:
+        A, y, _ = tsyn.large_sparse(seed=3, n=1500, d=3000, density=0.01,
+                                    layout="bcsc")
+    prob = tobj.make_problem(A, y, 5.0 if kind == "dense" else 1.0,
+                             device=cuda)
+    nblk = -(-prob.d // BLOCK)
+    rng = np.random.default_rng(0)
+    idx = np.stack([rng.permutation(nblk)[:2] for _ in range(16)]).astype(
+        np.int32)
+    ref = tops.block_shotgun_solve(
+        prob, spec=SolverSpec(loss="lasso", P=256, rounds=16, fused=True),
+        blk_idx=idx)
+    tsb.reset_launches()
+    tss.reset_launches()
+    got = tsh.shotgun_sharded_solve(
+        prob, spec=SolverSpec(loss="lasso", rounds=16, merge="round"),
+        engine="sparse_fused" if kind == "sparse" else "fused", K=2,
+        blk_idx=idx[None])
+    name = ("fused_sparse_shotgun_delta_rounds" if kind == "sparse"
+            else "fused_shotgun_delta_rounds")
+    launches = (tss if kind == "sparse" else tsb).LAUNCHES[name]
+    assert launches == 16
+    torch.testing.assert_close(got.trace.objective, ref.trace.objective,
+                               rtol=1e-4, atol=0)
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
+    assert int(got.status) == 0 and got.x.is_cuda
