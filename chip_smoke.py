@@ -15,7 +15,13 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           (S1: Lasso, n = 19,996, d = 1,355,191, density 3.36e-4; fused and
           two-kernel rounds, f32 and bf16 values) and rcv1.binary (S2:
           logistic with per-block Newton and the guard, n = 20,242,
-          d = 47,236, density 0.16%), never densified.
+          d = 47,236, density 0.16%), never densified;
+  sharded ``shotgun_sharded_solve`` on one NCCL rank and on two gloo
+          ranks sharing the card;
+  serve   the batched kernels on stacked slots at the same widths (held
+          bit for bit against the unbatched kernels per slot), then
+          ``SolverService.serve`` on a dense Lasso stream, an S1 stream and
+          a dense stream at λ = 0.5·λ_max whose solves stop early.
 
 Data are drawn on the card from ``--seed``.  Any failed check raises, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA device or without the
@@ -66,6 +72,12 @@ S1_ROUNDS, S1_TWO_ROUNDS, S2_ROUNDS = 512, 64, 256
 SH_ROUND_ROUNDS, SH_LAUNCH_ROUNDS, SH_TWO_KERNEL_ROUNDS = 32, 256, 16
 SH_DENSE_ROUNDS2, SH_S1_ROUNDS2 = 64, 512
 ONE_RANK_BACKEND = "nccl"
+# Serve leg: slots of the kernel checks (stacked, shared bf16, zeta, S1,
+# S2) and the served streams (requests, repeat share, K, round budgets).
+SV_STACK, SV_SHARED, SV_ZETA, SV_S1, SV_S2 = 4, 8, 4, 4, 4
+SV_REQUESTS, SV_REPEAT, SV_SLOTS, SV_TOL = 12, 0.5, 4, 1e-4
+SV_DENSE_K, SV_DENSE_ROUNDS, SV_SPARSE_ROUNDS = 8, 64, 128
+SV_EARLY_LAM = 0.5                   # the early-stop stream's λ / λ_max
 
 
 class SmokeFailure(RuntimeError):
@@ -122,17 +134,19 @@ def draws(rounds, K, nblk, g, dup=True):
     return idx
 
 
-def device_busy(fn) -> tuple[float, float, int]:
+def device_busy(fn, kernels: tuple[str, ...] = ()):
     """Run ``fn`` under torch.profiler; return (device busy ms, span ms from
-    the first device activity to the last, device events).  Busy is the
-    union of the device intervals, so idle share = 1 - busy / span."""
+    the first device activity to the last, device events, summed device ms
+    and count of the events whose names contain one of ``kernels``).  Busy
+    is the union of the device intervals, so idle share = 1 - busy /
+    span."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, cur = 0.0, None
     for a, b in spans:
         if cur is None or a > cur[1]:
@@ -144,7 +158,9 @@ def device_busy(fn) -> tuple[float, float, int]:
     if cur is not None:
         busy += cur[1] - cur[0]
     span = spans[-1][1] - spans[0][0] if spans else 0.0
-    return busy / 1e3, span / 1e3, len(spans)
+    mine = [e.time_range.end - e.time_range.start for e in events
+            if any(k in e.name for k in kernels)]
+    return busy / 1e3, span / 1e3, len(spans), sum(mine) / 1e3, len(mine)
 
 
 # Worst (max_abs_err, max_rel_err) of each kernel against its plain version.
@@ -277,6 +293,16 @@ def main() -> int:
     for line in _build.build_info["ptxas"].splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
+    for prefix, grid_fn in (("batched", lib.sb_batched_grid_blocks),
+                            ("batched sparse", lib.sp_batched_grid_blocks)):
+        for a16 in (0, 1):
+            for code, name in enumerate(("lasso", "logistic", "lasso_newton",
+                                         "logistic_newton")):
+                blocks = grid_fn(a16, code)
+                require(blocks > 0, f"{prefix} cooperative grid for {name}: "
+                        f"{blocks}")
+                print(f"{prefix} grid: {'bf16' if a16 else 'f32'} {name}: "
+                      f"{blocks} blocks x 256 threads")
     for prefix, grid_fn in (("fused", lib.sb_fused_grid_blocks),
                             ("fused sparse", lib.sp_fused_grid_blocks)):
         for a16 in (0, 1):
@@ -295,12 +321,14 @@ def main() -> int:
     sparse_kernels, sparse_json, sparse_data = sparse_leg(args)
     sharded_kernels, sharded_json = sharded_leg(args, dense_data, sparse_data,
                                                 dense_json, sparse_json)
+    serve_kernels, serve_json = serve_leg(args, dense_data, sparse_data)
 
     # ---- report -----------------------------------------------------------
-    print(json.dumps({**dense_json, **sparse_json, **sharded_json}))
+    print(json.dumps({**dense_json, **sparse_json, **sharded_json,
+                      **serve_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": dense_kernels + sparse_kernels
-                      + sharded_kernels}))
+                      + sharded_kernels + serve_kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -537,7 +565,7 @@ def print_times(groups):
 def print_busy(label, fn):
     """Print the device idle share over ``fn``; return it (None when the
     profiler saw no device activity)."""
-    busy, span, n_ev = device_busy(fn)
+    busy, span, n_ev, *_ = device_busy(fn)
     if n_ev:
         print(f"profile {label}: device busy {busy:.3f} ms of a "
               f"{span:.3f} ms span ({n_ev} device events); idle share "
@@ -564,6 +592,28 @@ def drawn_csr(S, idx):
     at = torch.sparse_coo_tensor(torch.stack([c, r]), v,
                                  shape[::-1]).coalesce()
     return a.to_sparse_csr(), at.to_sparse_csr()
+
+
+def sparse_phases(launch, ms: float, R: int, dev) -> dict:
+    """Phase breakdown of one fused sparse launch: ``launch(stamps)`` runs
+    it with block 0's clock stamped at each barrier; the cycles are scaled
+    to the launch's device time ``ms``."""
+    stamps = torch.zeros(3 * R + 4, dtype=torch.int64, device=dev)
+    launch(stamps)
+    torch.cuda.synchronize()
+    st = stamps.cpu().double()
+    cyc = st[1:] - st[:-1]
+    per_cycle = ms / float(st[-1] - st[0])
+    rounds = cyc[1:1 + 3 * R].reshape(R, 3)
+    return {
+        "launch_ms": ms, "launch_cycles": float(st[-1] - st[0]),
+        "launch_start_ms": float(cyc[0]) * per_cycle,
+        "round_ms": float(rounds.sum(1).mean()) * per_cycle,
+        "A_gather_delta_xpartial_ms": float(rounds[:, 0].mean()) * per_cycle,
+        "B_runs_finish_ms": float(rounds[:, 1].mean()) * per_cycle,
+        "C_combine_xupdate_ms": float(rounds[:, 2].mean()) * per_cycle,
+        "final_A_xpartial_only_ms": float(cyc[1 + 3 * R]) * per_cycle,
+        "final_B_finish_only_ms": float(cyc[2 + 3 * R]) * per_cycle}
 
 
 def sparse_leg(args):
@@ -726,27 +776,11 @@ def sparse_leg(args):
                     A.rows, A.vals, z0, idx[0], dl, order=od))}
         for name, (kern, fn) in calls.items():
             out[name]["device_ms"] = device_ms(fn, kern, iters)
-        # Phase breakdown of one launch: block 0's clock at each barrier,
-        # scaled to the kernel's device time per launch.
-        stamps = torch.zeros(3 * R + 4, dtype=torch.int64, device=dev)
-        ss.fused_sparse_shotgun_rounds(*fargs, loss=loss, order=od,
-                                       stamps=stamps)
-        torch.cuda.synchronize()
-        st = stamps.cpu().double()
-        cyc = st[1:] - st[:-1]
-        ms = out["fused_sparse_shotgun_rounds"]["device_ms"] or (
-            out["fused_sparse_shotgun_rounds"]["ms"])
-        per_cycle = ms / float(st[-1] - st[0])
-        rounds = cyc[1:1 + 3 * R].reshape(R, 3)
-        out["phases"] = {
-            "launch_ms": ms, "launch_cycles": float(st[-1] - st[0]),
-            "launch_start_ms": float(cyc[0]) * per_cycle,
-            "round_ms": float(rounds.sum(1).mean()) * per_cycle,
-            "A_gather_delta_xpartial_ms": float(rounds[:, 0].mean()) * per_cycle,
-            "B_runs_finish_ms": float(rounds[:, 1].mean()) * per_cycle,
-            "C_combine_xupdate_ms": float(rounds[:, 2].mean()) * per_cycle,
-            "final_A_xpartial_only_ms": float(cyc[1 + 3 * R]) * per_cycle,
-            "final_B_finish_only_ms": float(cyc[2 + 3 * R]) * per_cycle}
+        t = out["fused_sparse_shotgun_rounds"]
+        out["phases"] = sparse_phases(
+            lambda st: ss.fused_sparse_shotgun_rounds(
+                *fargs, loss=loss, order=od, stamps=st),
+            t["device_ms"] or t["ms"], R, dev)
         return out
 
     t_s1 = kernel_times(s1, K1, "lasso", 20)
@@ -998,7 +1032,7 @@ def _two_rank_main(rank, cfg):
         if dev.type == "cuda":
             # every rank runs the solve (its collectives need both); rank 0
             # reports what its profiler saw of its own device work
-            busy, span, n_ev = device_busy(
+            busy, span, n_ev, *_ = device_busy(
                 lambda: sh.shotgun_sharded_solve(prob, **kw))
             if rank == 0:
                 out[f"{tag}_idle_share"] = (1 - busy / span) if n_ev else None
@@ -1328,6 +1362,449 @@ def sharded_leg(args, dd, sd, dense_json, sparse_json):
         "one_rank_backend": ONE_RANK_BACKEND, "one_rank_solves": runs,
         "one_rank_idle_share": idle, "two_gloo_ranks": two,
         "single_device_ms_per_round": single}}
+    return kernels, extra
+
+
+# ---------------------------------------------------------------------------
+# The serve leg: kernels #9 and #10, SolverService on a dense and an S1
+# stream
+# ---------------------------------------------------------------------------
+
+def distinct_blocks(idx, k_eff, shared: bool) -> int:
+    """Σ over rounds of the distinct live drawn blocks of all slots: a block
+    of a shared design drawn by two slots in one round is read once."""
+    idx, k_eff = idx.cpu(), k_eff.cpu()
+    S, R, _ = idx.shape
+    total = 0
+    for t in range(R):
+        total += len({(0 if shared else s, int(b)) for s in range(S)
+                      for b in idx[s, t, : int(k_eff[s])]})
+    return total
+
+
+def _check_batched(name, tag, got, want, x0, z0, frozen=()):
+    """A batched kernel against its plain version; health per slot exact;
+    a frozen slot's x and z equal its inputs."""
+    check(name, tag, [("x", got[0], want[0], 1.0), ("z", got[1], want[1], 0.0),
+                      ("f", got[2], want[2], 0.0)], nnz_pair=(got[3], want[3]))
+    require(torch.equal(got[4], want[4]), f"{name} [{tag}] health "
+            f"{got[4].tolist()} vs {want[4].tolist()}")
+    for s in frozen:
+        require(torch.equal(got[0][s], x0[s]) and torch.equal(got[1][s], z0[s]),
+                f"{name} [{tag}] frozen slot {s} moved")
+
+
+def _bit_identical(name, tag, got, one_of):
+    """Every slot of a batched launch equals the unbatched kernel run alone
+    on that slot's state and draws, in x, z, f, nnz and health."""
+    for s in range(got[0].shape[0]):
+        one = one_of(s)
+        require(all(torch.equal(a[s], b) for a, b in zip(got, one)),
+                f"{name} [{tag}] slot {s} differs from the unbatched kernel")
+    print(f"check {name} [{tag}]: all {got[0].shape[0]} slots bit-identical "
+          "to the unbatched kernel on their state")
+
+
+def serve_leg(args, dd, sd):
+    """The serve leg: kernels #9 and #10 against their plain versions and,
+    slot by slot, bit for bit against #1 and #2 at full width; their times
+    against S unbatched launches; then the serving path —
+    ``SolverService.serve`` on a dense Lasso stream and an S1 stream, each
+    held against ``solve_queue_sequential``."""
+    from repro_torch.core import batched as cb
+    from repro_torch.core import objectives as obj
+    from repro_torch.data import synthetic as syn
+    from repro_torch.data.sparse import ScatterOrder, bcsc_matvec
+    from repro_torch.kernels import batched as kb
+    from repro_torch.kernels import shotgun_block as sb
+    from repro_torch.kernels import shotgun_sparse as ss
+    from repro_torch.launch import solver_serve as svm
+
+    dev = torch.device(DEVICE)
+    B, R = 128, 8
+    inf = float("inf")
+    g = torch.Generator(device=dev).manual_seed(args.seed + 50)
+    K1, K2 = sd["K1"], sd["K2"]
+    dname, sname = ("batched_fused_shotgun_rounds",
+                    "batched_fused_sparse_shotgun_rounds")
+
+    def ladder(lam, S):
+        return lam * (1.0 + 0.5 * torch.arange(S, dtype=torch.float32,
+                                                device=dev))
+
+    def full(S, v):
+        return torch.full((S,), float(v), device=dev)
+
+    def slot_draws(S, K, nblk, dup=True):
+        return torch.stack([draws(R, K, nblk, g, dup=dup) for _ in range(S)])
+
+    # ---- #9 against its plain version and #1, slot by slot ----------------
+    def dense_case(tag, A, y, mask, lam, beta, K, k_eff, guard, loss, shared,
+                   frozen=()):
+        S, d = y.shape[0], A.shape[-1]
+        x0 = torch.randn(S, d, generator=g, device=dev) * 0.01
+        z0 = torch.stack([(A if shared else A[s]).float() @ x0[s]
+                          for s in range(S)])
+        idx = slot_draws(S, K, d // B)
+        fargs = (A, z0, x0, idx, lam, beta, y, mask, k_eff, guard)
+        got = kb.batched_fused_shotgun_rounds(*fargs, loss=loss,
+                                              shared_design=shared)
+        want = kb.batched_fused_shotgun_rounds_plain(*fargs, loss=loss,
+                                                     shared_design=shared)
+        _check_batched(dname, tag, got, want, x0, z0, frozen)
+        _bit_identical(dname, tag, got, lambda s: sb.fused_shotgun_rounds(
+            A if shared else A[s], z0[s], x0[s], idx[s], lam[s], beta[s],
+            y[s], mask[s], loss=loss, k_eff=k_eff[s], guard_f=guard[s]))
+        return got
+
+    def dense_times(A, y, mask, lam, beta, K, loss, shared, iters):
+        S, n = y.shape
+        d = A.shape[-1]
+        idx = slot_draws(S, K, d // B, dup=False)
+        k_eff, guard = full(S, K), full(S, inf)
+        x0, z0 = torch.zeros(S, d, device=dev), torch.zeros(S, n, device=dev)
+        fargs = (A, z0, x0, idx, lam, beta, y, mask, k_eff, guard)
+        fn = lambda: kb.batched_fused_shotgun_rounds(  # noqa: E731
+            *fargs, loss=loss, shared_design=shared)
+        one = lambda: [sb.fused_shotgun_rounds(  # noqa: E731
+            A if shared else A[s], z0[s], x0[s], idx[s], lam[s], beta[s],
+            y[s], mask[s], loss=loss) for s in range(S)]
+        newton = 1 if sb.resolve_loss(loss).newton else 0
+        blocks = distinct_blocks(idx, k_eff, shared)
+        kern = ("fused_rounds_kernel",)
+        return dict(
+            ms=time_ms(fn, iters), device_ms=device_ms(fn, kern, iters),
+            unbatched_ms=time_ms(one, iters),
+            unbatched_device_ms=device_ms(one, kern, iters),
+            plain_ms=time_ms(lambda: kb.batched_fused_shotgun_rounds_plain(
+                *fargs, loss=loss, shared_design=shared), 2, warmup=1),
+            bound=bound(blocks * n * B * A.element_size()
+                        + S * (4 * (4 * n + 2 * d) + 8 * R),
+                        R * S * K * (4 + 3 * newton) * n * B),
+            distinct_blocks=blocks)
+
+    times = {}
+    t0 = time.perf_counter()
+    n, d = dd["La"].shape
+    S = SV_STACK
+    A = torch.empty((S, n, d), device=dev)
+    y = torch.empty((S, n), device=dev)
+    A[0], y[0] = dd["La"], dd["Ly"]
+    for s in range(1, S):
+        As, ys, _ = syn.sparco_on_device(args.seed + 100 + s, n=LASSO_N,
+                                         d=LASSO_D, device=dev)
+        p = obj.make_problem(As, ys, 1.0, device=dev)
+        del As
+        A[s], y[s] = p.A, p.y
+        if s == 1:
+            dense_design1 = p       # the served stream's second design
+        del p
+    mask = torch.ones((S, n), device=dev)
+    torch.cuda.synchronize()
+    print(f"data (serve): {S} stacked Lasso designs {tuple(A.shape)} f32 "
+          f"({A.numel() * 4 / 2**30:.2f} GiB); {time.perf_counter() - t0:.1f} s")
+    lam = ladder(dd["lasso"].lam, S)
+    k_eff = full(S, SV_DENSE_K)
+    k_eff[2], k_eff[3] = SV_DENSE_K // 2, 0
+    dense_case(f"lasso f32 stacked S={S} K={SV_DENSE_K} k_eff="
+               f"{k_eff.int().tolist()}", A, y, mask, lam, full(S, 1.0),
+               SV_DENSE_K, k_eff, full(S, inf), "lasso", False, frozen=(3,))
+    times["lasso stacked"] = dense_times(A, y, mask, lam, full(S, 1.0),
+                                         SV_DENSE_K, "lasso", False, 10)
+    del A
+    S = SV_SHARED
+    A16 = dd["La16"]
+    y8, m8 = dd["Ly"].expand(S, -1).contiguous(), torch.ones((S, n), device=dev)
+    k_eff = full(S, SV_DENSE_K)
+    k_eff[S - 1] = 0
+    dense_case(f"lasso bf16 shared S={S} K={SV_DENSE_K}", A16, y8, m8,
+               ladder(dd["lasso"].lam, S), full(S, 1.0), SV_DENSE_K, k_eff,
+               full(S, inf), "lasso", True, frozen=(S - 1,))
+    times["lasso bf16 shared"] = dense_times(
+        A16, y8, m8, ladder(dd["lasso"].lam, S), full(S, 1.0), SV_DENSE_K,
+        "lasso", True, 10)
+    del y8, m8
+    S = SV_ZETA
+    Za = dd["Za"]
+    yz, mz = (dd["Zy"].expand(S, -1).contiguous(),
+              dd["Zm"].float().expand(S, -1).contiguous())
+    guard = full(S, inf)
+    guard[1] = 0.0                                    # trips on slot 1 only
+    got = dense_case(f"zeta logistic_newton f32 shared S={S} K=2 guard on "
+                     "slot 1", Za, yz, mz, ladder(dd["zeta"].lam, S),
+                     full(S, 0.25), 2, full(S, 2), guard, "logistic_newton",
+                     True)
+    require(got[4].tolist() == [0.0, 1.0, 0.0, 0.0],
+            f"zeta guard: health {got[4].tolist()}")
+    times["zeta shared"] = dense_times(Za, yz, mz, ladder(dd["zeta"].lam, S),
+                                       full(S, 0.25), 2, "logistic_newton",
+                                       True, 4)
+    del yz, mz
+
+    # ---- #10 against its plain version and #2, slot by slot ---------------
+    def sparse_case(tag, rows, vals, order, y, lam, beta, K, k_eff, guard,
+                    loss, shared, d, frozen=()):
+        S = y.shape[0]
+        d_pad = rows.shape[-3] * B
+        x0 = torch.randn(S, d_pad, generator=g, device=dev) * 0.01
+        x0[:, d:] = 0.0
+        z0 = torch.stack([bcsc_matvec(rows if shared else rows[s],
+                                      vals if shared else vals[s], x0[s],
+                                      y.shape[1]) for s in range(S)])
+        idx = slot_draws(S, K, rows.shape[-3])
+        fargs = (rows, vals, z0, x0, idx, lam, beta, y, k_eff, guard)
+        got = kb.batched_fused_sparse_shotgun_rounds(
+            *fargs, loss=loss, shared_design=shared, order=order)
+        want = kb.batched_fused_sparse_shotgun_rounds_plain(
+            *fargs, loss=loss, shared_design=shared)
+        _check_batched(sname, tag, got, want, x0, z0, frozen)
+        _bit_identical(sname, tag, got, lambda s: ss.fused_sparse_shotgun_rounds(
+            rows if shared else rows[s], vals if shared else vals[s], z0[s],
+            x0[s], idx[s], lam[s], beta[s], y[s], loss=loss, k_eff=k_eff[s],
+            guard_f=guard[s], order=order if shared else ScatterOrder(
+                *(t[s] for t in order))))
+
+    def sparse_times(rows, vals, order, y, lam, beta, K, loss, shared, iters):
+        S, n = y.shape
+        nblk, tile = rows.shape[-3], rows.shape[-2]
+        d_pad = nblk * B
+        idx = slot_draws(S, K, nblk, dup=False)
+        k_eff, guard = full(S, K), full(S, inf)
+        x0 = torch.zeros(S, d_pad, device=dev)
+        z0 = torch.zeros(S, n, device=dev)
+        fargs = (rows, vals, z0, x0, idx, lam, beta, y, k_eff, guard)
+        fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
+            *fargs, loss=loss, shared_design=shared, order=order)
+        orders = [order if shared else ScatterOrder(*(t[s] for t in order))
+                  for s in range(S)]
+        one = lambda: [ss.fused_sparse_shotgun_rounds(  # noqa: E731
+            rows if shared else rows[s], vals if shared else vals[s], z0[s],
+            x0[s], idx[s], lam[s], beta[s], y[s], loss=loss,
+            order=orders[s]) for s in range(S)]
+        newton = 1 if ss.resolve_loss(loss).newton else 0
+        blocks = distinct_blocks(idx, k_eff, shared)
+        slots = K * tile * B
+        kern = ("fused_sparse_kernel",)
+        ms, dms = time_ms(fn, iters), device_ms(fn, kern, iters)
+        return dict(
+            ms=ms, device_ms=dms,
+            phases=sparse_phases(
+                lambda st: kb.batched_fused_sparse_shotgun_rounds(
+                    *fargs, loss=loss, shared_design=shared, order=order,
+                    stamps=st), dms or ms, R, dev),
+            unbatched_ms=time_ms(one, iters),
+            unbatched_device_ms=device_ms(one, kern, iters),
+            plain_ms=time_ms(lambda: kb.batched_fused_sparse_shotgun_rounds_plain(
+                *fargs, loss=loss, shared_design=shared), 2, warmup=1),
+            bound=bound(blocks * tile * B * (4 + vals.element_size())
+                        + S * (4 * (3 * n + 2 * d_pad) + 8 * R),
+                        R * S * ((4 + 3 * newton) * slots + (K + 10) * n
+                                 + 2 * d_pad)),
+            distinct_blocks=blocks)
+
+    t0 = time.perf_counter()
+    s1 = sd["s1"]
+    probs = [s1]
+    for s in range(1, SV_S1):
+        Sm, ys, _ = syn.large_sparse_bcsc_on_device(
+            args.seed + 110 + s, n=S1_N, d=S1_D, density=S1_DENSITY,
+            device=dev)
+        probs.append(obj.make_problem(Sm, ys, 1.0, device=dev))
+        del Sm
+    sparse_design1 = probs[1]._replace(lam=s1.lam)
+    meta, st = cb.stack_problems(probs)
+    torch.cuda.synchronize()
+    print(f"data (serve): {SV_S1} stacked S1 designs, tiles "
+          f"{[p.A.tile for p in probs]} -> canvas tile {meta.tile}; rows+vals "
+          f"{(st.rows.numel() * 4 + st.vals.numel() * 4) / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del probs
+    S = SV_S1
+    k_eff = full(S, K1)
+    k_eff[2], k_eff[3] = K1 // 2, 0
+    sparse_case(f"S1 lasso f32 stacked S={S} K={K1} k_eff="
+                f"{k_eff.int().tolist()} tile={meta.tile}", st.rows, st.vals,
+                st.order, st.y, ladder(s1.lam, S), full(S, 1.0), K1, k_eff,
+                full(S, inf), "lasso", False, S1_D, frozen=(3,))
+    times["S1 stacked"] = sparse_times(st.rows, st.vals, st.order, st.y,
+                                       ladder(s1.lam, S), full(S, 1.0), K1,
+                                       "lasso", False, 20)
+    del st
+    s2 = sd["s2"]
+    S = SV_S2
+    y2 = s2.y.expand(S, -1).contiguous()
+    od2 = s2.A.scatter_order()
+    sparse_case(f"S2 logistic_newton f32 shared S={S} K={K2}", s2.A.rows,
+                s2.A.vals, od2, y2, ladder(s2.lam, S), full(S, 0.25), K2,
+                full(S, K2), full(S, inf), "logistic_newton", True, S2_D)
+    times["S2 shared"] = sparse_times(s2.A.rows, s2.A.vals, od2, y2,
+                                      ladder(s2.lam, S), full(S, 0.25), K2,
+                                      "logistic_newton", True, 20)
+    for tag, t in times.items():
+        name = sname if tag.startswith("S") else dname
+        print_times(((tag + f" R={R}", {name: t}),))
+        if "phases" in t:
+            print(f"phases {name} [{tag}]: " + "; ".join(
+                f"{k} {v:.4f}" for k, v in t["phases"].items()))
+        ub, ubd = t["unbatched_ms"], t["unbatched_device_ms"]
+        print(f"time {name} [{tag}]: the same slots as unbatched launches "
+              f"{ub:.4f} ms" + ("" if ubd is None else f", device {ubd:.4f} ms")
+              + f"; batched / unbatched {t['ms'] / ub:.3f}"
+              + ("" if ubd is None or t["device_ms"] is None else
+                 f" (device {t['device_ms'] / ubd:.3f})")
+              + f"; distinct drawn blocks {t['distinct_blocks']}")
+
+    # ---- the main path: SolverService on dense and S1 streams -------------
+    def stream(designs, seed, solo=False):
+        """The reference's stream rule (``make_stream``) over these designs,
+        λ ladder from design 0's λ; ``solo`` gives every request its own id
+        (no cache sharing)."""
+        reqs = svm.stream_over(designs, requests=SV_REQUESTS,
+                               repeat_frac=SV_REPEAT,
+                               lam=float(designs[0].lam), seed=seed)
+        if solo:
+            for r in reqs:
+                r.problem_id = ("solo", r.rid)
+        return reqs
+
+    def serve_stream(tag, designs, K, max_rounds, wrapper, kern, seed,
+                     early=False):
+        # the stream's canvas covers every design (admission never grows it)
+        metas = [cb.batch_meta_of(p) for p in designs]
+        meta = metas[0]._replace(tile=max(m.tile for m in metas))
+        kw = dict(K=K, max_rounds=max_rounds, rounds_per_launch=R,
+                  tol=SV_TOL, device=dev)
+        reqs = stream(designs, seed)
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        svc = svm.SolverService(meta, slots=SV_SLOTS, **kw)
+        done = {r.rid: r for r in svc.serve(reqs)}
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        # the main path's own launches: this serve and nothing after it
+        counts = dict(kb.LAUNCHES)
+        require(counts[wrapper] == svc.launch_count
+                and sum(counts.values()) == svc.launch_count,
+                f"serve {tag}: kernel launches {counts} != the service's "
+                f"{svc.launch_count} batched launches")
+        for r in done.values():
+            require(r.status == "ok" and math.isfinite(r.f_final)
+                    and bool(torch.all(torch.isfinite(r.x))),
+                    f"serve {tag}: request {r.rid} {r.status} F {r.f_final}")
+        cold = [r.rounds_used for r in done.values() if r.warm == "miss"]
+        warm = [r.rounds_used for r in done.values() if r.warm != "miss"]
+        cs = svc.cache.stats
+        out = dict(solves_per_s=len(done) / sec, seconds=sec,
+                   launches=svc.launch_count, kernel_launches=counts,
+                   occupancy=svc.slot_occupancy,
+                   cache=[cs.hits_exact, cs.hits_near, cs.misses],
+                   cold_rounds=cold, warm_rounds=warm)
+        mean = lambda v: sum(v) / max(1, len(v))  # noqa: E731
+        print(f"serve {tag}: {len(done)} solves in {sec * 1e3:.1f} ms "
+              f"({out['solves_per_s']:.2f} solves/s), {svc.launch_count} "
+              f"batched launches of {SV_SLOTS} slots, occupancy "
+              f"{svc.slot_occupancy:.3f}, cache exact/near/miss "
+              f"{cs.hits_exact}/{cs.hits_near}/{cs.misses}; rounds cold "
+              f"{cold} (mean {mean(cold):.1f}), warm {warm} "
+              f"(mean {mean(warm):.1f})")
+        if early:
+            # the stream the service exists for: solves stop at the launch
+            # boundary, their slots refill mid-stream, repeats start warm
+            stopped = [r.rid for r in done.values()
+                       if r.rounds_used < max_rounds]
+            require(stopped and cold and warm and mean(warm) < mean(cold),
+                    f"serve {tag}: no early stop or no warm saving (rounds "
+                    f"cold {cold}, warm {warm})")
+            print(f"check serve {tag}: {len(stopped)} of {len(done)} "
+                  f"requests stopped before their {max_rounds}-round budget; "
+                  f"warm starts took {mean(warm):.1f} rounds against "
+                  f"{mean(cold):.1f} cold")
+        # device idle share and device ms per launch over a second serve
+        # (outside the counts: they were read above)
+        svc2 = svm.SolverService(meta, slots=SV_SLOTS, **kw)
+        busy, span, n_ev, kms, kn = device_busy(
+            lambda: svc2.serve(stream(designs, seed)), (kern,))
+        del svc2
+        if n_ev and kn:
+            out.update(idle_share=1 - busy / span,
+                       launch_device_ms=kms / kn)
+            print(f"profile serve {tag}: device busy {busy:.3f} ms of a "
+                  f"{span:.3f} ms span; idle share {1 - busy / span:.3f}; "
+                  f"{kn} batched launches, {kms / kn:.4f} ms of device time "
+                  "each")
+        else:
+            print(f"profile serve {tag}: not measured (the profiler saw no "
+                  "device activity)")
+        # distinct ids and fresh caches: served equals the sequential queue
+        served = {r.rid: r for r in svm.SolverService(
+            meta, slots=SV_SLOTS, cache=cb.WarmStartCache(), **kw).serve(
+                stream(designs, seed, solo=True))}
+        seq = {r.rid: r for r in svm.solve_queue_sequential(
+            stream(designs, seed, solo=True),
+            cache=cb.WarmStartCache(), **kw)}
+        for rid, a in served.items():
+            b = seq[rid]
+            require((a.status, a.rounds_used) == (b.status, b.rounds_used)
+                    and torch.equal(a.x, b.x),
+                    f"serve {tag}: request {rid} served != sequential")
+        print(f"check serve {tag}: {len(served)} distinct-id requests served "
+              f"on {SV_SLOTS} slots equal the sequential queue bit for bit")
+        # one batched launch at the serving state, every slot live
+        S = SV_SLOTS
+        idx = kb.batched_draw_blocks(
+            [torch.Generator(device=dev).manual_seed(seed + s)
+             for s in range(S)], R, K, meta.nblk, dev)
+        fn = lambda: cb.launch_rounds(meta, svc.stacked, svc.z, svc.x,  # noqa: E731
+                                      idx, full(S, K))
+        out.update(launch_ms=time_ms(fn, 10),
+                   launch_ms_device=device_ms(fn, (kern,), 10))
+        print(f"time batched launch at the serving state [{tag}]: "
+              f"{out['launch_ms']:.4f} ms by CUDA events"
+              + ("" if out["launch_ms_device"] is None else
+                 f", {out['launch_ms_device']:.4f} ms of device time"))
+        return out
+
+    lasso = dd["lasso"]
+    dense_designs = [lasso, dense_design1._replace(lam=lasso.lam)]
+    dense_serve = serve_stream(
+        f"dense lasso {LASSO_N}x{LASSO_D} K={SV_DENSE_K}", dense_designs,
+        SV_DENSE_K, SV_DENSE_ROUNDS, dname, "fused_rounds_kernel", 7000)
+    s1_serve = serve_stream(f"S1 lasso K={K1}", [s1, sparse_design1], K1,
+                            SV_SPARSE_ROUNDS, sname, "fused_sparse_kernel",
+                            8000)
+    # λ ladder from SV_EARLY_LAM·λ_max: sparse optima reached in budget
+    lam_e = SV_EARLY_LAM * obj.lambda_max(lasso.A, lasso.y, "lasso")
+    early_serve = serve_stream(
+        f"dense lasso {SV_EARLY_LAM}*lambda_max K={SV_DENSE_K}",
+        [p._replace(lam=lam_e) for p in dense_designs], SV_DENSE_K,
+        SV_DENSE_ROUNDS, dname, "fused_rounds_kernel", 9000, early=True)
+    streams = (dense_serve, s1_serve, early_serve)
+    counts = {k: sum(st["kernel_launches"][k] for st in streams)
+              for k in kb.LAUNCHES}
+    print(f"main path launches (serve leg, the served streams): {counts}")
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel of the serve leg never launched: {counts}")
+
+    kernels = [
+        kernel_entry(dname, "src/repro_torch/csrc/shotgun_block.cu",
+                     "src/repro/kernels/batched.py:41", counts[dname],
+                     times["lasso stacked"],
+                     f"lasso f32 S={SV_STACK} stacked n={LASSO_N} "
+                     f"d={LASSO_D} K={SV_DENSE_K} R={R}"),
+        kernel_entry(sname, "src/repro_torch/csrc/shotgun_sparse.cu",
+                     "src/repro/kernels/batched.py:69", counts[sname],
+                     times["S1 stacked"],
+                     f"S1 lasso f32 S={SV_S1} stacked n={S1_N} d={S1_D} "
+                     f"tile={meta.tile} K={K1} R={R}"),
+    ]
+    extra = {"serve": {
+        "kernel_times": {k: {**{a: b for a, b in v.items() if a != "bound"},
+                             "bound_ms": v["bound"][0],
+                             "bound_by": v["bound"][1]}
+                         for k, v in times.items()},
+        "dense_stream": dense_serve, "s1_stream": s1_serve,
+        "early_stop_stream": early_serve}}
     return kernels, extra
 
 

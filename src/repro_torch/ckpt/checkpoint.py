@@ -23,6 +23,8 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 LATEST = "LATEST"
 SEP = "|"  # path-key separator inside the npz
 
@@ -106,13 +108,15 @@ def latest_step(ckpt_dir) -> int | None:
 
 
 def restore(ckpt_dir, template: dict, *, step: int | None = None,
-            device="cpu") -> tuple[int, dict]:
+            device="cuda") -> tuple[int, dict]:
     """Restore into the structure of ``template`` (a nested dict whose
     leaves have ``.shape`` and ``.dtype``: tensors, or numpy arrays), as
-    torch tensors of the template's dtypes on ``device``.
+    torch tensors of the template's dtypes on ``device`` (the card unless
+    the caller asks for the CPU; raises without a card).
 
     Returns (step, tree).  Raises FileNotFoundError without a checkpoint,
     KeyError for a missing leaf and ValueError for a shape mismatch."""
+    device = resolve_device(device)
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)

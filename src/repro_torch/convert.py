@@ -54,3 +54,27 @@ def result_to_numpy(res: Result) -> Result:
                   trace=Trace(objective=cpu(res.trace.objective),
                               nnz=cpu(res.trace.nnz)),
                   status=cpu(res.status))
+
+
+def slot_arrays_from_numpy(meta_tuple, stacked_numpy, *, device="cuda"):
+    """The port's ``(BatchMeta, SlotArrays)`` from the JAX package's
+    normalized, stacked ``SlotArrays`` (as numpy, fields in order; unused
+    fields None) and its ``BatchMeta`` (as a tuple), so both packages'
+    ``launch_rounds`` can run on the identical stacked state.  BlockedCSC
+    stacks get their scatter order built on the device."""
+    from repro_torch.core.batched import BatchMeta, SlotArrays
+    from repro_torch.kernels.batched import stacked_scatter_order
+    dev = resolve_device(device)
+    meta = BatchMeta(*meta_tuple)
+
+    def tensor(a, dtype):
+        return None if a is None else torch.tensor(np.asarray(a, dtype),
+                                                   device=dev)
+
+    A, rows, vals, y, mask, lam, beta = stacked_numpy
+    rows, vals = tensor(rows, np.int32), tensor(vals, np.float32)
+    return meta, SlotArrays(
+        A=tensor(A, np.float32), rows=rows, vals=vals,
+        y=tensor(y, np.float32), mask=tensor(mask, np.float32),
+        lam=tensor(lam, np.float32), beta=tensor(beta, np.float32),
+        order=None if rows is None else stacked_scatter_order(rows, vals))

@@ -80,6 +80,26 @@ scatter_kernel(const TA* __restrict__ A, long long d,
 // can reach at most half the bound; keeping A_B on chip between the two
 // phases is the next step.
 //
+// BATCHED = true is batched_fused_shotgun_rounds — replaces repro/kernels/
+// batched.py::batched_fused_shotgun_rounds (a jax.vmap of the same Pallas
+// kernel over a leading slot axis, the solver service's step).  S stacked
+// slots, each with its own z, x, y, mask, draws and [lam, beta, k_eff,
+// guard_f] row, advance R rounds in the SAME cooperative launch: a grid of
+// S × 528 blocks could not be co-resident, so every phase's items become
+// (slot, item) pairs striding over the one grid — S·K·T gather items,
+// S·K·4 reduce items, S·n/32 scatter tiles — and the three grid.sync() of a
+// round are shared by all slots.  Slot s's round end runs on block
+// s % gridDim.x, so S blocks finish their slots in parallel.  Every
+// workspace has a slot stride; A has stride n·d, or 0 when one design is
+// shared by every slot (shared_design: a stride, not a copy).  Each slot's
+// reductions are ordered by its own item decomposition only, never by the
+// grid or by which block ran an item, so slot s is bit-identical to the
+// unbatched launch on that slot's state.  k_eff = 0 freezes a slot exactly
+// (δ·0); the guard only raises the slot's health, the slot keeps updating.
+// Bound: R·(bytes of the distinct live drawn blocks of all slots) + S times
+// the vectors of one slot; the barriers, paid once for all slots, are what
+// batching shares.
+//
 // EMIT_DZ = true is fused_shotgun_delta_rounds — replaces repro/kernels/
 // shotgun_block.py::fused_shotgun_delta_rounds (the emit_dz variant of the
 // same Pallas body), the round engine of the sharded driver.  z0 is a
@@ -111,7 +131,26 @@ struct FusedArgs {
   int R, K, rows, T;
   const float* z0;    // (n,)  EMIT_DZ: read-only margin snapshot (z = view)
   float* dz;          // (n,)  EMIT_DZ: out, the launch's own Σ A_B δ
+  int S;              // BATCHED: slots; every array above gains a leading
+                      //   slot axis (scal (S, 4), health (S,), ...)
+  long long a_stride; // BATCHED: elements from one slot's A to the next
+                      //   (n·d stacked, 0 for a shared design)
 };
+
+// Slot s's view for its round end (batched launches): x, δ, the loss
+// partials, F, nnz, health and the scalars, each moved by its slot stride.
+__device__ __forceinline__ FusedArgs at_slot(const FusedArgs& a, int s) {
+  FusedArgs b = a;
+  const long long ls = s;
+  b.scal = a.scal + 4 * ls;
+  b.x = a.x + ls * a.d;
+  b.delta = a.delta + ls * a.K * BLOCK;
+  b.lpart = a.lpart + ls * (a.n / SCATTER_ROWS);
+  b.f = a.f + ls * a.R;
+  b.nnz = a.nnz + ls * a.R;
+  b.health = a.health + ls;
+  return b;
+}
 
 // x[blk_k] += δ_k in k order.  Thread c owns column c of every drawn
 // block, so duplicate draws accumulate in k order (Alg. 2's multiset
@@ -183,19 +222,29 @@ __device__ __forceinline__ void round_end(const FusedArgs& a, int rd,
   __syncthreads();
 }
 
-template <typename TA, int LOSS, bool NEWTON, bool EMIT_DZ>
+template <typename TA, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
+  static_assert(!(EMIT_DZ && BATCHED), "no batched delta kernel");
   cg::grid_group grid = cg::this_grid();
   __shared__ float s[2][THREADS];
   __shared__ int s_nnz[THREADS];
   const TA* A = static_cast<const TA*>(a.A);
   const float lam = a.scal[0], beta = a.scal[1], guard = a.scal[3];
   const int k_eff = (int)a.scal[2];
+  const int S = BATCHED ? a.S : 1;
   const long long n_tiles = a.n / SCATTER_ROWS;
   const int n_gather = a.K * a.T, n_reduce = a.K * (BLOCK / 32);
+  // Slot so's arrays start so strides in (64-bit: S·n·d passes 2^31 at the
+  // paper's widths).  Unbatched, so and every slot stride are compile-time
+  // zeros, so the offsets fold away.
+  const long long kt = BATCHED ? (long long)a.K * a.T * BLOCK : 0;
+  const long long kb = BATCHED ? (long long)a.K * BLOCK : 0;
+  const long long rk = BATCHED ? (long long)a.R * a.K : 0;
+  const long long as = BATCHED ? a.a_stride : 0;
 
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < a.n;
-       i += (long long)gridDim.x * THREADS) {
+  // The (S, n) vectors are contiguous: one flat pass covers every slot.
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+       i < S * a.n; i += (long long)gridDim.x * THREADS) {
     float rr, ww, ll, zi;
     if constexpr (EMIT_DZ) {
       zi = a.z0[i];
@@ -213,47 +262,68 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
   for (int rd = 0; rd < a.R; ++rd) {
     const int* idx = a.idx + (long long)rd * a.K;
     // 1: gather partials from the round-start r (and w).
-    for (int it = blockIdx.x; it < n_gather; it += gridDim.x) {
-      const int k = it / a.T, t = it - k * a.T;
-      gather_item<TA, NEWTON>(A, a.n, a.d, a.r, a.w, idx[k], k, t, a.T,
-                              a.rows, a.gpart, a.hpart, s);
+    for (int it = blockIdx.x; it < S * n_gather; it += gridDim.x) {
+      const int so = BATCHED ? it / n_gather : 0;
+      const int j = it - so * n_gather;
+      const int k = j / a.T, t = j - k * a.T;
+      gather_item<TA, NEWTON>(A + so * as, a.n, a.d, a.r + so * a.n,
+                              a.w + (NEWTON ? so * a.n : 0), (idx + so * rk)[k],
+                              k, t, a.T, a.rows, a.gpart + so * kt,
+                              a.hpart + (NEWTON ? so * kt : 0), s);
     }
     grid.sync();
     // 2: g (and h) per column, then δ from the pre-round x.
-    for (int it = blockIdx.x; it < n_reduce; it += gridDim.x) {
-      const int k = it >> 2, q = it & 3;
+    for (int it = blockIdx.x; it < S * n_reduce; it += gridDim.x) {
+      const int so = BATCHED ? it / n_reduce : 0;
+      const int j = it - so * n_reduce;
+      const int k = j >> 2, q = j & 3;
       float g, h;
-      reduce_item<NEWTON>(a.gpart, a.hpart, k, q, a.T, s, g, h);
+      reduce_item<NEWTON>(a.gpart + so * kt, a.hpart + (NEWTON ? so * kt : 0),
+                          k, q, a.T, s, g, h);
       if (threadIdx.x < 32) {
+        const float* sc = a.scal + 4 * so;
+        const float lm = BATCHED ? sc[0] : lam, bt = BATCHED ? sc[1] : beta;
+        const int ke = BATCHED ? (int)sc[2] : k_eff;
         const int c = q * 32 + threadIdx.x;
-        const float xs = ldcg(a.x + (long long)idx[k] * BLOCK + c);
-        const float hh = NEWTON ? (h < 1e-8f ? 1e-8f : h) : beta;
-        const float xn = soft_threshold(xs - g / hh, lam / hh);
-        a.delta[k * BLOCK + c] = (xn - xs) * (k < k_eff ? 1.f : 0.f);
+        const float xs =
+            ldcg(a.x + so * a.d + (long long)(idx + so * rk)[k] * BLOCK + c);
+        const float hh = NEWTON ? (h < 1e-8f ? 1e-8f : h) : bt;
+        const float xn = soft_threshold(xs - g / hh, lm / hh);
+        (a.delta + so * kb)[k * BLOCK + c] = (xn - xs) * (k < ke ? 1.f : 0.f);
       }
       __syncthreads();
     }
     grid.sync();
     // 3: z += A_B δ (EMIT_DZ: also dz); refresh r (and w); loss partial
-    // per 32-row tile.
-    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // per 32-row tile (slot so's tile t is partial it = so·n_tiles + t).
+    for (long long it = blockIdx.x; it < S * n_tiles; it += gridDim.x) {
+      const int so = BATCHED ? (int)(it / n_tiles) : 0;
+      const long long vo = so * a.n;
       const float ll = scatter_tile<TA, LOSS, NEWTON, true, EMIT_DZ>(
-          A, a.d, idx, a.K, a.delta, tile, a.z, a.z, a.y, a.m, a.r, a.w,
-          a.dz, a.health);
+          A + so * as, a.d, idx + so * rk, a.K, a.delta + so * kb,
+          it - so * n_tiles, a.z + vo, a.z + vo, a.y + vo, a.m + vo,
+          a.r + vo, a.w + (NEWTON ? vo : 0), a.dz, a.health);
       if constexpr (EMIT_DZ) continue;
       if ((threadIdx.x & 31) == 0) s[0][threadIdx.x >> 5] = ll;
       __syncthreads();
       if (threadIdx.x == 0) {
         float tot = 0.f;
         for (int j = 0; j < WARPS; ++j) tot += s[0][j];
-        a.lpart[tile] = tot;
+        a.lpart[it] = tot;
       }
       __syncthreads();
     }
     grid.sync();
-    // 4: round end.  The next round's gather does not read x or δ, and its
-    // grid.sync() orders this block's writes before the next δ phase.
-    if (blockIdx.x == 0) {
+    // 4: round end, slot s on block s % gridDim.x (unbatched: block 0).
+    // The next round's gather does not read x or δ, and its grid.sync()
+    // orders these writes before the next δ phase.
+    if constexpr (BATCHED) {
+      for (int sl = blockIdx.x; sl < S; sl += gridDim.x) {
+        const FusedArgs b = at_slot(a, sl);
+        round_end<LOSS>(b, rd, idx + sl * rk, b.scal[0], b.scal[3], n_tiles,
+                        s, s_nnz);
+      }
+    } else if (blockIdx.x == 0) {
       if constexpr (EMIT_DZ)
         x_update(a, idx);
       else
@@ -278,32 +348,36 @@ static int coop_blocks(const void* kern) {
   return per_sm * sms;
 }
 
-template <typename TA, int LOSS, bool NEWTON, bool EMIT_DZ>
+template <typename TA, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED>
 static const void* fused_kernel() {
   return reinterpret_cast<const void*>(
-      &fused_rounds_kernel<TA, LOSS, NEWTON, EMIT_DZ>);
+      &fused_rounds_kernel<TA, LOSS, NEWTON, EMIT_DZ, BATCHED>);
 }
 
-template <typename TA, bool EMIT_DZ>
+template <typename TA, bool EMIT_DZ, bool BATCHED>
 static const void* pick_fused(int loss) {
   switch (loss) {
-    case 0: return fused_kernel<TA, LOSS_LASSO, false, EMIT_DZ>();
-    case 1: return fused_kernel<TA, LOSS_LOGISTIC, false, EMIT_DZ>();
-    case 2: return fused_kernel<TA, LOSS_LASSO, true, EMIT_DZ>();
-    case 3: return fused_kernel<TA, LOSS_LOGISTIC, true, EMIT_DZ>();
+    case 0: return fused_kernel<TA, LOSS_LASSO, false, EMIT_DZ, BATCHED>();
+    case 1: return fused_kernel<TA, LOSS_LOGISTIC, false, EMIT_DZ, BATCHED>();
+    case 2: return fused_kernel<TA, LOSS_LASSO, true, EMIT_DZ, BATCHED>();
+    case 3: return fused_kernel<TA, LOSS_LOGISTIC, true, EMIT_DZ, BATCHED>();
     default: return nullptr;
   }
 }
 
-// Loss code: bit 0 logistic, bit 1 Newton, bit 2 EMIT_DZ (the delta kernel).
+// Loss code: bit 0 logistic, bit 1 Newton, bit 2 EMIT_DZ (the delta
+// kernel), bit 3 BATCHED (the slot kernel); bits 2 and 3 exclude each other.
 static const void* pick_fused(int a_bf16, int code) {
   const int loss = code & 3;
-  if (code & ~7) return nullptr;
+  if ((code & ~15) || (code & 12) == 12) return nullptr;
   if (code & 4)
-    return a_bf16 ? pick_fused<__nv_bfloat16, true>(loss)
-                  : pick_fused<float, true>(loss);
-  return a_bf16 ? pick_fused<__nv_bfloat16, false>(loss)
-                : pick_fused<float, false>(loss);
+    return a_bf16 ? pick_fused<__nv_bfloat16, true, false>(loss)
+                  : pick_fused<float, true, false>(loss);
+  if (code & 8)
+    return a_bf16 ? pick_fused<__nv_bfloat16, false, true>(loss)
+                  : pick_fused<float, false, true>(loss);
+  return a_bf16 ? pick_fused<__nv_bfloat16, false, false>(loss)
+                : pick_fused<float, false, false>(loss);
 }
 
 static int launch_fused(const void* kern, FusedArgs a, void* stream) {
@@ -358,6 +432,7 @@ int sb_scatter_block_update(const void* A, int a_bf16, const float* z_in,
 // code (bit 0 logistic, bit 1 Newton, bit 2 the delta kernel); negative
 // CUDA error on failure.
 int sb_fused_grid_blocks(int a_bf16, int loss) {
+  if (loss & ~7) return -(int)cudaErrorInvalidValue;
   const void* kern = pick_fused(a_bf16, loss);
   if (!kern) return -(int)cudaErrorInvalidValue;
   return coop_blocks(kern);
@@ -372,8 +447,34 @@ int sb_fused_shotgun_rounds(const void* A, int a_bf16, int loss,
                             int K, int rows, int T, void* stream) {
   if (loss & ~3) return (int)cudaErrorInvalidValue;
   FusedArgs a{A, y, m, idx, scal, z, x, r, w, gpart, hpart, delta, lpart,
-              f, nnz, health, n, d, R, K, rows, T, nullptr, nullptr};
+              f, nnz, health, n, d, R, K, rows, T, nullptr, nullptr, 1, 0};
   return launch_fused(pick_fused(a_bf16, loss), a, stream);
+}
+
+// The slot kernel: every array carries a leading slot axis of S (scal
+// (S, 4), health (S,), f and nnz (S, R), the workspaces S times one
+// slot's); A advances a_stride elements per slot (0: one shared design).
+int sb_batched_fused_shotgun_rounds(const void* A, int a_bf16, int loss,
+                                    long long a_stride, const float* y,
+                                    const float* m, const int* idx,
+                                    const float* scal, float* z, float* x,
+                                    float* r, float* w, float* gpart,
+                                    float* hpart, float* delta, float* lpart,
+                                    float* f, int* nnz, float* health,
+                                    long long n, long long d, int S, int R,
+                                    int K, int rows, int T, void* stream) {
+  if ((loss & ~3) || S < 1) return (int)cudaErrorInvalidValue;
+  FusedArgs a{A, y, m, idx, scal, z, x, r, w, gpart, hpart, delta, lpart,
+              f, nnz, health, n, d, R, K, rows, T, nullptr, nullptr, S,
+              a_stride};
+  return launch_fused(pick_fused(a_bf16, loss | 8), a, stream);
+}
+
+// Grid size (CUDA blocks) of the slot kernel for this A type and loss code
+// (bit 0 logistic, bit 1 Newton); negative CUDA error on failure.
+int sb_batched_grid_blocks(int a_bf16, int loss) {
+  if (loss & ~3) return -(int)cudaErrorInvalidValue;
+  return coop_blocks(pick_fused(a_bf16, loss | 8));
 }
 
 // The delta kernel: z0 read-only, view (n,) scratch, dz (n,) out, x in/out.
@@ -387,7 +488,8 @@ int sb_fused_shotgun_delta_rounds(const void* A, int a_bf16, int loss,
                                   int rows, int T, void* stream) {
   if (loss & ~3) return (int)cudaErrorInvalidValue;
   FusedArgs a{A, y, m, idx, scal, view, x, r, w, gpart, hpart, delta,
-              nullptr, nullptr, nullptr, health, n, d, R, K, rows, T, z0, dz};
+              nullptr, nullptr, nullptr, health, n, d, R, K, rows, T, z0, dz,
+              1, 0};
   return launch_fused(pick_fused(a_bf16, loss | 4), a, stream);
 }
 

@@ -280,9 +280,28 @@ combine_kernel(const float* z_in, float* z_out, float* buf,
 // drops block 0's finish, and phase C adds each row's combined value to the
 // view and to dz and raises health on a non-finite view row (the padding
 // term's NaN reaches row 0 there).  No final A/B pair.  Bound per launch:
-// R·K·tile·128·(4 + value bytes) + 4·(3n + 2·d_pad).  With a non-null `stamps`, block 0 records clock64()
-// at launch start, after every grid.sync() and at the end (3R + 4 stamps):
-// the per-phase breakdown of a launch, barrier included.
+// R·K·tile·128·(4 + value bytes) + 4·(3n + 2·d_pad).  With a non-null
+// `stamps`, block 0 records clock64() at launch start, after every
+// grid.sync() and at the end (3R + 4 stamps): the per-phase breakdown of a
+// launch, barrier included.
+//
+// BATCHED = true is batched_fused_sparse_shotgun_rounds — replaces repro/
+// kernels/batched.py::batched_fused_sparse_shotgun_rounds (a jax.vmap of
+// the same Pallas kernel over a leading slot axis, the solver service's
+// step).  S slots, each with its own tiles (or one shared set), scatter
+// order, z, x, y, draws and [lam, beta, k_eff, guard_f] row, share ONE
+// cooperative launch and its three barriers a round: each phase's items
+// become (slot, item) pairs over the same grid (S·(K/2 + d_pad/4096) in A,
+// S·K·tile/2 run sums in B, S·(n/256 + K/2) in C), and slot s's finish
+// runs on block s % gridDim.x.  Every workspace — the (K, n) combine
+// buffer, padterm, δ, the loss and |x| partials — has a slot stride; the
+// tiles and the order advance t_stride elements a slot (0: a shared
+// design).  A slot's reductions follow its own items only, never the grid,
+// so slot s is bit-identical to the unbatched launch on its state.  The
+// latency of the barriers and dependent loads, which bounds one slot's
+// rounds (≈ 19 µs against a 0.65 µs byte bound at S1), is paid once for
+// all slots.  Bound: R·(bytes of the distinct live drawn tiles of all
+// slots) + S times one slot's vectors.
 // ---------------------------------------------------------------------------
 struct SparseArgs {
   const int* rows;
@@ -312,7 +331,29 @@ struct SparseArgs {
   int R, K, tile;
   const float* z0;    // (n,)  EMIT_DZ: read-only margin snapshot (z = view)
   float* dz;          // (n,)  EMIT_DZ: out, the launch's own Σ A_B δ
+  int S;              // BATCHED: slots; every array above but `stamps`
+                      //   gains a leading slot axis
+  long long t_stride; // BATCHED: elements from one slot's rows/vals/order
+                      //   to the next (nblk·tile·128, 0 for a shared design)
 };
+
+// Slot s's view for its |x| partials and round finish (batched launches):
+// x, the |x| / nnz and loss partials, F, nnz, health and the scalars, each
+// moved by its slot stride.
+__device__ __forceinline__ SparseArgs at_slot(const SparseArgs& a, int s) {
+  SparseArgs b = a;
+  const long long ls = s;
+  const long long n_xc = (a.d_pad + XCHUNK - 1) / XCHUNK;
+  b.scal = a.scal + 4 * ls;
+  b.x = a.x + ls * a.d_pad;
+  b.lpart = a.lpart + ls * ((a.n + THREADS - 1) / THREADS);
+  b.xl1 = a.xl1 + ls * n_xc;
+  b.xnz = a.xnz + ls * n_xc;
+  b.f = a.f + ls * a.R;
+  b.nnz = a.nnz + ls * a.R;
+  b.health = a.health + ls;
+  return b;
+}
 
 __device__ __forceinline__ void x_partial(const SparseArgs& a, int q,
                                           float* s, int* si) {
@@ -361,15 +402,17 @@ __device__ __forceinline__ void finish_round(const SparseArgs& a, int rd,
   }
 }
 
-template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ>
+template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 fused_sparse_kernel(SparseArgs a) {
+  static_assert(!(EMIT_DZ && BATCHED), "no batched delta kernel");
   cg::grid_group grid = cg::this_grid();
   __shared__ float s[THREADS];
   __shared__ int si[THREADS];
   const TV* vals = static_cast<const TV*>(a.vals);
   const float lam = a.scal[0], beta = a.scal[1], guard = a.scal[3];
   const int k_eff = (int)a.scal[2];
+  const int S = BATCHED ? a.S : 1;
   const long long n = a.n;
   const int K = a.K, tile = a.tile;
   const int n_pair = (K + HALF - 1) / HALF;       // (k, column) item pairs
@@ -378,12 +421,21 @@ fused_sparse_kernel(SparseArgs a) {
   const int n_lt = (int)((n + THREADS - 1) / THREADS);
   const int n_xc = EMIT_DZ ? 0 : (int)((a.d_pad + XCHUNK - 1) / XCHUNK);
   const int sub = threadIdx.x >> 7, c = threadIdx.x & (BLOCK - 1);
+  // Slot so's arrays start so strides in (64-bit); the tiles, order, count
+  // and zmask stride 0 for a shared design.  Unbatched, so and every slot
+  // stride are compile-time zeros, so the offsets fold away.
+  const long long ts = BATCHED ? a.t_stride : 0;
+  const long long cs = ts ? a.d_pad / BLOCK : 0, zs = ts ? a.d_pad : 0;
+  const long long rk = BATCHED ? (long long)a.R * K : 0;
+  const long long kn = BATCHED ? (long long)K * n : 0;
+  const long long kb = BATCHED ? (long long)K * BLOCK : 0;
   const bool stamp = a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
   int ns = 0;
   if (stamp) a.stamps[ns++] = clock64();
 
-  // launch start: r (and w) from z0; the scatter buffer zeroed.
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+  // launch start: r (and w) from z0; the scatter buffer zeroed.  The
+  // (S, n) vectors and the (S, K, n) buffer are contiguous: flat passes.
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < S * n;
        i += (long long)gridDim.x * THREADS) {
     float rr, ww, ll, zi;
     if constexpr (EMIT_DZ) {
@@ -398,7 +450,7 @@ fused_sparse_kernel(SparseArgs a) {
     if constexpr (NEWTON) a.w[i] = ww;
   }
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-       i < (long long)K * n; i += (long long)gridDim.x * THREADS)
+       i < S * (long long)K * n; i += (long long)gridDim.x * THREADS)
     a.buf[i] = 0.f;
   grid.sync();
   if (stamp) a.stamps[ns++] = clock64();
@@ -408,61 +460,97 @@ fused_sparse_kernel(SparseArgs a) {
     const int* idx = a.idx + (long long)min(rd, a.R - 1) * K;
     // A: δ of round rd; |x| / nnz partials of round rd − 1.
     const int n_a = (rd < a.R ? n_pair : 0) + (rd > 0 ? n_xc : 0);
-    for (int it = blockIdx.x; it < n_a; it += gridDim.x) {
-      if (rd < a.R && it < n_pair) {
-        const int k = it * HALF + sub;
+    for (int it = blockIdx.x; it < S * n_a; it += gridDim.x) {
+      const int so = BATCHED ? it / n_a : 0;
+      const int j = it - so * n_a;
+      if (rd < a.R && j < n_pair) {
+        const int k = j * HALF + sub;
         if (k < K) {
+          const float* sc = a.scal + 4 * so;
+          const float lm = BATCHED ? sc[0] : lam, bt = BATCHED ? sc[1] : beta;
+          const int ke = BATCHED ? (int)sc[2] : k_eff;
+          // ik[k] is read again after the gather loop: held in a register
+          // across the loop's ld.global.cg it moved ptxas's allocation of
+          // the unbatched kernel, which ran slower; read twice, the
+          // unbatched SASS is unchanged by BATCHED (compare_sass.py).
+          const int* ik = idx + so * rk;
           float g, h;
-          gather_col<TV, NEWTON>(a.rows, vals, a.r, a.w, idx[k], c, tile, g, h);
-          const float xs = ldcg(a.x + (long long)idx[k] * BLOCK + c);
-          const float hh = NEWTON ? (h < 1e-8f ? 1e-8f : h) : beta;
-          const float xn = soft_threshold(xs - g / hh, lam / hh);
-          a.delta[k * BLOCK + c] = (xn - xs) * (k < k_eff ? 1.f : 0.f);
+          gather_col<TV, NEWTON>(a.rows + so * ts, vals + so * ts,
+                                 a.r + so * n, a.w + (NEWTON ? so * n : 0),
+                                 ik[k], c, tile, g, h);
+          const float xs =
+              ldcg(a.x + so * a.d_pad + (long long)ik[k] * BLOCK + c);
+          const float hh = NEWTON ? (h < 1e-8f ? 1e-8f : h) : bt;
+          const float xn = soft_threshold(xs - g / hh, lm / hh);
+          (a.delta + so * kb)[k * BLOCK + c] = (xn - xs) * (k < ke ? 1.f : 0.f);
         }
       } else {
-        x_partial(a, it - (rd < a.R ? n_pair : 0), s, si);
+        const int q = j - (rd < a.R ? n_pair : 0);
+        if constexpr (BATCHED)
+          x_partial(at_slot(a, so), q, s, si);
+        else
+          x_partial(a, q, s, si);
       }
     }
     grid.sync();
     if (stamp) a.stamps[ns++] = clock64();
-    // B: run sums of round rd; block 0 finishes round rd − 1.
-    if (!EMIT_DZ && rd > 0 && blockIdx.x == 0)
+    // B: run sums of round rd; slot s's finish of round rd − 1 on block
+    // s % gridDim.x (unbatched: block 0).
+    if constexpr (BATCHED) {
+      for (int sl = blockIdx.x; rd > 0 && sl < S; sl += gridDim.x) {
+        const SparseArgs b = at_slot(a, sl);
+        finish_round<LOSS>(b, rd - 1, b.scal[0], b.scal[3], n_xc, n_lt, s,
+                           si);
+      }
+    } else if (!EMIT_DZ && rd > 0 && blockIdx.x == 0) {
       finish_round<LOSS>(a, rd - 1, lam, guard, n_xc, n_lt, s, si);
+    }
     if (rd == a.R) {
       if (stamp) a.stamps[ns++] = clock64();
       break;
     }
-    for (int it = blockIdx.x; it < n_runs; it += gridDim.x) {
-      const int k = it / nq, q = it - k * nq;
-      scatter_runs<TV>(a.rows, vals, a.order, a.count, a.zmask, idx, a.delta,
-                       k, q, tile, n, a.buf, a.padterm);
+    for (int it = blockIdx.x; it < S * n_runs; it += gridDim.x) {
+      const int so = BATCHED ? it / n_runs : 0;
+      const int j = it - so * n_runs;
+      const int k = j / nq, q = j - k * nq;
+      scatter_runs<TV>(a.rows + so * ts, vals + so * ts, a.order + so * ts,
+                       a.count + so * cs, a.zmask + so * zs, idx + so * rk,
+                       a.delta + so * kb, k, q, tile, n, a.buf + so * kn,
+                       a.padterm + so * K);
     }
     grid.sync();
     if (stamp) a.stamps[ns++] = clock64();
     // C: the pass over n; x[blk_k] += δ_k for each distinct drawn block.
-    for (int it = blockIdx.x; it < n_lt + n_pair; it += gridDim.x) {
-      if (it < n_lt) {
-        const long long i = (long long)it * THREADS + threadIdx.x;
+    const int n_c = n_lt + n_pair;
+    for (int it = blockIdx.x; it < S * n_c; it += gridDim.x) {
+      const int so = BATCHED ? it / n_c : 0;
+      const int j = it - so * n_c;
+      if (j < n_lt) {
+        const long long i = (long long)j * THREADS + threadIdx.x;
         if constexpr (EMIT_DZ) {
           combine_delta_row<LOSS, NEWTON>(i, n, K, a.z, a.dz, a.buf,
                                           a.padterm, a.y, a.r, a.w, a.health);
         } else {
+          const long long vo = so * n;
           const float ll = combine_row<LOSS, NEWTON, true>(
-              i, n, K, a.z, a.z, a.buf, a.padterm, a.y, a.r, a.w);
+              i, n, K, a.z + vo, a.z + vo, a.buf + so * kn,
+              a.padterm + so * K, a.y + vo, a.r + vo,
+              a.w + (NEWTON ? vo : 0));
           const float tot = block_sum(ll, s);
-          if (threadIdx.x == 0) a.lpart[it] = tot;
+          if (threadIdx.x == 0) a.lpart[so * n_lt + j] = tot;
         }
       } else {
-        const int k = (it - n_lt) * HALF + sub;
+        const int k = (j - n_lt) * HALF + sub;
         if (k < K) {
-          const int b = idx[k];
+          const int* ik = idx + so * rk;
+          const int b = ik[k];
           bool first = true;
-          for (int kk = 0; kk < k; ++kk) first &= (idx[kk] != b);
+          for (int kk = 0; kk < k; ++kk) first &= (ik[kk] != b);
           if (first) {
-            const long long o = (long long)b * BLOCK + c;
+            const long long o = so * a.d_pad + (long long)b * BLOCK + c;
             float v = ldcg(a.x + o);
             for (int kk = k; kk < K; ++kk)
-              if (idx[kk] == b) v += ldcg(a.delta + kk * BLOCK + c);
+              if (ik[kk] == b) v += ldcg(a.delta + so * kb + kk * BLOCK + c);
             a.x[o] = v;
           }
         }
@@ -492,32 +580,36 @@ int sparse_coop_blocks(const void* kern) {
   return (per_sm < 2 ? per_sm : 2) * sms;
 }
 
-template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ>
+template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED>
 const void* sparse_kernel() {
   return reinterpret_cast<const void*>(
-      &fused_sparse_kernel<TV, LOSS, NEWTON, EMIT_DZ>);
+      &fused_sparse_kernel<TV, LOSS, NEWTON, EMIT_DZ, BATCHED>);
 }
 
-template <typename TV, bool EMIT_DZ>
+template <typename TV, bool EMIT_DZ, bool BATCHED>
 const void* pick_sparse(int loss) {
   switch (loss) {
-    case 0: return sparse_kernel<TV, LOSS_LASSO, false, EMIT_DZ>();
-    case 1: return sparse_kernel<TV, LOSS_LOGISTIC, false, EMIT_DZ>();
-    case 2: return sparse_kernel<TV, LOSS_LASSO, true, EMIT_DZ>();
-    case 3: return sparse_kernel<TV, LOSS_LOGISTIC, true, EMIT_DZ>();
+    case 0: return sparse_kernel<TV, LOSS_LASSO, false, EMIT_DZ, BATCHED>();
+    case 1: return sparse_kernel<TV, LOSS_LOGISTIC, false, EMIT_DZ, BATCHED>();
+    case 2: return sparse_kernel<TV, LOSS_LASSO, true, EMIT_DZ, BATCHED>();
+    case 3: return sparse_kernel<TV, LOSS_LOGISTIC, true, EMIT_DZ, BATCHED>();
     default: return nullptr;
   }
 }
 
-// Loss code: bit 0 logistic, bit 1 Newton, bit 2 EMIT_DZ (the delta kernel).
+// Loss code: bit 0 logistic, bit 1 Newton, bit 2 EMIT_DZ (the delta
+// kernel), bit 3 BATCHED (the slot kernel); bits 2 and 3 exclude each other.
 const void* pick_sparse(int v_bf16, int code) {
   const int loss = code & 3;
-  if (code & ~7) return nullptr;
+  if ((code & ~15) || (code & 12) == 12) return nullptr;
   if (code & 4)
-    return v_bf16 ? pick_sparse<__nv_bfloat16, true>(loss)
-                  : pick_sparse<float, true>(loss);
-  return v_bf16 ? pick_sparse<__nv_bfloat16, false>(loss)
-                : pick_sparse<float, false>(loss);
+    return v_bf16 ? pick_sparse<__nv_bfloat16, true, false>(loss)
+                  : pick_sparse<float, true, false>(loss);
+  if (code & 8)
+    return v_bf16 ? pick_sparse<__nv_bfloat16, false, true>(loss)
+                  : pick_sparse<float, false, true>(loss);
+  return v_bf16 ? pick_sparse<__nv_bfloat16, false, false>(loss)
+                : pick_sparse<float, false, false>(loss);
 }
 
 int launch_sparse(const void* kern, SparseArgs a, void* stream) {
@@ -581,6 +673,7 @@ int sp_scatter_block_update(const int* rows, const void* vals, int v_bf16,
 // code (bit 0 logistic, bit 1 Newton, bit 2 the delta kernel); negative
 // CUDA error on failure.
 int sp_fused_grid_blocks(int v_bf16, int loss) {
+  if (loss & ~7) return -(int)cudaErrorInvalidValue;
   const void* kern = pick_sparse(v_bf16, loss);
   if (!kern) return -(int)cudaErrorInvalidValue;
   return sparse_coop_blocks(kern);
@@ -599,8 +692,35 @@ int sp_fused_shotgun_rounds(const int* rows, const void* vals, int v_bf16,
   if (loss & ~3) return (int)cudaErrorInvalidValue;
   SparseArgs a{rows, vals, order, count, zmask, y, idx, scal, z, x, r, w,
                buf, padterm, delta, lpart, xl1, xnz, f, nnz, health, stamps,
-               n, d_pad, R, K, tile, nullptr, nullptr};
+               n, d_pad, R, K, tile, nullptr, nullptr, 1, 0};
   return launch_sparse(pick_sparse(v_bf16, loss), a, stream);
+}
+
+// The slot kernel: every array but the tiles, the order and `stamps`
+// carries a leading slot axis of S (scal (S, 4), buf (S, K, n), health
+// (S,), ...); rows, vals and order advance t_stride elements per slot,
+// count and zmask one slot's worth when t_stride != 0 (0: one shared
+// design).  `stamps`, as for the unbatched launch, may be null.
+int sp_batched_fused_shotgun_rounds(
+    const int* rows, const void* vals, int v_bf16, int loss,
+    long long t_stride, const int* order, const int* count,
+    const unsigned char* zmask, const float* y, const int* idx,
+    const float* scal, float* z, float* x, float* r, float* w, float* buf,
+    float* padterm, float* delta, float* lpart, float* xl1, int* xnz,
+    float* f, int* nnz, float* health, long long* stamps, long long n,
+    long long d_pad, int S, int R, int K, int tile, void* stream) {
+  if ((loss & ~3) || S < 1) return (int)cudaErrorInvalidValue;
+  SparseArgs a{rows, vals, order, count, zmask, y, idx, scal, z, x, r, w,
+               buf, padterm, delta, lpart, xl1, xnz, f, nnz, health, stamps,
+               n, d_pad, R, K, tile, nullptr, nullptr, S, t_stride};
+  return launch_sparse(pick_sparse(v_bf16, loss | 8), a, stream);
+}
+
+// Grid size (CUDA blocks) of the sparse slot kernel for this value type and
+// loss code (bit 0 logistic, bit 1 Newton); negative CUDA error on failure.
+int sp_batched_grid_blocks(int v_bf16, int loss) {
+  if (loss & ~3) return -(int)cudaErrorInvalidValue;
+  return sparse_coop_blocks(pick_sparse(v_bf16, loss | 8));
 }
 
 // The delta kernel: z0 read-only, view (n,) scratch, dz (n,) out, x in/out;
@@ -618,7 +738,7 @@ int sp_fused_shotgun_delta_rounds(const int* rows, const void* vals,
   if (loss & ~3) return (int)cudaErrorInvalidValue;
   SparseArgs a{rows, vals, order, count, zmask, y, idx, scal, view, x, r, w,
                buf, padterm, delta, nullptr, nullptr, nullptr, nullptr,
-               nullptr, health, nullptr, n, d_pad, R, K, tile, z0, dz};
+               nullptr, health, nullptr, n, d_pad, R, K, tile, z0, dz, 1, 0};
   return launch_sparse(pick_sparse(v_bf16, loss | 4), a, stream);
 }
 

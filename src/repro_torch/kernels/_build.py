@@ -43,6 +43,9 @@ _ARGTYPES = {
     "sb_fused_shotgun_delta_rounds": [_P, _I, _I] + [_P] * 14
                                      + [_L, _L, _I, _I, _I, _I, _P],
     "sb_fused_grid_blocks": [_I, _I],
+    "sb_batched_fused_shotgun_rounds": [_P, _I, _I, _L] + [_P] * 15
+                                       + [_L, _L, _I, _I, _I, _I, _I, _P],
+    "sb_batched_grid_blocks": [_I, _I],
     "sp_gather_block_matvec": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
     "sp_scatter_block_update": [_P, _P, _I] + [_P] * 9 + [_L, _I, _I, _P],
     "sp_fused_shotgun_rounds": [_P, _P, _I, _I] + [_P] * 20
@@ -50,6 +53,9 @@ _ARGTYPES = {
     "sp_fused_shotgun_delta_rounds": [_P, _P, _I, _I] + [_P] * 16
                                      + [_L, _L, _I, _I, _I, _P],
     "sp_fused_grid_blocks": [_I, _I],
+    "sp_batched_fused_shotgun_rounds": [_P, _P, _I, _I, _L] + [_P] * 20
+                                       + [_L, _L, _I, _I, _I, _I, _P],
+    "sp_batched_grid_blocks": [_I, _I],
 }
 
 

@@ -297,6 +297,13 @@ def _block_stream(blk_idx, generator, rounds: int, K: int, nblk: int,
         return idx.to(device)
     if generator is None:
         raise ValueError("pass a torch.Generator or an explicit blk_idx")
+    return draw_blocks(generator, rounds, K, nblk, device)
+
+
+def draw_blocks(generator: torch.Generator, rounds: int, K: int, nblk: int,
+                device) -> torch.Tensor:
+    """(rounds, K) int32: K distinct blocks per round, drawn on ``device``
+    from ``generator`` (one uniform key per block; the K smallest win)."""
     u = torch.rand(rounds, nblk, generator=generator, device=device)
     return u.argsort(dim=-1)[:, :K].to(torch.int32)
 

@@ -87,6 +87,14 @@ def _require_contiguous(*tensors: torch.Tensor) -> None:
         raise ValueError("the CUDA kernels take contiguous rows/vals tiles")
 
 
+def _check_stamps(stamps, R: int, dev) -> None:
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.numel() < 3 * R + 4
+                               or stamps.device != dev):
+        raise ValueError(f"stamps must be an int64 tensor of >= {3 * R + 4} "
+                         f"elements on {dev}")
+
+
 def _take_tiles(rows, vals, idx):
     """(K, tile, 128) long rows and f32 vals of the drawn blocks."""
     idx = idx.long()
@@ -300,11 +308,7 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
     f = torch.empty(R, **f32)
     nnz = torch.empty(R, dtype=torch.int32, device=dev)
     health = torch.zeros((), **f32)
-    if stamps is not None and (stamps.dtype != torch.int64
-                               or stamps.numel() < 3 * R + 4
-                               or stamps.device != dev):
-        raise ValueError(f"stamps must be an int64 tensor of >= {3 * R + 4} "
-                         f"elements on {dev}")
+    _check_stamps(stamps, R, dev)
     with torch.cuda.device(dev):
         rc = lib.sp_fused_shotgun_rounds(
             _ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),

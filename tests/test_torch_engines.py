@@ -469,7 +469,7 @@ def _leaves(t):
 def test_ckpt_save_restore_roundtrip(tmp_path):
     t = _tree()
     tckpt.save(tmp_path, 7, t)
-    step, out = tckpt.restore(tmp_path, t)
+    step, out = tckpt.restore(tmp_path, t, device="cpu")
     assert step == 7
     for a, b in zip(_leaves(t), _leaves(out)):
         assert torch.equal(a, b) and a.dtype == b.dtype
@@ -490,13 +490,13 @@ def test_ckpt_half_written_step_is_ignored(tmp_path):
     crashed.mkdir()
     (crashed / "arrays.npz").write_bytes(b"partial garbage")
     assert tckpt.latest_step(tmp_path) == 1
-    step, _ = tckpt.restore(tmp_path, _tree())
+    step, _ = tckpt.restore(tmp_path, _tree(), device="cpu")
     assert step == 1
 
 
 def test_ckpt_restore_missing_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
-        tckpt.restore(tmp_path, _tree())
+        tckpt.restore(tmp_path, _tree(), device="cpu")
 
 
 def test_ckpt_restore_shape_mismatch_raises(tmp_path):
@@ -504,4 +504,16 @@ def test_ckpt_restore_shape_mismatch_raises(tmp_path):
     bad = _tree()
     bad["a"] = torch.zeros(3, 3)
     with pytest.raises(ValueError, match="shape"):
-        tckpt.restore(tmp_path, bad)
+        tckpt.restore(tmp_path, bad, device="cpu")
+
+
+def test_ckpt_restore_defaults_to_the_card(tmp_path, monkeypatch):
+    """``restore`` resolves its device like every entry point of the port:
+    the card unless the caller asks for the CPU, and without a card it
+    raises instead of carrying on on the host."""
+    tckpt.save(tmp_path, 1, _tree())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        tckpt.restore(tmp_path, _tree())
+    step, _ = tckpt.restore(tmp_path, _tree(), device="cpu")
+    assert step == 1

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (dense and BlockedCSC, margin-owning and
-Δz-emitting) on the card against their plain versions on the same inputs,
-bit-identical repeat runs, the launch counters, and the sharded driver on a
-one-rank NCCL group.  Marked
+"""The port's CUDA kernels (dense and BlockedCSC, margin-owning,
+Δz-emitting and batched) on the card against their plain versions on the
+same inputs, bit-identical repeat runs, a batched slot bit-identical to the
+unbatched kernel, the launch counters, the sharded driver on a one-rank
+NCCL group and a served stream against the sequential queue.  Marked
 ``gpu``; each test skips (inside the ``cuda`` fixture, so every worker
 collects the same tests) when ``torch.cuda.is_available()`` is false.
 
@@ -16,13 +17,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import batched as tcb  # noqa: E402
 from repro_torch.core import objectives as tobj  # noqa: E402
 from repro_torch.core import sharded as tsh  # noqa: E402
 from repro_torch.core.spec import SolverSpec  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
+from repro_torch.kernels import batched as tkb  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import shotgun_block as tsb  # noqa: E402
 from repro_torch.kernels import shotgun_sparse as tss  # noqa: E402
+from repro_torch.launch import solver_serve as tserve  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 BLOCK = 128
@@ -399,3 +403,149 @@ def test_one_rank_nccl_sharded_solve_matches_block_solve(cuda, nccl_rank,
                                rtol=1e-4, atol=0)
     torch.testing.assert_close(got.x, ref.x, rtol=1e-4, atol=1e-4)
     assert int(got.status) == 0 and got.x.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# Batched kernels (#9, #10) and the solver service
+# ---------------------------------------------------------------------------
+
+def _slot_scalars(prob, dev):
+    """Per-slot λ and β ladders, k_eff all / some / none, and a guard that
+    trips on slot 1 only."""
+    inf = float("inf")
+    return (prob.lam * torch.tensor([1.0, 2.0, 4.0], device=dev),
+            prob.beta * torch.tensor([1.0, 1.5, 2.0], device=dev),
+            torch.tensor([3.0, 2.0, 0.0], device=dev),
+            torch.tensor([inf, 0.0, inf], device=dev))
+
+
+def _check_batched(got, want, one_of, x, z, tol):
+    """Batched kernel vs its plain version; slot s vs the unbatched kernel
+    bit for bit; the frozen slot 2 returns its inputs; slot 1's guard."""
+    for u, v in zip(got[:3], want[:3]):
+        torch.testing.assert_close(u, v, rtol=tol, atol=tol)
+    assert torch.all((got[3] - want[3]).abs() <= 1)
+    assert got[4].tolist() == want[4].tolist() == [0.0, 1.0, 0.0]
+    for s in range(3):
+        assert all(torch.equal(a[s], b) for a, b in zip(got, one_of(s))), s
+    assert torch.equal(got[0][2], x[2]) and torch.equal(got[1][2], z[2])
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
+def test_batched_matches_plain_and_unbatched_bitwise(cuda, loss, store,
+                                                     shared):
+    padded = [_padded(loss, cuda, seed=s) for s in range(3)]
+    prob = padded[0][0]
+    A = torch.stack([p[1] for p in padded])
+    A = A[0] if shared else A
+    A = A.to(torch.bfloat16) if store == "bf16" else A
+    y = torch.stack([p[2] for p in padded])
+    mask = torch.stack([p[3] for p in padded])
+    cols = [_inputs((A if shared else A[s]).float(), seed=10 + s)
+            for s in range(3)]
+    x, z, idx = (torch.stack(c) for c in zip(*cols))
+    lam, beta, k_eff, guard = _slot_scalars(prob, cuda)
+    args = (A, z, x, idx, lam, beta, y, mask, k_eff, guard)
+    before = tkb.LAUNCHES["batched_fused_shotgun_rounds"]
+    got = tkb.batched_fused_shotgun_rounds(*args, loss=loss,
+                                           shared_design=shared)
+    assert tkb.LAUNCHES["batched_fused_shotgun_rounds"] == before + 1
+    want = tkb.batched_fused_shotgun_rounds_plain(*args, loss=loss,
+                                                  shared_design=shared)
+    _check_batched(got, want, lambda s: tsb.fused_shotgun_rounds(
+        A if shared else A[s], z[s], x[s], idx[s], lam[s], beta[s], y[s],
+        mask[s], loss=loss, k_eff=k_eff[s], guard_f=guard[s]), x, z,
+        1e-3 if store == "bf16" else 1e-4)
+
+
+def _stacked_tiles(probs, store):
+    """(rows, vals, order) of BlockedCSC problems stacked on a slot axis,
+    tiles padded to the deepest with (row 0, value 0) slots."""
+    tile = max(p.A.tile for p in probs)
+    pad = lambda t, p: torch.nn.functional.pad(  # noqa: E731
+        t, (0, 0, 0, tile - p.A.tile))
+    rows = torch.stack([pad(p.A.rows, p) for p in probs])
+    vals = torch.stack([pad(p.A.vals, p) for p in probs])
+    vals = vals.to(torch.bfloat16) if store == "bf16" else vals
+    return rows, vals, tkb.stacked_scatter_order(rows, vals)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
+def test_batched_sparse_matches_plain_and_unbatched_bitwise(cuda, loss,
+                                                            store, shared):
+    probs = [_sparse(loss, cuda, seed=s) for s in range(3)]
+    rows, vals, od = _stacked_tiles(probs, store)
+    if shared:
+        rows, vals = rows[0], vals[0]
+        od = tss.scatter_order(rows, vals)
+    y = torch.stack([p.y for p in probs])
+    cols = [_sparse_inputs(probs[0 if shared else s].A, seed=10 + s)
+            for s in range(3)]
+    x, z, idx = (torch.stack(c) for c in zip(*cols))
+    lam, beta, k_eff, guard = _slot_scalars(probs[0], cuda)
+    args = (rows, vals, z, x, idx, lam, beta, y, k_eff, guard)
+    before = tkb.LAUNCHES["batched_fused_sparse_shotgun_rounds"]
+    got = tkb.batched_fused_sparse_shotgun_rounds(
+        *args, loss=loss, shared_design=shared, order=od)
+    assert tkb.LAUNCHES["batched_fused_sparse_shotgun_rounds"] == before + 1
+    want = tkb.batched_fused_sparse_shotgun_rounds_plain(
+        *args, loss=loss, shared_design=shared)
+
+    def one(s):
+        slot = (rows, vals) if shared else (rows[s], vals[s])
+        return tss.fused_sparse_shotgun_rounds(
+            *slot, z[s], x[s], idx[s], lam[s], beta[s], y[s], loss=loss,
+            k_eff=k_eff[s], guard_f=guard[s],
+            order=od if shared else tss.scatter_order(*slot))
+
+    _check_batched(got, want, one, x, z, 1e-4)
+    # the phase stamps: one per barrier, in order, outputs unchanged
+    stamps = torch.zeros(3 * idx.shape[1] + 4, dtype=torch.int64,
+                         device=cuda)
+    timed = tkb.batched_fused_sparse_shotgun_rounds(
+        *args, loss=loss, shared_design=shared, order=od, stamps=stamps)
+    assert all(torch.equal(u, v) for u, v in zip(got, timed))
+    assert bool(torch.all(stamps[1:] >= stamps[:-1])) and int(stamps[0]) > 0
+
+
+@pytest.mark.parametrize("kind", ["dense", "bcsc"])
+def test_served_stream_on_card_equals_sequential_queue(cuda, kind):
+    if kind == "dense":
+        # the service CLI's default shape and λ: P = 128 stays under P*
+        # for every draw (at 192 x 384, λ = 2 some draws diverge)
+        reqs = tserve.make_stream(256, 512, requests=6, lam=4.0,
+                                  device=cuda)
+        K = 1
+    else:
+        probs = [_sparse("lasso", cuda, seed=s) for s in range(2)]
+        reqs = [tserve.SolveRequest(rid=i, problem_id=None,
+                                    prob=probs[i % 2]._replace(
+                                        lam=probs[0].lam * (1 + 0.5 * i)),
+                                    seed=1000 + i) for i in range(6)]
+        K = 1         # P = 128 under these designs' P* ≈ 170
+    for r in reqs:
+        r.problem_id = ("solo", r.rid)
+    kw = dict(K=K, max_rounds=24, rounds_per_launch=8, tol=1e-4, device=cuda)
+
+    def clone():
+        return [tserve.SolveRequest(rid=r.rid, problem_id=r.problem_id,
+                                    prob=r.prob, seed=r.seed) for r in reqs]
+
+    name = ("batched_fused_shotgun_rounds" if kind == "dense"
+            else "batched_fused_sparse_shotgun_rounds")
+    tkb.reset_launches()
+    svc = tserve.SolverService(tcb.batch_meta_of(reqs[0].prob), slots=3,
+                               cache=tcb.WarmStartCache(), **kw)
+    served = {r.rid: r for r in svc.serve(clone())}
+    assert tkb.LAUNCHES[name] == svc.launch_count > 0
+    seq = {r.rid: r for r in tserve.solve_queue_sequential(
+        clone(), cache=tcb.WarmStartCache(), **kw)}
+    for rid, a in served.items():
+        b = seq[rid]
+        assert a.status == b.status == "ok", rid
+        assert a.rounds_used == b.rounds_used, rid
+        assert torch.equal(a.x, b.x), rid

@@ -259,3 +259,41 @@ def test_wrappers_reject_untiled_shapes():
                                  z, torch.zeros(128),
                                  torch.zeros(1, 1, dtype=torch.int32), 0.1,
                                  1.0, z, z)
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _Z6kernelIfLb0ELb0EEvv
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000fe20000000800 */
+        /*0010*/                   EXIT ;                          /* 0x000000000000794d */
+\t\tFunction : _Z6kernelIfLb0ELb1EEvv
+        /*0000*/                   EXIT ;                          /* 0x000000000000794d */
+"""
+
+
+def test_compare_sass_parses_cuobjdump_listing():
+    """The SASS comparison reads each kernel's instructions (whitespace
+    normalized, encodings and addresses dropped) from a cuobjdump
+    listing."""
+    from repro_torch.kernels import compare_sass as cs
+    got = cs.parse_sass(_SASS)
+    assert got == {"_Z6kernelIfLb0ELb0EEvv": ["LDC R1, c[0x0][0x28]", "EXIT"],
+                   "_Z6kernelIfLb0ELb1EEvv": ["EXIT"]}
+
+
+@pytest.mark.parametrize("new,want", [
+    ("_Z6kernelIfLb0ELb0EEvv", "_Z6kernelIfLb0EEvv"),      # one flag added
+    ("_Z6kernelIfLb0ELb0ELb0EEvv", "_Z6kernelIfLb0EEvv"),  # two flags added
+    ("_Z6kernelIfLb1EEvv", "_Z6kernelIfLb1EEvv"),          # unchanged name
+    ("_Z6kernelIfLb1ELb1EEvv", None),                      # new flag set
+    ("_Z5otherv", None),                                   # no counterpart
+])
+def test_compare_sass_maps_a_new_template_flag_to_the_old_kernel(new, want):
+    """A kernel that gained trailing false bool template arguments is
+    compared with the kernel that lacks them; an instantiation with a new
+    flag set has no counterpart."""
+    from repro_torch.kernels import compare_sass as cs
+    old = {"_Z6kernelIfLb0EEvv": [], "_Z6kernelIfLb1EEvv": []}
+    assert cs.counterpart(new, old) == want
