@@ -38,6 +38,7 @@ import datetime
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -67,6 +68,11 @@ S1_N, S1_D, S1_DENSITY = 19_996, 1_355_191, 3.36e-4
 S2_N, S2_D, S2_DENSITY = 20_242, 47_236, 0.0016
 S1_P, S2_K = 4096, 8                 # S1 drops to the largest K under P*
 S1_ROUNDS, S1_TWO_ROUNDS, S2_ROUNDS = 512, 64, 256
+# Back-to-back calls per CUDA-event time of the two-kernel pair (#5, #6) and
+# its cuSPARSE yardsticks, timed in alternating turns (``paired_ms``): a
+# few-µs call is host-bound, so the events read the host's clock, which
+# drifts by up to 2x within a run.
+PAIR_ITERS = 200
 # Sharded leg: rounds of the one-rank solves and of the two-rank solves
 # (K per rank: dense 4, S1 half of the single-device K, so P matches).
 SH_ROUND_ROUNDS, SH_LAUNCH_ROUNDS, SH_TWO_KERNEL_ROUNDS = 32, 256, 16
@@ -109,6 +115,17 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def paired_ms(fa, fb, iters: int, reps: int = 5) -> tuple[float, float]:
+    """``time_ms`` of two calls in alternating turns (a b, b a, ...): the
+    median of each over ``reps`` turns, so that a drift of the host clock
+    reaches both alike."""
+    ta, tb = [], []
+    for rep in range(reps):
+        for which in ((0, 1) if rep % 2 == 0 else (1, 0)):
+            (ta, tb)[which].append(time_ms((fa, fb)[which], iters))
+    return statistics.median(ta), statistics.median(tb)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -242,12 +259,14 @@ def trace_rel(a, b) -> float:
     return float(((a - b).abs() / b.abs()).max())
 
 
-def device_ms(fn, kernels: tuple[str, ...], iters: int) -> float | None:
-    """Device time per call of ``fn`` from the profiler: the summed
-    duration of the device events whose names contain one of ``kernels``,
-    over ``iters`` calls (after a warm-up); None when the profiler sees no
-    such event.  For a kernel of a few microseconds the CUDA-event time of
-    back-to-back calls is set by the host enqueue, not by the device."""
+def device_ms(fn, kernels: tuple[str, ...] | None, iters: int) -> float | None:
+    """Device time per call of ``fn`` from the profiler over ``iters``
+    calls (after a warm-up): the summed duration of the device events whose
+    names contain one of ``kernels`` or, with ``kernels=None``, of every
+    device event in the window — all the call enqueues (kernels, memsets,
+    copies); None when the profiler sees no such event.  For a kernel of a
+    few microseconds the CUDA-event time of back-to-back calls is set by the
+    host enqueue, not by the device."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -257,7 +276,7 @@ def device_ms(fn, kernels: tuple[str, ...], iters: int) -> float | None:
         torch.cuda.synchronize()
     total = sum(e.time_range.end - e.time_range.start for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and any(k in e.name for k in kernels))
+                and (kernels is None or any(k in e.name for k in kernels)))
     return total / iters / 1e3 if total else None
 
 
@@ -342,7 +361,7 @@ def kernel_entry(name, source, replaces, launches, t, shape):
                 max_rel_err=WORST[name][1], ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=b, bound_by=by,
                 library_ms=t.get("library_ms"), device_ms=t.get("device_ms"),
-                shape=shape)
+                library_device_ms=t.get("library_device_ms"), shape=shape)
 
 
 def dense_leg(args):
@@ -554,12 +573,17 @@ def print_times(groups):
             b, by = v["bound"]
             lib = v.get("library_ms")
             dms = v.get("device_ms")
+            ldms = v.get("library_device_ms")
             print(f"time {name} [{tag}]: {v['ms']:.4f} ms; plain "
                   f"{v['plain_ms']:.4f} ms; bound {b:.4f} ms ({by}); "
                   f"{100 * b / v['ms']:.1f}% of bound"
                   + ("" if dms is None else
-                     f"; device {dms:.4f} ms ({100 * b / dms:.1f}% of bound)")
-                  + ("" if lib is None else f"; library {lib:.4f} ms"))
+                     f"; device {dms:.4f} ms ({100 * b / dms:.1f}% of bound;"
+                     f" host enqueue {v['ms'] - dms:.4f} ms)")
+                  + ("" if lib is None else f"; library {lib:.4f} ms")
+                  + ("" if ldms is None else
+                     f", device {ldms:.4f} ms (host enqueue "
+                     f"{lib - ldms:.4f} ms)"))
 
 
 def print_busy(label, fn):
@@ -669,6 +693,7 @@ def sparse_leg(args):
     s2_16 = s2._replace(A=s2.A.astype(torch.bfloat16))
     for prob in (s1, s1_16, s2, s2_16):                # build the layouts
         prob.A.scatter_order()
+        prob.A.range_starts()
     K1, K2 = K_of["S1"], K_of["S2"]
 
     # ---- each kernel against its plain version at S1 and S2 ---------------
@@ -679,6 +704,7 @@ def sparse_leg(args):
         for store, prob in probs:
             A = prob.A
             od = A.scatter_order()
+            sk = dict(order=od, rstart=A.range_starts())
             idx = draws(1, K, A.nblk, g)[0]
             idx[-1] = idx[0]                              # duplicate block
             r = torch.randn(A.n, generator=g, device=dev)
@@ -690,14 +716,29 @@ def sparse_leg(args):
                 0.0)])
             check("sparse_scatter_block_update", t, [(
                 "z", ss.sparse_scatter_block_update(A.rows, A.vals, r, idx,
-                                                    dl, order=od),
+                                                    dl, **sk),
                 ss.sparse_scatter_block_update_plain(A.rows, A.vals, r, idx,
-                                                     dl), 0.0)])
+                                                     dl, **sk), 0.0)])
             require_repeat(lambda: ss.sparse_gather_block_matvec(
                 A.rows, A.vals, r, idx), f"sparse_gather_block_matvec [{t}]")
             require_repeat(lambda: ss.sparse_scatter_block_update(
-                A.rows, A.vals, r, idx, dl, order=od),
+                A.rows, A.vals, r, idx, dl, **sk),
                 f"sparse_scatter_block_update [{t}]")
+            # a non-finite δ in a column with a padding slot reaches row 0
+            cols = torch.nonzero(od.zmask[idx[0]])
+            if len(cols):
+                dn = dl.clone()
+                dn[0, int(cols[0])] = float("inf")
+                got = ss.sparse_scatter_block_update(A.rows, A.vals, r, idx,
+                                                     dn, **sk)
+                want = ss.sparse_scatter_block_update_plain(
+                    A.rows, A.vals, r, idx, dn, **sk)
+                require(bool(torch.isnan(got[0])) and torch.equal(
+                    torch.isnan(got), torch.isnan(want)),
+                    f"sparse_scatter_block_update [{t}]: NaN through "
+                    "padding")
+                print(f"check sparse_scatter_block_update [{t}]: NaN "
+                      f"through padding reaches row 0")
             for loss in losses:
                 idx = draws(R, K, A.nblk, g)
                 x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
@@ -727,6 +768,7 @@ def sparse_leg(args):
         n, d_pad, tile = A.n, A.d_pad, A.tile
         vb = A.vals.element_size()
         od = A.scatter_order()
+        sk = dict(order=od, rstart=A.range_starts())
         idx = draws(R, K, A.nblk, g, dup=False)
         x0 = torch.zeros(d_pad, device=dev)
         z0 = torch.zeros(n, device=dev)
@@ -746,36 +788,38 @@ def sparse_leg(args):
             bound=bound(R * tiles + 4 * (3 * n + 2 * d_pad) + 8 * R,
                         R * ((4 + 3 * newton) * slots + (K + 10) * n
                              + 2 * d_pad)))
+        i0, rows, vals, rs = idx[0].clone(), A.rows, A.vals, sk["rstart"]
+        gather = lambda: ss.sparse_gather_block_matvec(rows, vals, r, i0)
+        scatter = lambda: ss.sparse_scatter_block_update(
+            rows, vals, z0, i0, dl, order=od, rstart=rs)
+        d_flat = dl.reshape(-1)
+        lib_mv = lambda: torch.mv(at_csr, r)
+        lib_addmv = lambda: torch.addmv(z0, a_csr, d_flat)
+        g_ms, mv_ms = paired_ms(gather, lib_mv, PAIR_ITERS)
+        s_ms, addmv_ms = paired_ms(scatter, lib_addmv, PAIR_ITERS)
         out["sparse_gather_block_matvec"] = dict(
-            ms=time_ms(lambda: ss.sparse_gather_block_matvec(
-                A.rows, A.vals, r, idx[0]), iters),
+            ms=g_ms,
             plain_ms=time_ms(lambda: ss.sparse_gather_block_matvec_plain(
-                A.rows, A.vals, r, idx[0]), iters),
-            library_ms=time_ms(lambda: torch.mv(at_csr, r), iters),
+                rows, vals, r, i0), iters),
+            library_ms=mv_ms,
             bound=bound(tiles + 4 * n + 512 * K, 2 * slots))
         out["sparse_scatter_block_update"] = dict(
-            ms=time_ms(lambda: ss.sparse_scatter_block_update(
-                A.rows, A.vals, z0, idx[0], dl, order=od), iters),
+            ms=s_ms,
             plain_ms=time_ms(lambda: ss.sparse_scatter_block_update_plain(
-                A.rows, A.vals, z0, idx[0], dl), iters),
-            library_ms=time_ms(lambda: torch.addmv(z0, a_csr, dl.reshape(-1)),
-                               iters),
+                rows, vals, z0, i0, dl, **sk), max(2, iters // 4), warmup=1),
+            library_ms=addmv_ms,
             bound=bound(tiles + 8 * n + 512 * K, 2 * slots + K * n))
-        calls = {
-            "fused_sparse_shotgun_rounds": (
-                ("fused_sparse_kernel",),
-                lambda: ss.fused_sparse_shotgun_rounds(*fargs, loss=loss,
-                                                       order=od)),
-            "sparse_gather_block_matvec": (
-                ("sparse_gather_kernel",),
-                lambda: ss.sparse_gather_block_matvec(A.rows, A.vals, r,
-                                                      idx[0])),
-            "sparse_scatter_block_update": (
-                ("scatter_runs_kernel", "combine_kernel"),
-                lambda: ss.sparse_scatter_block_update(
-                    A.rows, A.vals, z0, idx[0], dl, order=od))}
-        for name, (kern, fn) in calls.items():
-            out[name]["device_ms"] = device_ms(fn, kern, iters)
+        out["fused_sparse_shotgun_rounds"]["device_ms"] = device_ms(
+            lambda: ss.fused_sparse_shotgun_rounds(*fargs, loss=loss,
+                                                   order=od),
+            ("fused_sparse_kernel",), iters)
+        # the two-kernel pair and its cuSPARSE yardsticks on one clock:
+        # every device op in a window of that call alone
+        for name, fn, lib in (
+                ("sparse_gather_block_matvec", gather, lib_mv),
+                ("sparse_scatter_block_update", scatter, lib_addmv)):
+            out[name]["device_ms"] = device_ms(fn, None, PAIR_ITERS)
+            out[name]["library_device_ms"] = device_ms(lib, None, PAIR_ITERS)
         t = out["fused_sparse_shotgun_rounds"]
         out["phases"] = sparse_phases(
             lambda st: ss.fused_sparse_shotgun_rounds(
@@ -872,7 +916,8 @@ def sparse_leg(args):
     extra = {"s2_kernel_times": {
         k: dict(ms=v["ms"], device_ms=v["device_ms"], plain_ms=v["plain_ms"],
                 bound_ms=v["bound"][0], bound_by=v["bound"][1],
-                library_ms=v.get("library_ms"))
+                library_ms=v.get("library_ms"),
+                library_device_ms=v.get("library_device_ms"))
         for k, v in t_s2.items()},
         "s1_device_ms": {k: v["device_ms"] for k, v in t_s1.items()},
         "sparse_phases": ph, "sparse_solves": runs}

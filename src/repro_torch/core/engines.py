@@ -155,7 +155,7 @@ class SparseBlockEngine(NamedTuple):
 
     def run(self, A_blk, y, mask, lam, beta, z, x_l, idx, p_eff):
         rows, vals = A_blk.rows, A_blk.vals
-        order = A_blk.scatter_order()
+        order, rstart = A_blk.scatter_order(), A_blk.range_starts()
         live = health.live_mask(self.K, p_eff)[:, None]
         dz = torch.zeros_like(z)
         for idx_t in idx:
@@ -164,7 +164,7 @@ class SparseBlockEngine(NamedTuple):
                 x_l, dz, idx_t, live, lam, beta,
                 lambda i: ss.sparse_gather_block_matvec(rows, vals, r, i),
                 lambda d, i, dl: ss.sparse_scatter_block_update(
-                    rows, vals, d, i, dl, order=order))
+                    rows, vals, d, i, dl, order=order, rstart=rstart))
         return x_l, dz, health.nonfinite_flag(dz)
 
 

@@ -5,13 +5,17 @@
 // drawn block costs tile·128·(4 + value bytes) bytes, a few KB, so at the
 // sizes users run (n ≈ 2·10⁴, K ≤ 32) every call moves under 1 MB of
 // tiles and is bound by launch and memory latency, not by HBM bandwidth.
-// The margin-sized vectors (z, r, the (K, n) scatter buffer) fit in L2.
+// The margin-sized vectors (z, r, the fused kernels' (K, n) scatter
+// buffer) fit in L2.
 //
-// Determinism without float atomics: the gather gives each (k, column)
-// one owner that sums the tile axis in order; the scatter sums each run of
+// Determinism without float atomics: the fused kernels' gather gives each
+// (k, column) one owner that sums the tile axis in order (the two-kernel
+// gather: fixed slices, added in slice order); the scatter sums each run of
 // equal rows of a block in the block's row-sorted slot order (built once
 // per problem, data/sparse.py::scatter_order) into its own row of a (K, n)
-// buffer, and one pass over n then adds the K rows in k order.  Padding
+// buffer, and one pass over n then adds the K rows in k order (the
+// two-kernel scatter: the same sums in the same order, with each row
+// range's runs staged in shared memory instead of the buffer).  Padding
 // slots (row 0, value 0) are left out of the runs; their 0·δ_c (NaN for a
 // non-finite δ_c, as in the reference) reaches row 0 through a per-block
 // term over the columns that have one.
@@ -29,6 +33,13 @@ namespace {
 
 constexpr int XCHUNK = 4096;      // |x| / nnz partial: elements per item
 constexpr int HALF = THREADS / BLOCK;   // (k, column) items per CUDA block
+// Two-kernel gather: tile rows in flight per thread and pass.
+constexpr int GATHER_U = 16;
+// Two-kernel scatter: rows per CTA (data/sparse.py::RANGE_ROWS), drawn
+// blocks per chunk, staged slots per window (46 KB of shared memory).
+constexpr int RANGE_ROWS = 128;
+constexpr int RANGE_KC = 64;
+constexpr int RANGE_STAGE = 1024;
 
 // Fixed-order block-wide sum (valid in thread 0).  Every thread calls it.
 __device__ __forceinline__ float block_sum(float v, float* s) {
@@ -209,47 +220,203 @@ __device__ __forceinline__ void combine_delta_row(
 // sparse_gather_block_matvec — replaces repro/kernels/shotgun_sparse.py::
 // sparse_gather_block_matvec (Pallas, grid (K,)).  Bound: the K drawn
 // tiles (K·tile·128·(4 + value bytes)) plus r; at n ≈ 2·10⁴ that is under
-// 1 MB, so launch latency bounds it.  Design: one thread per (k, column),
-// two column sets per CUDA block, eight loads in flight per thread.
+// 1 MB, so the latency of the dependent loads idx → rows → r[rows] bounds
+// it.  Design: one CTA per drawn block, its tile axis split in two slices
+// (thread = (slice, column)); per pass each thread issues GATHER_U rows/vals
+// loads of its slice, then their r[rows] loads, and sums them in t order —
+// one pass (two dependent round trips) for tiles up to 32 deep, two up to
+// 64.  The two slice sums are added in slice order through shared memory.
+// (Measured on the H100 and set aside: one pass of 36 rows, 512- and
+// 1024-thread CTAs of 4 and 8 slices, and clusters of 2–8 CTAs per block;
+// the extra registers, threads or cluster barriers cost more than the
+// round trips they save.)  No atomics: the order depends only on the tile depth, so repeats are
+// bit-identical.
 // ---------------------------------------------------------------------------
 template <typename TV>
 __global__ void __launch_bounds__(THREADS)
-sparse_gather_kernel(const int* __restrict__ rows, const TV* __restrict__ vals,
-                     const float* r, const int* __restrict__ idx, int tile,
-                     int K, float* g) {
-  const int k = blockIdx.x * HALF + (threadIdx.x >> 7);
+sparse_gather_split_kernel(const int* __restrict__ rows,
+                           const TV* __restrict__ vals,
+                           const float* __restrict__ r,
+                           const int* __restrict__ idx, int tile,
+                           float* __restrict__ g) {
+  __shared__ float part[THREADS];
+  const int k = blockIdx.x;
   const int c = threadIdx.x & (BLOCK - 1);
-  if (k >= K) return;
-  float gg, hh;
-  gather_col<TV, false>(rows, vals, r, nullptr, idx[k], c, tile, gg, hh);
-  g[k * BLOCK + c] = gg;
+  const int per = (tile + HALF - 1) / HALF;
+  const int t0 = min((threadIdx.x >> 7) * per, tile);
+  const int t1 = min(t0 + per, tile);
+  const long long base = (long long)idx[k] * tile * BLOCK + c;
+  float acc = 0.f;
+  for (int t = t0; t < t1; t += GATHER_U) {
+    int ri[GATHER_U];
+    float v[GATHER_U], rv[GATHER_U];
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u) {
+      if (t + u < t1) {
+        ri[u] = rows[base + (long long)(t + u) * BLOCK];
+        v[u] = to_f32(vals[base + (long long)(t + u) * BLOCK]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u)
+      if (t + u < t1) rv[u] = __ldg(r + ri[u]);
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u)
+      if (t + u < t1) acc = fmaf(v[u], rv[u], acc);
+  }
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < BLOCK)
+    g[(long long)k * BLOCK + c] = part[c] + part[BLOCK + c];
 }
 
 // ---------------------------------------------------------------------------
 // sparse_scatter_block_update — replaces repro/kernels/shotgun_sparse.py::
 // sparse_scatter_block_update (Pallas, grid (K,), a VMEM f32 accumulator).
-// Bound: the K drawn tiles plus z read and written once.  Design: run sums
-// into a zeroed (K, n) buffer (one launch), then the k-ordered combine
-// over n (a second launch).  No atomics; duplicate draws accumulate.
+// Bound: the K drawn tiles plus z read and written once; at n ≈ 2·10⁴
+// under 1 MB, so latency bounds it.  Design: ONE launch, no (K, n) buffer.
+// CTA q owns rows [q·RANGE_ROWS, (q+1)·RANGE_ROWS) and reads z over them
+// once.  For a chunk of up to RANGE_KC drawn blocks it reads each block's
+// segment bounds from the cached range-start table (data/sparse.py::
+// range_starts), lays the segments end to end (a block-wide prefix sum),
+// and every thread loads its slots at once: order → (row, val, δ), staged
+// in shared memory (windows of RANGE_STAGE slots).  The head of each run
+// of equal rows of a block sums the run in slot order (fmaf, the first
+// term a product) into part[k][row]; each row's owner then adds the
+// chunk's part[k][row] to its z in k order.  So z_out[i] = ((z[i] + s_0(i))
+// + s_1(i)) + … + s_{K−1}(i) with s_k the run sum (0 where block k has no
+// slot at row i), the order of the fused kernels' buffer and combine.  A
+// padding slot's 0·δ_c is +0 or NaN, so the K padding terms of row 0 add
+// up to one +0 or NaN, added last.  No atomics; repeats are bit-identical.
 // ---------------------------------------------------------------------------
-template <typename TV>
-__global__ void __launch_bounds__(THREADS)
-scatter_runs_kernel(const int* __restrict__ rows, const TV* __restrict__ vals,
-                    const int* __restrict__ order, const int* __restrict__ count,
-                    const unsigned char* __restrict__ zmask,
-                    const int* __restrict__ idx, const float* delta, int tile,
-                    int nq, long long n, float* buf, float* padterm) {
-  const int k = blockIdx.x / nq, q = blockIdx.x - k * nq;
-  scatter_runs<TV>(rows, vals, order, count, zmask, idx, delta, k, q, tile, n,
-                   buf, padterm);
+
+namespace {
+
+// Exclusive prefix sum over the CUDA block (every thread calls it); the
+// block total in `total`.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* wsum,
+                                                    int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  int before = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int sw = wsum[w];
+    before += w < warp ? sw : 0;
+    tot += sw;
+  }
+  __syncthreads();
+  total = tot;
+  return before + x - v;
 }
 
+}  // namespace
+
+template <typename TV>
 __global__ void __launch_bounds__(THREADS)
-combine_kernel(const float* z_in, float* z_out, float* buf,
-               const float* padterm, long long n, int K) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  combine_row<LOSS_LASSO, false, false>(i, n, K, z_in, z_out, buf, padterm,
-                                        nullptr, nullptr, nullptr);
+scatter_rows_kernel(const int* __restrict__ rows, const TV* __restrict__ vals,
+                    const int* __restrict__ order,
+                    const int* __restrict__ rstart,
+                    const unsigned char* __restrict__ zmask,
+                    const float* __restrict__ z_in,
+                    const int* __restrict__ idx,
+                    const float* __restrict__ delta,
+                    float* __restrict__ z_out, long long n, int tile, int K) {
+  __shared__ float part[RANGE_KC * RANGE_ROWS];
+  __shared__ float sv[RANGE_STAGE], sd[RANGE_STAGE];
+  __shared__ int skey[RANGE_STAGE];      // chunk k · RANGE_ROWS + local row
+  __shared__ int sblk[RANGE_KC], slo[RANGE_KC], soff[RANGE_KC + 1];
+  __shared__ int wsum[WARPS];
+  __shared__ int carry;                  // key of the previous window's last
+  const int q = blockIdx.x;
+  const long long nq1 = (n + RANGE_ROWS - 1) / RANGE_ROWS + 1;
+  const long long i = (long long)q * RANGE_ROWS + threadIdx.x;
+  const bool owner = threadIdx.x < RANGE_ROWS && i < n;
+  const long long tslots = (long long)tile * BLOCK;
+  float acc = owner ? z_in[i] : 0.f;
+  bool bad = false;                      // CTA 0: a padding term is NaN
+  for (int k0 = 0; k0 < K; k0 += RANGE_KC) {
+    const int nk = min(RANGE_KC, K - k0);
+    int len = 0;
+    if (threadIdx.x < nk) {
+      const int b = idx[k0 + threadIdx.x];
+      const int* rs = rstart + b * nq1 + q;
+      const int lo = rs[0];
+      len = rs[1] - lo;
+      sblk[threadIdx.x] = b;
+      slo[threadIdx.x] = lo;
+    }
+    int total;
+    const int off = block_exclusive_scan(len, wsum, total);
+    if (threadIdx.x < nk) soff[threadIdx.x] = off;
+    if (threadIdx.x == 0) soff[nk] = total;
+    for (int j = threadIdx.x; j < nk * RANGE_ROWS; j += THREADS) part[j] = 0.f;
+    if (q == 0) {   // warp w checks columns 4·lane.. of blocks w, w + 8, ..
+      const int lane = threadIdx.x & 31;
+#pragma unroll 4
+      for (int kk = threadIdx.x >> 5; kk < nk; kk += WARPS) {
+        const unsigned char* zm = zmask + (long long)sblk[kk] * BLOCK + 4 * lane;
+        const float* dk = delta + (long long)(k0 + kk) * BLOCK + 4 * lane;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) bad |= (zm[u] != 0) & !isfinite(dk[u]);
+      }
+    }
+    __syncthreads();
+    for (int w0 = 0; w0 < total; w0 += RANGE_STAGE) {
+      const int wn = min(RANGE_STAGE, total - w0);
+      // stage: slot f of the chunk's segments laid end to end
+#pragma unroll
+      for (int u = 0; u < RANGE_STAGE / THREADS; ++u) {
+        const int e = u * THREADS + threadIdx.x;
+        if (e < wn) {
+          const int f = w0 + e;
+          int lo = 0, hi = nk;           // soff[lo] <= f < soff[hi]
+          while (hi - lo > 1) {
+            const int mid = (lo + hi) >> 1;
+            if (soff[mid] <= f) lo = mid; else hi = mid;
+          }
+          const long long bo = sblk[lo] * tslots;
+          const int s = order[bo + slo[lo] + (f - soff[lo])];
+          const int row = rows[bo + s];
+          skey[e] = lo * RANGE_ROWS + (row - q * RANGE_ROWS);
+          sv[e] = to_f32(vals[bo + s]);
+          sd[e] = delta[(long long)(k0 + lo) * BLOCK + (s & (BLOCK - 1))];
+        }
+      }
+      __syncthreads();
+      // run sums: the head of each run of one key walks it in slot order;
+      // a run cut by the window edge goes on from its partial sum
+      for (int e = threadIdx.x; e < wn; e += THREADS) {
+        const int key = skey[e];
+        if (e > 0 && skey[e - 1] == key) continue;
+        float a = (e == 0 && w0 > 0 && carry == key)
+                      ? fmaf(sv[0], sd[0], part[key])
+                      : __fmul_rn(sv[e], sd[e]);
+        for (int e2 = e + 1; e2 < wn && skey[e2] == key; ++e2)
+          a = fmaf(sv[e2], sd[e2], a);
+        part[key] = a;
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) carry = skey[wn - 1];
+      __syncthreads();
+    }
+    if (owner)
+      for (int kk = 0; kk < nk; ++kk)
+        acc = __fadd_rn(acc, part[kk * RANGE_ROWS + threadIdx.x]);
+    __syncthreads();
+  }
+  bad = __syncthreads_or(bad);
+  if (owner) {
+    if (i == 0 && K > 0) acc = __fadd_rn(acc, bad ? __int_as_float(0x7fffffff) : 0.f);
+    z_out[i] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -635,37 +802,35 @@ int sp_gather_block_matvec(const int* rows, const void* vals, int v_bf16,
                            const float* r, const int* idx, float* g, int tile,
                            int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)((K + HALF - 1) / HALF);
   if (v_bf16)
-    sparse_gather_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
-        rows, static_cast<const __nv_bfloat16*>(vals), r, idx, tile, K, g);
+    sparse_gather_split_kernel<__nv_bfloat16><<<(unsigned)K, THREADS, 0, s>>>(
+        rows, static_cast<const __nv_bfloat16*>(vals), r, idx, tile, g);
   else
-    sparse_gather_kernel<float><<<blocks, THREADS, 0, s>>>(
-        rows, static_cast<const float*>(vals), r, idx, tile, K, g);
+    sparse_gather_split_kernel<float><<<(unsigned)K, THREADS, 0, s>>>(
+        rows, static_cast<const float*>(vals), r, idx, tile, g);
   return (int)cudaGetLastError();
 }
 
+// Rows per CTA of the scatter: the range-start table's range width.
+int sp_range_rows() { return RANGE_ROWS; }
+
+// rstart: (nblk, ceil(n / RANGE_ROWS) + 1) int32 range-start table of the
+// row-sorted order (data/sparse.py::range_starts); zmask (nblk, 128).
 int sp_scatter_block_update(const int* rows, const void* vals, int v_bf16,
-                            const int* order, const int* count,
+                            const int* order, const int* rstart,
                             const unsigned char* zmask, const float* z_in,
-                            const int* idx, const float* delta, float* buf,
-                            float* padterm, float* z_out, long long n,
-                            int tile, int K, void* stream) {
+                            const int* idx, const float* delta, float* z_out,
+                            long long n, int tile, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nq = tile * BLOCK / THREADS;
-  const unsigned blocks = (unsigned)(K * nq);
+  const unsigned blocks = (unsigned)((n + RANGE_ROWS - 1) / RANGE_ROWS);
   if (v_bf16)
-    scatter_runs_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
-        rows, static_cast<const __nv_bfloat16*>(vals), order, count, zmask,
-        idx, delta, tile, nq, n, buf, padterm);
+    scatter_rows_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
+        rows, static_cast<const __nv_bfloat16*>(vals), order, rstart, zmask,
+        z_in, idx, delta, z_out, n, tile, K);
   else
-    scatter_runs_kernel<float><<<blocks, THREADS, 0, s>>>(
-        rows, static_cast<const float*>(vals), order, count, zmask, idx,
-        delta, tile, nq, n, buf, padterm);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  combine_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      z_in, z_out, buf, padterm, n, K);
+    scatter_rows_kernel<float><<<blocks, THREADS, 0, s>>>(
+        rows, static_cast<const float*>(vals), order, rstart, zmask, z_in,
+        idx, delta, z_out, n, tile, K);
   return (int)cudaGetLastError();
 }
 

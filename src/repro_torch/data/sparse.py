@@ -12,7 +12,7 @@ padding (row 0, value 0).  ``tile`` is the max per-column nnz rounded up to
 a multiple of 8.  ``from_dense`` packs in numpy exactly as the JAX package
 does, so the same dense input gives bit-identical ``rows``/``vals``.
 
-Two derived layouts are built on the container's device at first use and
+Three derived layouts are built on the container's device at first use and
 cached on it (they depend on which slots are padding, so a container made
 by ``scale_cols``/``astype`` builds its own):
 
@@ -20,6 +20,9 @@ by ``scale_cols``/``astype`` builds its own):
                        with the padding slots left out — what the
                        deterministic scatter kernels sum runs of equal rows
                        over — plus a per-column flag "has a padding slot".
+  ``range_starts()``   per block, where each range of ``RANGE_ROWS`` rows
+                       starts in that order — the segment a row-range CTA
+                       of the two-kernel scatter reads.
   ``row_table()``      the stored slots regrouped by row, (n, width), so
                        that ``matvec`` is a gather and a fixed-order
                        ``torch.sum`` (``index_add_`` on CUDA adds with float
@@ -40,6 +43,7 @@ from repro_torch.device import resolve_device
 
 BLOCK = 128      # aligned column-block width, matches kernels.shotgun_block
 TILE_PAD = 8     # tile axis padded to a multiple of 8
+RANGE_ROWS = 128  # rows per range of the row-range scatter (csrc RANGE_ROWS)
 
 
 class ScatterOrder(NamedTuple):
@@ -73,6 +77,26 @@ def scatter_order(rows: torch.Tensor, vals: torch.Tensor) -> ScatterOrder:
     zmask = pad.any(dim=1).to(torch.uint8)
     return ScatterOrder(order.to(torch.int32).contiguous(), count,
                         zmask.contiguous())
+
+
+def range_starts(rows: torch.Tensor, od: ScatterOrder, n: int) -> torch.Tensor:
+    """(nblk, ceil(n / RANGE_ROWS) + 1) int32: ``[b, q]`` is the first
+    position in block b's row-sorted order (``od.order``) whose row is
+    >= q·RANGE_ROWS, so range q's slots of block b are positions
+    ``[b, q] .. [b, q + 1]`` and the last column is ``od.count``.  Built
+    on the device (a gather and a batched ``searchsorted``; no host round
+    trip)."""
+    nblk, tile, block = rows.shape
+    slots = tile * block
+    key = torch.gather(rows.reshape(nblk, slots), 1, od.order.long())
+    pos = torch.arange(slots, dtype=torch.int32, device=rows.device)
+    key = torch.where(pos < od.count[:, None], key,
+                      torch.iinfo(torch.int32).max)
+    nq = -(-n // RANGE_ROWS)
+    bounds = torch.arange(0, (nq + 1) * RANGE_ROWS, RANGE_ROWS,
+                          dtype=torch.int32, device=rows.device)
+    return torch.searchsorted(key, bounds.expand(nblk, nq + 1).contiguous(),
+                              out_int32=True)
 
 
 def row_table(rows: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
@@ -195,9 +219,9 @@ class BlockedCSC:
     def col_blocks(self, start: int, stop: int) -> "BlockedCSC":
         """Column blocks [start, stop) as a container of their own — one
         shard's columns in the sharded driver.  The tiles are contiguous
-        views; the slice builds and caches its own ``scatter_order()`` and
-        ``row_table()``.  ``d`` counts the slice's real (unpadded)
-        columns."""
+        views; the slice builds and caches its own ``scatter_order()``,
+        ``range_starts()`` and ``row_table()``.  ``d`` counts the slice's
+        real (unpadded) columns."""
         if not 0 <= start <= stop <= self.nblk:
             raise ValueError(f"column blocks [{start}, {stop}) outside "
                              f"[0, {self.nblk})")
@@ -212,6 +236,12 @@ class BlockedCSC:
         if "scatter" not in self._cache:
             self._cache["scatter"] = scatter_order(self.rows, self.vals)
         return self._cache["scatter"]
+
+    def range_starts(self) -> torch.Tensor:
+        if "rstart" not in self._cache:
+            self._cache["rstart"] = range_starts(self.rows,
+                                                 self.scatter_order(), self.n)
+        return self._cache["rstart"]
 
     def row_table(self) -> torch.Tensor:
         if "rows" not in self._cache:

@@ -47,7 +47,8 @@ _ARGTYPES = {
                                        + [_L, _L, _I, _I, _I, _I, _I, _P],
     "sb_batched_grid_blocks": [_I, _I],
     "sp_gather_block_matvec": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
-    "sp_scatter_block_update": [_P, _P, _I] + [_P] * 9 + [_L, _I, _I, _P],
+    "sp_scatter_block_update": [_P, _P, _I] + [_P] * 7 + [_L, _I, _I, _P],
+    "sp_range_rows": [],
     "sp_fused_shotgun_rounds": [_P, _P, _I, _I] + [_P] * 20
                                + [_L, _L, _I, _I, _I, _P],
     "sp_fused_shotgun_delta_rounds": [_P, _P, _I, _I] + [_P] * 16

@@ -216,11 +216,11 @@ def _fused_solve(A, y, mask, lam, beta, blk_idx, loss: Loss, x0=None,
 
 def sparse_block_shotgun_round(rows, vals, z, x, blk_idx, lam, beta, y,
                                loss: str = obj.LASSO, k_eff=None, *,
-                               order=None):
+                               order=None, rstart=None):
     """One Block-Shotgun round on BlockedCSC nnz tiles (two launches:
     gather, scatter; no mask — the sparse path never pads samples).
-    ``order`` is the container's ``scatter_order()``.  Returns
-    (x_new, z_new, delta)."""
+    ``order``/``rstart`` are the container's ``scatter_order()`` and
+    ``range_starts()``.  Returns (x_new, z_new, delta)."""
     nblk, tile, block = rows.shape
     r = obj.residual_like(z, y, loss)
     g = sparse_gather_block_matvec(rows, vals, r, blk_idx)
@@ -231,7 +231,7 @@ def sparse_block_shotgun_round(rows, vals, z, x, blk_idx, lam, beta, y,
         delta = delta * health.live_mask(idx.shape[0], k_eff,
                                          device=delta.device)[:, None]
     z_new = sparse_scatter_block_update(rows, vals, z, blk_idx, delta,
-                                        order=order)
+                                        order=order, rstart=rstart)
     return _add_blocks(xb, idx, delta).reshape(-1), z_new, delta
 
 
@@ -250,13 +250,13 @@ def _sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss, x0=None,
     """Round loop over the sparse two-kernel round; blk_idx (rounds, K).
     x stays f32 also for bf16 vals."""
     x, z = _sparse_start(S, x0)
-    order = S.scatter_order()
+    order, rstart = S.scatter_order(), S.range_starts()
     ones = torch.ones_like(y, dtype=torch.float32)
 
     def step(z, x, idx, k_eff):
         x, z, _ = sparse_block_shotgun_round(S.rows, S.vals, z, x, idx, lam,
                                              beta, y, loss=loss, k_eff=k_eff,
-                                             order=order)
+                                             order=order, rstart=rstart)
         return x, z
 
     return _round_loop(step, _objective(y, ones, lam, loss), x, z, blk_idx,

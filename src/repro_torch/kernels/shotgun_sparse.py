@@ -13,10 +13,11 @@ C++ in ``csrc/shotgun_sparse.cu`` and built by ``kernels/_build.py``:
 Each wrapper keeps the JAX signature and return tuple, minus ``interpret``;
 the scatter and the fused kernel take the container's row-sorted slot order
 as ``order=`` (``BlockedCSC.scatter_order()``, cached per problem; built
-here when not given).  A wrapper given CPU tensors runs its plain version
-(``*_plain``, same module, same dataflow); given CUDA tensors it launches
-the kernel or raises — it never falls back.  ``LAUNCHES`` counts kernel
-launches per wrapper.
+here when not given), the scatter also its range-start table as
+``rstart=`` (``BlockedCSC.range_starts()``, likewise).  A wrapper given
+CPU tensors runs its plain version (``*_plain``, same module, same
+dataflow); given CUDA tensors it launches the kernel or raises — it never
+falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
 
 There is no sample mask on the sparse path: z is full length (n,), and
 padded tile slots (row 0, value 0) are additive no-ops in both directions
@@ -28,7 +29,8 @@ import math
 
 import torch
 
-from repro_torch.data.sparse import BLOCK, ScatterOrder, scatter_order
+from repro_torch.data.sparse import (BLOCK, RANGE_ROWS, ScatterOrder,
+                                     range_starts, scatter_order)
 from repro_torch.kernels.shotgun_block import (LASSO, Loss, _check_rc,
                                                _contig, _loss_code, _on_cuda,
                                                _ptr, _scalars,
@@ -83,8 +85,10 @@ def _check_tiles(rows: torch.Tensor, vals: torch.Tensor) -> tuple[int, int]:
 
 
 def _require_contiguous(*tensors: torch.Tensor) -> None:
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the CUDA kernels take contiguous rows/vals tiles")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous rows/vals "
+                             "tiles")
 
 
 def _check_stamps(stamps, R: int, dev) -> None:
@@ -118,6 +122,61 @@ def _scatter_plain(rows_k, vals_k, z, delta):
 
 
 # ---------------------------------------------------------------------------
+# The two-kernel pair's lean launch path: the library and the raw-stream
+# getter kept in module globals, no device switch, no copy of an operand
+# that is already contiguous and of the kernel's type, ints for pointers.
+# ---------------------------------------------------------------------------
+
+_LIB = None          # the loaded kernel library, after the first launch
+_RAW_STREAM = None   # device index -> PyTorch's current stream (int)
+
+
+def _lib():
+    """The kernel library, built at first use and kept; raises when its
+    scatter range width is not ``RANGE_ROWS`` (the table would not fit)."""
+    global _LIB, _RAW_STREAM
+    if _LIB is None:
+        from repro_torch.kernels import _build
+        lib = _build.load()
+        if lib.sp_range_rows() != RANGE_ROWS:
+            raise RuntimeError(f"the scatter kernel takes ranges of "
+                               f"{lib.sp_range_rows()} rows, the range-start "
+                               f"table {RANGE_ROWS}")
+        _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda dev: torch.cuda.current_stream(dev).cuda_stream)
+        _LIB = lib
+    return _LIB
+
+
+def _launch_device(vals: torch.Tensor, *others: torch.Tensor) -> int:
+    """The CUDA device index to launch on when ``vals`` and ``others`` lie
+    on one CUDA device, which must be the current one (the launch goes
+    there with no device switch); -1 when all lie on the CPU (the plain
+    version); raises for anything else."""
+    dev = vals.get_device()
+    for t in others:
+        if t.get_device() != dev:
+            dev = -1
+            break
+    if dev < 0:
+        _on_cuda(vals, *others)         # raises unless all are on the CPU
+        return -1
+    cur = torch.cuda.current_device()
+    if dev != cur:
+        raise ValueError(f"operands are on cuda:{dev} but the current device "
+                         f"is cuda:{cur}; call torch.cuda.set_device({dev}) "
+                         "first")
+    return dev
+
+
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` itself when contiguous and of ``dtype``, else such a copy."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # Kernel 1: g[k] = A_{B_k}ᵀ r from nnz tiles
 # ---------------------------------------------------------------------------
 
@@ -133,19 +192,18 @@ def sparse_gather_block_matvec(rows, vals, r, blk_idx):
     rows/vals (nblk, tile, 128) BlockedCSC tiles; r (n,); blk_idx (K,)."""
     _, tile = _check_tiles(rows, vals)
     K = blk_idx.shape[0]
-    if not _on_cuda(rows, vals, r, blk_idx):
+    dev = _launch_device(vals, rows, r, blk_idx)
+    if dev < 0:
         return sparse_gather_block_matvec_plain(rows, vals, r, blk_idx)
     _require_contiguous(rows, vals)
-    from repro_torch.kernels import _build
-    lib = _build.load()
-    dev = vals.device
-    rv = _contig(r, torch.float32)
-    idx = _contig(blk_idx, torch.int32)
-    g = torch.empty((K, BLOCK), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.sp_gather_block_matvec(
-            _ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
-            _ptr(rv), _ptr(idx), _ptr(g), tile, K, _stream(dev))
+    lib = _lib()
+    rv = _as(r, torch.float32)
+    idx = _as(blk_idx, torch.int32)
+    g = torch.empty((K, BLOCK), dtype=torch.float32, device=vals.device)
+    rc = lib.sp_gather_block_matvec(
+        rows.data_ptr(), vals.data_ptr(), vals.dtype == torch.bfloat16,
+        rv.data_ptr(), idx.data_ptr(), g.data_ptr(), tile, K,
+        _RAW_STREAM(dev))
     _check_rc(rc, "sparse_gather_block_matvec")
     LAUNCHES["sparse_gather_block_matvec"] += 1
     return g
@@ -155,44 +213,79 @@ def sparse_gather_block_matvec(rows, vals, r, blk_idx):
 # Kernel 2: z + Σ_k A_{B_k} δ_k from nnz tiles
 # ---------------------------------------------------------------------------
 
-def sparse_scatter_block_update_plain(rows, vals, z, blk_idx, delta):
-    """Plain version of ``sparse_scatter_block_update``."""
-    rows_k, vals_k = _take_tiles(rows, vals, blk_idx)
-    return _scatter_plain(rows_k, vals_k, z, delta.float()).to(z.dtype)
+def sparse_scatter_block_update_plain(rows, vals, z, blk_idx, delta, *,
+                                      order: ScatterOrder | None = None,
+                                      rstart: torch.Tensor | None = None):
+    """Plain version of ``sparse_scatter_block_update``, with the kernel's
+    dataflow: row range q takes, for each k in order, the segment
+    ``rstart[b_k, q] .. rstart[b_k, q + 1]`` of block b_k's row-sorted
+    stored slots (``order``); its rows get the run sums s_k added to z in k
+    order; the padding terms Σ_c 0·δ_k,c over the columns with a padding
+    slot reach row 0 last.  ``order``/``rstart`` are built when not given."""
+    n = z.shape[0]
+    od = scatter_order(rows, vals) if order is None else order
+    rs = range_starts(rows, od, n) if rstart is None else rstart
+    nblk, tile, block = rows.shape
+    nq = rs.shape[1] - 1
+    flat_rows = rows.reshape(nblk, -1).long()
+    flat_vals = vals.reshape(nblk, -1).float()
+    delta = delta.float()
+    out = z.float().clone()
+    for k, b in enumerate(blk_idx.long().tolist()):
+        bounds = rs[b].long()
+        pos = torch.arange(int(bounds[0]), int(bounds[-1]), device=z.device)
+        q = torch.repeat_interleave(torch.arange(nq, device=z.device),
+                                    bounds[1:] - bounds[:-1])
+        s = od.order[b].long()[pos]
+        row = flat_rows[b][s]
+        if bool(torch.any(row // RANGE_ROWS != q)):
+            raise ValueError("rstart does not match the tiles' row-sorted "
+                             "order (range_starts of rows, order, n)")
+        run = torch.zeros(n, dtype=torch.float32, device=z.device)
+        run.index_add_(0, row, flat_vals[b][s] * delta[k][s % block])
+        out = out + run
+    for k, b in enumerate(blk_idx.long().tolist()):
+        out[0] = out[0] + torch.sum(0.0 * delta[k][od.zmask[b].bool()])
+    return out.to(z.dtype)
 
 
 def sparse_scatter_block_update(rows, vals, z, blk_idx, delta, *,
-                                order: ScatterOrder | None = None):
+                                order: ScatterOrder | None = None,
+                                rstart: torch.Tensor | None = None):
     """z_new = z + Σ_k A_{B_k} δ_k from nnz tiles — f32 accumulation, in a
     fixed order (repeat runs are bit-identical).  delta (K, 128); duplicate
-    blocks in ``blk_idx`` accumulate."""
-    _, tile = _check_tiles(rows, vals)
+    blocks in ``blk_idx`` accumulate.  ``order``/``rstart`` are the
+    container's ``scatter_order()``/``range_starts()`` (built here when not
+    given)."""
+    nblk, tile = _check_tiles(rows, vals)
     K = blk_idx.shape[0]
     n = z.shape[0]
-    if not _on_cuda(rows, vals, z, blk_idx, delta):
+    dev = _launch_device(vals, rows, z, blk_idx, delta)
+    if dev < 0:
         return sparse_scatter_block_update_plain(rows, vals, z, blk_idx,
-                                                 delta)
+                                                 delta, order=order,
+                                                 rstart=rstart)
     _require_contiguous(rows, vals)
     od = scatter_order(rows, vals) if order is None else order
-    from repro_torch.kernels import _build
-    lib = _build.load()
-    dev = vals.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    z_in = _contig(z, torch.float32)
-    idx = _contig(blk_idx, torch.int32)
-    dlt = _contig(delta, torch.float32)
-    buf = torch.zeros(K * n, **f32)
-    padterm = torch.empty(K, **f32)
-    z_out = torch.empty(n, **f32)
-    with torch.cuda.device(dev):
-        rc = lib.sp_scatter_block_update(
-            _ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
-            _ptr(od.order), _ptr(od.count), _ptr(od.zmask), _ptr(z_in),
-            _ptr(idx), _ptr(dlt), _ptr(buf), _ptr(padterm), _ptr(z_out), n,
-            tile, K, _stream(dev))
+    rs = range_starts(rows, od, n) if rstart is None else rstart
+    if (rs.dtype != torch.int32 or not rs.is_contiguous()
+            or rs.shape != (nblk, -(-n // RANGE_ROWS) + 1)):
+        raise ValueError(f"rstart must be a contiguous int32 "
+                         f"({nblk}, {-(-n // RANGE_ROWS) + 1}) range-start "
+                         f"table, got {rs.dtype} {tuple(rs.shape)}")
+    lib = _lib()
+    z_in = _as(z, torch.float32)
+    idx = _as(blk_idx, torch.int32)
+    dlt = _as(delta, torch.float32)
+    z_out = torch.empty(n, dtype=torch.float32, device=vals.device)
+    rc = lib.sp_scatter_block_update(
+        rows.data_ptr(), vals.data_ptr(), vals.dtype == torch.bfloat16,
+        od.order.data_ptr(), rs.data_ptr(), od.zmask.data_ptr(),
+        z_in.data_ptr(), idx.data_ptr(), dlt.data_ptr(), z_out.data_ptr(), n,
+        tile, K, _RAW_STREAM(dev))
     _check_rc(rc, "sparse_scatter_block_update")
     LAUNCHES["sparse_scatter_block_update"] += 1
-    return z_out.to(z.dtype)
+    return z_out if z.dtype == torch.float32 else z_out.to(z.dtype)
 
 
 # ---------------------------------------------------------------------------

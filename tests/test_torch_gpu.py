@@ -21,6 +21,7 @@ from repro_torch.core import batched as tcb  # noqa: E402
 from repro_torch.core import objectives as tobj  # noqa: E402
 from repro_torch.core import sharded as tsh  # noqa: E402
 from repro_torch.core.spec import SolverSpec  # noqa: E402
+from repro_torch.data import sparse as tsp  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.kernels import batched as tkb  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -190,6 +191,132 @@ def test_sparse_gather_and_scatter_match_plain(cuda, store):
                                                            r, idx))
     assert torch.equal(zk, tss.sparse_scatter_block_update(
         S.rows, S.vals, r, idx, delta))
+
+
+def _padded_sparse(dev, store, n=1500, d=3000):
+    """A BlockedCSC at n rows (not a multiple of RANGE_ROWS) with two
+    all-padding tail blocks (count 0), in f32 or bf16."""
+    S, _, _ = tsyn.large_sparse(seed=5, n=n, d=d, density=0.01,
+                                layout="bcsc")
+    S = tsp.pad_feature_blocks(S, S.nblk + 2).to(dev)
+    return S.astype(torch.bfloat16) if store == "bf16" else S
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("K", [1, 8, 64])
+def test_sparse_scatter_rows_matches_plain_and_repeats_bitwise(cuda, K,
+                                                               store):
+    S = _padded_sparse(cuda, store)
+    assert S.n % tsp.RANGE_ROWS and int(S.scatter_order().count[-1]) == 0
+    g = torch.Generator(device=cuda).manual_seed(K)
+    idx = torch.randint(0, S.nblk, (K,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[0] = S.nblk - 1                                 # count-0 block
+    if K > 1:
+        idx[-1] = idx[K // 2]                           # duplicate draw
+    z = torch.randn(S.n, generator=g, device=cuda)
+    delta = torch.randn(K, BLOCK, generator=g, device=cuda) * 0.1
+    kw = dict(order=S.scatter_order(), rstart=S.range_starts())
+    before = tss.LAUNCHES["sparse_scatter_block_update"]
+    got = tss.sparse_scatter_block_update(S.rows, S.vals, z, idx, delta,
+                                          **kw)
+    assert tss.LAUNCHES["sparse_scatter_block_update"] == before + 1
+    torch.testing.assert_close(
+        got, tss.sparse_scatter_block_update_plain(S.rows, S.vals, z, idx,
+                                                   delta, **kw),
+        rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, tss.sparse_scatter_block_update(
+        S.rows, S.vals, z, idx, delta, **kw))
+    # a non-finite δ in a column with a padding slot reaches row 0 (and
+    # the column's own rows)
+    zm = S.scatter_order().zmask
+    col = int(torch.nonzero(zm[idx[-1]])[0])
+    delta[-1, col] = float("nan")
+    got = tss.sparse_scatter_block_update(S.rows, S.vals, z, idx, delta,
+                                          **kw)
+    want = tss.sparse_scatter_block_update_plain(S.rows, S.vals, z, idx,
+                                                 delta, **kw)
+    assert torch.isnan(got[0]) and torch.equal(torch.isnan(got),
+                                               torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+
+
+def _deep_tiles(dev, tile, n=2000, nblk=40, seed=0):
+    """(nblk, tile, 128) tiles with columns of every depth up to ``tile``
+    (distinct rows per column, padding slots after the stored ones)."""
+    rng = np.random.default_rng(seed + tile)
+    depth = rng.integers(0, tile + 1, (nblk, BLOCK))
+    depth[0, :] = tile                                  # a full block
+    rows = np.zeros((nblk, tile, BLOCK), np.int32)
+    vals = np.zeros((nblk, tile, BLOCK), np.float32)
+    for b in range(nblk):
+        for c in range(BLOCK):
+            m = int(depth[b, c])
+            rows[b, :m, c] = np.sort(rng.choice(n, m, replace=False))
+            vals[b, :m, c] = rng.standard_normal(m)
+    return (torch.from_numpy(rows).to(dev), torch.from_numpy(vals).to(dev))
+
+
+@pytest.mark.parametrize("K", [1, 8, 32])
+@pytest.mark.parametrize("tile", [8, 24, 64, 72])
+def test_sparse_gather_split_matches_plain_and_repeats_bitwise(cuda, tile,
+                                                               K):
+    rows, vals = _deep_tiles(cuda, tile)
+    g = torch.Generator(device=cuda).manual_seed(tile * 100 + K)
+    r = torch.randn(2000, generator=g, device=cuda)
+    idx = torch.randint(0, rows.shape[0], (K,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[0] = 0
+    if K > 1:
+        idx[-1] = idx[K // 2]                           # duplicate draw
+    for v in (vals, vals.to(torch.bfloat16)):
+        before = tss.LAUNCHES["sparse_gather_block_matvec"]
+        got = tss.sparse_gather_block_matvec(rows, v, r, idx)
+        assert tss.LAUNCHES["sparse_gather_block_matvec"] == before + 1
+        torch.testing.assert_close(
+            got, tss.sparse_gather_block_matvec_plain(rows, v, r, idx),
+            rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, tss.sparse_gather_block_matvec(rows, v, r,
+                                                               idx))
+
+
+def test_sparse_scatter_is_one_launch_and_no_other_device_op(cuda):
+    """The profiler sees one kernel and nothing else per scatter call (no
+    memset, copy or allocation kernel); the gather likewise."""
+    from torch.profiler import ProfilerActivity, profile
+    S = _padded_sparse(cuda, "f32")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    idx = torch.randint(0, S.nblk, (8,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    z = torch.randn(S.n, generator=g, device=cuda)
+    delta = torch.randn(8, BLOCK, generator=g, device=cuda)
+    kw = dict(order=S.scatter_order(), rstart=S.range_starts())
+    calls = {"scatter_rows_kernel": lambda: tss.sparse_scatter_block_update(
+                 S.rows, S.vals, z, idx, delta, **kw),
+             "sparse_gather_split_kernel":
+                 lambda: tss.sparse_gather_block_matvec(S.rows, S.vals, z,
+                                                        idx)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(ev) == 3 and all(name in e for e in ev), ev
+
+
+def test_sparse_two_kernel_wrappers_raise_off_the_current_device(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    S = _padded_sparse(torch.device("cuda:1"), "f32")
+    idx = torch.zeros(1, dtype=torch.int32, device=S.device)
+    with pytest.raises(ValueError, match="current device"):
+        tss.sparse_gather_block_matvec(S.rows, S.vals,
+                                       torch.zeros(S.n, device=S.device), idx)
 
 
 @pytest.mark.parametrize("store", ["f32", "bf16"])

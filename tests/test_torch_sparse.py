@@ -1,5 +1,6 @@
 """The port's BlockedCSC slice against the JAX package on the same numpy
-inputs and block draws: the container and its linear ops, the sparse
+inputs and block draws: the container, its layouts (the range-start table
+against numpy's ``searchsorted``) and its linear ops, the sparse
 generators, the three sparse kernels' plain versions against the Pallas
 kernels in interpret mode and the ``ref.py`` oracles, the sparse solves
 (fused and two-kernel; lasso, logistic, Newton; guarded, warm-started)
@@ -248,6 +249,120 @@ def test_scatter_order_and_row_table_layouts():
     for i in range(0, T.n, 37):
         slots = table[i][table[i] < T.rows.numel()].numpy()
         assert np.all(flat_rows[slots] == i) and np.all(np.diff(slots) > 0)
+
+
+def _boundary_bcsc(n, d=700, seed=3):
+    """A (JAX, port) container pair at n rows with stored entries on the
+    range boundaries (rows q·RANGE_ROWS - 1 and q·RANGE_ROWS) and two
+    all-padding tail blocks from ``pad_feature_blocks`` (count 0)."""
+    rng = np.random.default_rng(seed)
+    A = ((rng.random((n, d)) < 0.03)
+         * rng.standard_normal((n, d))).astype(np.float32)
+    R = tsp.RANGE_ROWS
+    for q in range(1, -(-n // R)):
+        A[q * R - 1, 3 * q] = 1.5
+        A[q * R, 3 * q] = -2.0
+        A[q * R, 3 * q + 1] = 0.25
+    A[n - 1, 1] = 0.5
+    S = jsp.pad_feature_blocks(jsp.BlockedCSC.from_dense(A), 4)
+    assert S.nblk == 8
+    return S, _port_bcsc(S)
+
+
+@pytest.mark.parametrize("n", [300, 385, 256])
+def test_range_starts_match_numpy_searchsorted(n):
+    S, T = _boundary_bcsc(n)
+    od = T.scatter_order()
+    rs = T.range_starts()
+    R = tsp.RANGE_ROWS
+    nq = -(-n // R)
+    assert rs.dtype == torch.int32 and rs.shape == (T.nblk, nq + 1)
+    assert T.range_starts() is rs                       # cached
+    rows = T.rows.reshape(T.nblk, -1).numpy()
+    vals = T.vals.reshape(T.nblk, -1).numpy()
+    bounds = np.arange(nq + 1) * R
+    for b in range(T.nblk):
+        stored = ~((rows[b] == 0) & (vals[b] == 0))
+        keys = np.sort(rows[b][stored], kind="stable")
+        want = np.searchsorted(keys, bounds, side="left")
+        np.testing.assert_array_equal(rs[b].numpy(), want)
+        assert int(rs[b, -1]) == int(od.count[b])
+        # each range's segment of the sorted order holds exactly its rows
+        o = od.order[b].numpy()
+        for q in range(nq):
+            seg = rows[b][o[int(rs[b, q]):int(rs[b, q + 1])]]
+            assert np.all(seg // R == q)
+    assert int(od.count[-1]) == 0 and not rs[-1].any()  # padded tail block
+    boundary = np.isin(rows[:, :], bounds[1:-1])
+    assert boundary.any()                               # rows on a boundary
+    np.testing.assert_array_equal(
+        tsp.range_starts(T.rows, od, n).numpy(), rs.numpy())
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("K", [1, 8, 64])
+def test_scatter_plain_with_range_table_matches_jax(K, store):
+    """The scatter's plain version, given the range-start table, against
+    the Pallas kernel (interpret): duplicate draws, a count-0 block, bf16
+    values."""
+    S, _ = _boundary_bcsc(300)
+    S, T = _stored(S, store)
+    rng = np.random.default_rng(K)
+    idx = rng.integers(0, S.nblk, K).astype(np.int32)
+    idx[0] = S.nblk - 1                                  # count-0 block
+    if K > 1:
+        idx[-1] = idx[K // 2]                            # duplicate draw
+    z = rng.standard_normal(S.n).astype(np.float32)
+    delta = (rng.standard_normal((K, BLOCK)) * 0.1).astype(np.float32)
+    got = tss.sparse_scatter_block_update_plain(
+        T.rows, T.vals, _t(z), torch.tensor(idx), _t(delta),
+        order=T.scatter_order(), rstart=T.range_starts())
+    want = jss.sparse_scatter_block_update(S.rows, S.vals, jnp.asarray(z),
+                                           jnp.asarray(idx),
+                                           jnp.asarray(delta),
+                                           interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (S.n,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    wrapped = tss.sparse_scatter_block_update(
+        T.rows, T.vals, _t(z), torch.tensor(idx), _t(delta),
+        order=T.scatter_order(), rstart=T.range_starts())
+    assert torch.equal(wrapped, got)
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+def test_scatter_plain_with_range_table_nan_through_padding(store):
+    """A non-finite δ in a padding column reaches row 0 (and only row 0
+    gains a NaN), as in the Pallas kernel."""
+    S, _ = _boundary_bcsc(300)
+    S, T = _stored(S, store)
+    zm = T.scatter_order().zmask.numpy()
+    b, c = map(int, np.argwhere(zm[:-2])[0])
+    idx = np.array([b, S.nblk - 1, b], np.int32)
+    delta = np.full((3, BLOCK), 0.01, np.float32)
+    delta[2, c] = np.inf
+    z = np.ones(S.n, np.float32)
+    got = tss.sparse_scatter_block_update_plain(
+        T.rows, T.vals, _t(z), torch.tensor(idx), _t(delta),
+        order=T.scatter_order(), rstart=T.range_starts())
+    want = np.asarray(jss.sparse_scatter_block_update(
+        S.rows, S.vals, jnp.asarray(z), jnp.asarray(idx),
+        jnp.asarray(delta), interpret=True))
+    assert np.isnan(got[0].item())
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got.numpy()[fin], want[fin], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_scatter_rejects_a_foreign_range_table():
+    S, T = _boundary_bcsc(300)
+    _, U = _boundary_bcsc(300, seed=4)
+    idx = torch.tensor([0, 1, 2], dtype=torch.int32)
+    args = (T.rows, T.vals, torch.zeros(300), idx, torch.ones(3, BLOCK))
+    with pytest.raises(ValueError, match="rstart"):
+        tss.sparse_scatter_block_update(*args, order=T.scatter_order(),
+                                        rstart=U.range_starts())
 
 
 def test_pad_feature_blocks_zero_tail():
