@@ -23,6 +23,9 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           ``SolverService.serve`` on a dense Lasso stream, an S1 stream and
           a dense stream at λ = 0.5·λ_max whose solves stop early.
 
+One Lasso launch of ``fused_shotgun_rounds`` prints its per-phase
+breakdown (the clock of a block that runs no round end, at every barrier).
+
 Data are drawn on the card from ``--seed``.  Any failed check raises, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository.
@@ -458,8 +461,10 @@ def dense_leg(args):
         newton = 1 if sb.resolve_loss(loss).newton else 0
         out = {}
         blk_bytes = K * n * sb.BLOCK * ab
+        fused = lambda: sb.fused_shotgun_rounds(*fargs, loss=loss)  # noqa: E731
         out["fused_shotgun_rounds"] = dict(
-            ms=time_ms(lambda: sb.fused_shotgun_rounds(*fargs, loss=loss), iters),
+            ms=time_ms(fused, iters),
+            device_ms=device_ms(fused, ("fused_rounds_kernel",), iters),
             plain_ms=time_ms(lambda: sb.fused_shotgun_rounds_plain(
                 *fargs, loss=loss), max(2, iters // 4), warmup=1),
             bound=bound(R * blk_bytes + 4 * (4 * n + 2 * d) + 8 * R,
@@ -485,6 +490,18 @@ def dense_leg(args):
     print_times(((lasso_shape + f" R={R}", t_lasso),
                  (f"zeta f32 n={Za.shape[0]} d={Za.shape[1]} K=2 R={R} "
                   "logistic_newton", t_zeta)))
+
+    # ---- #1's phases ------------------------------------------------------
+    pidx = draws(R, 8, La.shape[1] // sb.BLOCK, g, dup=False)
+    pz, px = torch.zeros(La.shape[0], device=dev), torch.zeros(La.shape[1],
+                                                                device=dev)
+    phases = dense_phases(
+        lambda st: sb.fused_shotgun_rounds(La, pz, px, pidx, lasso.lam, 1.0,
+                                           Ly, Lm, loss="lasso", stamps=st),
+        t_lasso["fused_shotgun_rounds"]["device_ms"], R, dev)
+    print(f"phases fused_shotgun_rounds [{lasso_shape} R={R}]: " + "; ".join(
+        f"{k[:-3]} {v * 1e3:.2f} us" for k, v in phases.items()
+        if k not in ("launch_ms",)))
 
     # ---- the main path (dense leg) ----------------------------------------
     runs = []
@@ -560,8 +577,9 @@ def dense_leg(args):
     ]
     extra = {"zeta_kernel_times": {
         k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
-                bound_by=v["bound"][1]) for k, v in t_zeta.items()},
-        "dense_solves": runs}
+                bound_by=v["bound"][1], device_ms=v.get("device_ms"))
+        for k, v in t_zeta.items()},
+        "dense_phases": phases, "dense_solves": runs}
     data = dict(lasso=lasso, zeta=zeta, La=La, Ly=Ly, Lm=Lm, Za=Za, Zy=Zy,
                 Zm=Zm, La16=La16, Za16=Za16, lasso_idx=lasso_idx)
     return kernels, extra, data
@@ -616,6 +634,27 @@ def drawn_csr(S, idx):
     at = torch.sparse_coo_tensor(torch.stack([c, r]), v,
                                  shape[::-1]).coalesce()
     return a.to_sparse_csr(), at.to_sparse_csr()
+
+
+def dense_phases(launch, ms: float, R: int, dev) -> dict:
+    """Phase breakdown of one fused dense launch: ``launch(stamps)`` runs it
+    with the clock of the grid's last block (which runs no round end)
+    stamped after each barrier; the cycles are scaled to the launch's
+    device time ``ms`` (the last round end, after the last barrier, is
+    outside the stamps)."""
+    stamps = torch.zeros(2 + 3 * R, dtype=torch.int64, device=dev)
+    launch(stamps)
+    torch.cuda.synchronize()
+    st = stamps.cpu().double()
+    cyc = st[1:] - st[:-1]
+    per_cycle = ms / float(st[-1] - st[0])
+    rounds = cyc[1:].reshape(R, 3).mean(0) * per_cycle
+    names = ["gather (beside the round end)", "reduce",
+             "scatter + x update"]
+    out = {"launch_ms": ms, "launch_start_ms": float(cyc[0]) * per_cycle,
+           "round_ms": float(rounds.sum())}
+    out.update({f"{n}_ms": float(v) for n, v in zip(names, rounds)})
+    return out
 
 
 def sparse_phases(launch, ms: float, R: int, dev) -> dict:

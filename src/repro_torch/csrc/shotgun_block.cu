@@ -54,9 +54,7 @@ __global__ void __launch_bounds__(THREADS, 4)
 scatter_kernel(const TA* __restrict__ A, long long d,
                const int* __restrict__ idx, int K, const float* delta,
                const float* z_in, float* z_out) {
-  scatter_tile<TA, LOSS_LASSO, false, false>(A, d, idx, K, delta, blockIdx.x,
-                                             z_in, z_out, nullptr, nullptr,
-                                             nullptr, nullptr);
+  scatter_tile<TA>(A, d, idx, K, delta, blockIdx.x, z_in, z_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -66,19 +64,30 @@ scatter_kernel(const TA* __restrict__ A, long long d,
 // the vectors in and out.  Design: ONE persistent cooperative launch for all
 // R rounds (grid = co-resident blocks), no host sync and nothing read back
 // to the host.  z, x, r, w stay in device memory (L2-resident at these
-// sizes) between phases, separated by grid.sync():
+// sizes) between phases, separated by grid.sync().
+//
+// Each round is three grid-wide phases, then the round end:
 //   launch start  r = L'(z0)·m (+ w = L''(z0)·m)
 //   per round
-//     1 gather    partials of g_B = A_Bᵀ r (+ h_B = (A_B∘A_B)ᵀ w)
-//     2 reduce    fixed-order sums over row tiles; δ from the pre-round x,
-//                 masked for k >= k_eff
-//     3 scatter   z += A_B δ per row, which also refreshes r (+ w) for the
-//                 next round and writes per-tile loss partials
-//     4 round end (block 0, overlapping the next round's gather)
-//                 x[blk_k] += δ_k in k order, F, nnz and the health flag
-// This reads each drawn block twice per round (gather, then scatter), so it
-// can reach at most half the bound; keeping A_B on chip between the two
-// phases is the next step.
+//     gather      partials of g_B = A_Bᵀ r (+ h_B = (A_B∘A_B)ᵀ w) per
+//                 (k, row tile), beside the previous round's round end
+//     reduce      fixed-order sums over the row tiles; δ from the pre-round
+//                 x, masked for k >= k_eff
+//     scatter     each row: z += Σ_k A_B δ_k, r (+ w) refreshed, per-tile
+//                 loss partials; beside it x[blk_k] += δ_k
+//     round end   F, nnz and the health flag (slot s on block s), beside
+//                 the next gather, in which those blocks take no item
+// Three barriers a round.  The order of every reduction depends on the item
+// decomposition only, never on gridDim.x.  Each scatter row's z, y, m (and
+// dz) are loaded with the tile's first A rows, not after its sums.
+//
+// The TPU kernel reads each drawn block once a round ("single-phase": the
+// fetched tile serves g_B and z += A_B δ).  Here a block is n·128·sizeof(A)
+// bytes (8 MiB at n = 16384, f32), so a round's drawn blocks overflow the
+// 50 MB L2 and the scatter reads them again, which caps the kernel at half
+// its bound.  Splitting the round into groups of blocks sized to L2 (the
+// scatter of one group beside the gather of the next) measured slower on
+// the H100 at every width the repo runs (PERF.md §7).
 //
 // BATCHED = true is batched_fused_shotgun_rounds — replaces repro/kernels/
 // batched.py::batched_fused_shotgun_rounds (a jax.vmap of the same Pallas
@@ -106,9 +115,15 @@ scatter_kernel(const TA* __restrict__ A, long long d,
 // read-only margin snapshot; launch start copies it into the live view
 // (the z buffer) and zeroes dz; the scatter adds each row's Σ_k A_B δ_k to
 // the view and to dz and raises health on a non-finite view row; there are
-// no loss partials, F or nnz, and block 0's round end is the x update
-// alone.  Same bound as above with dz written once instead of z.
+// no loss partials, F or nnz, so no round end.  Same bound as above with dz
+// written once instead of z.
+//
+// With a non-null `stamps`, the grid's last block (which runs no round
+// end) records clock64() at launch start and after every grid.sync():
+// 2 + 3·R stamps, the per-phase breakdown of a launch.
 // ---------------------------------------------------------------------------
+constexpr int SCAN_UNROLL = 16;  // round end: |x| loads in flight per thread
+
 struct FusedArgs {
   const void* A;
   const float* y;
@@ -135,10 +150,12 @@ struct FusedArgs {
                       //   slot axis (scal (S, 4), health (S,), ...)
   long long a_stride; // BATCHED: elements from one slot's A to the next
                       //   (n·d stacked, 0 for a shared design)
+  long long* stamps;  // (2 + 3·R,) clock stamps, or null
 };
 
-// Slot s's view for its round end (batched launches): x, δ, the loss
-// partials, F, nnz, health and the scalars, each moved by its slot stride.
+// Slot s's view for its x update and round end (batched launches): x, δ,
+// the loss partials, F, nnz, health and the scalars, each moved by its
+// slot stride.
 __device__ __forceinline__ FusedArgs at_slot(const FusedArgs& a, int s) {
   FusedArgs b = a;
   const long long ls = s;
@@ -152,40 +169,107 @@ __device__ __forceinline__ FusedArgs at_slot(const FusedArgs& a, int s) {
   return b;
 }
 
-// x[blk_k] += δ_k in k order.  Thread c owns column c of every drawn
-// block, so duplicate draws accumulate in k order (Alg. 2's multiset
-// semantics).
+// x[blk_k] += δ_k for every drawn block, duplicates in k order (Alg. 2's
+// multiset semantics): the pair (k, c) at a block's first draw owns
+// x[blk·128 + c] and adds the δ of each of the block's draws in k order —
+// the sums of a sequential update over k, with every load in flight.
 __device__ __forceinline__ void x_update(const FusedArgs& a, const int* idx) {
-  const int tid = threadIdx.x;
-  if (tid < BLOCK) {
-    for (int k = 0; k < a.K; ++k) {
-      const long long o = (long long)idx[k] * BLOCK + tid;
-      a.x[o] = ldcg(a.x + o) + ldcg(a.delta + k * BLOCK + tid);
-    }
+  for (int p = threadIdx.x; p < a.K * BLOCK; p += THREADS) {
+    const int k = p >> 7, c = p & (BLOCK - 1);
+    const int b = idx[k];
+    bool first = true;
+    for (int kk = 0; kk < k; ++kk) first &= idx[kk] != b;
+    if (!first) continue;
+    const long long o = (long long)b * BLOCK + c;
+    float v = ldcg(a.x + o) + ldcg(a.delta + k * BLOCK + c);
+    for (int kk = k + 1; kk < a.K; ++kk)
+      if (idx[kk] == b) v += ldcg(a.delta + kk * BLOCK + c);
+    a.x[o] = v;
   }
-  __syncthreads();
 }
 
+// A scatter row's inputs, loaded before its tile's sums by lane j for row
+// i0 + j and handed to lane 0 by a shuffle, so that their round trip
+// overlaps the tile's A loads.  Nothing else writes them during the phase.
+struct RowIn {
+  float z, y, m, dz;
+};
+
+template <bool EMIT_DZ>
+__device__ __forceinline__ RowIn row_preload(long long i0, const float* z,
+                                             const float* __restrict__ y,
+                                             const float* __restrict__ m,
+                                             const float* dz) {
+  RowIn p{0.f, 0.f, 0.f, 0.f};
+  const int lane = threadIdx.x & 31;
+  if (lane < ROWS_PER_WARP) {
+    const long long i = i0 + lane;
+    p.z = ldcg(z + i);
+    p.y = y[i];
+    p.m = m[i];
+    if constexpr (EMIT_DZ) p.dz = ldcg(dz + i);
+  }
+  return p;
+}
+
+// The end of a fused scatter row: lane 0 writes z_out[i] = z[i] + Σ (the
+// row_sum of its lane sums), refreshes the residual r (and Newton weights
+// w) from the new margin and returns its warp's loss sum over the rows (in
+// row order).  EMIT_DZ also adds Σ to dz[i] and sets health[0] = 1 when
+// the new margin is not finite (every row is written every round, so this
+// checks the whole margin view).
+template <int LOSS, bool NEWTON, bool EMIT_DZ>
+__device__ __forceinline__ float row_finish(
+    const float (&acc)[ROWS_PER_WARP], long long i0, const RowIn& p,
+    float* z_out, float* r, float* w, float* dz, float* health) {
+  const int lane = threadIdx.x & 31;
+  float ll_sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < ROWS_PER_WARP; ++j) {
+    const float v = row_sum(acc[j]);
+    const float zi = __shfl_sync(0xffffffffu, p.z, j);
+    const float yi = __shfl_sync(0xffffffffu, p.y, j);
+    const float mi = __shfl_sync(0xffffffffu, p.m, j);
+    const float di = EMIT_DZ ? __shfl_sync(0xffffffffu, p.dz, j) : 0.f;
+    if (lane == 0) {
+      const long long i = i0 + j;
+      const float zn = zi + v;
+      z_out[i] = zn;
+      if constexpr (EMIT_DZ) {
+        dz[i] = di + v;
+        if (!isfinite(zn)) health[0] = 1.f;   // max-accumulated, no atomics
+      }
+      float rr, ww, ll;
+      loss_tile<LOSS>(zn, yi, mi, rr, ww, ll);
+      r[i] = rr;
+      if constexpr (NEWTON) w[i] = ww;
+      ll_sum += ll;
+    }
+  }
+  return ll_sum;
+}
+
+// F, nnz and the health flag of round rd from x (already updated) and the
+// loss partials.  One block runs this beside the next round's gather, so
+// keep SCAN_UNROLL independent loads in flight per thread; thread tid sums
+// x[tid + 256·m] in m order whatever the unroll.
 template <int LOSS>
 __device__ __forceinline__ void round_end(const FusedArgs& a, int rd,
-                                          const int* idx, float lam,
-                                          float guard, long long n_tiles,
+                                          float lam, float guard,
+                                          long long n_tiles,
                                           float (*s)[THREADS], int* s_nnz) {
   const int tid = threadIdx.x;
-  x_update(a, idx);
-  // One block runs this while the grid waits at the next round's barrier,
-  // so keep UNROLL independent loads in flight per thread.
   float l1 = 0.f, data = 0.f;
   int nz = 0;
-  for (long long j0 = tid; j0 < a.d; j0 += (long long)THREADS * UNROLL) {
-    float v[UNROLL];
+  for (long long j0 = tid; j0 < a.d; j0 += (long long)THREADS * SCAN_UNROLL) {
+    float v[SCAN_UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    for (int u = 0; u < SCAN_UNROLL; ++u) {
       const long long j = j0 + (long long)u * THREADS;
       v[u] = j < a.d ? ldcg(a.x + j) : 0.f;
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    for (int u = 0; u < SCAN_UNROLL; ++u) {
       l1 += fabsf(v[u]);
       nz += (v[u] != 0.f);
     }
@@ -233,7 +317,11 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
   const int k_eff = (int)a.scal[2];
   const int S = BATCHED ? a.S : 1;
   const long long n_tiles = a.n / SCATTER_ROWS;
-  const int n_gather = a.K * a.T, n_reduce = a.K * (BLOCK / 32);
+  const int grid_n = gridDim.x;
+  // Blocks 0..S-1 run the round ends; they take no gather item of the next
+  // round unless that would leave too few blocks for it.
+  const int n_end = EMIT_DZ ? 0 : (S < grid_n ? S : grid_n);
+  const int skip = 4 * n_end <= grid_n ? n_end : 0;
   // Slot so's arrays start so strides in (64-bit: S·n·d passes 2^31 at the
   // paper's widths).  Unbatched, so and every slot stride are compile-time
   // zeros, so the offsets fold away.
@@ -241,10 +329,18 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
   const long long kb = BATCHED ? (long long)a.K * BLOCK : 0;
   const long long rk = BATCHED ? (long long)a.R * a.K : 0;
   const long long as = BATCHED ? a.a_stride : 0;
+  const bool stamp = a.stamps != nullptr && blockIdx.x == grid_n - 1 &&
+                     threadIdx.x == 0;
+  int ns = 0;
+  auto sync = [&]() {
+    grid.sync();
+    if (stamp) a.stamps[ns++] = clock64();
+  };
+  if (stamp) a.stamps[ns++] = clock64();
 
   // The (S, n) vectors are contiguous: one flat pass covers every slot.
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-       i < S * a.n; i += (long long)gridDim.x * THREADS) {
+       i < S * a.n; i += (long long)grid_n * THREADS) {
     float rr, ww, ll, zi;
     if constexpr (EMIT_DZ) {
       zi = a.z0[i];
@@ -257,12 +353,15 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
     a.r[i] = rr;
     if constexpr (NEWTON) a.w[i] = ww;
   }
-  grid.sync();
+  sync();
 
   for (int rd = 0; rd < a.R; ++rd) {
     const int* idx = a.idx + (long long)rd * a.K;
-    // 1: gather partials from the round-start r (and w).
-    for (int it = blockIdx.x; it < S * n_gather; it += gridDim.x) {
+    // 1: gather partials from the round-start r (and w), beside the
+    // previous round's round ends.
+    const int n_gather = a.K * a.T;
+    for (int it = (int)blockIdx.x - skip; it >= 0 && it < S * n_gather;
+         it += grid_n - skip) {
       const int so = BATCHED ? it / n_gather : 0;
       const int j = it - so * n_gather;
       const int k = j / a.T, t = j - k * a.T;
@@ -271,9 +370,10 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
                               k, t, a.T, a.rows, a.gpart + so * kt,
                               a.hpart + (NEWTON ? so * kt : 0), s);
     }
-    grid.sync();
+    sync();
     // 2: g (and h) per column, then δ from the pre-round x.
-    for (int it = blockIdx.x; it < S * n_reduce; it += gridDim.x) {
+    const int n_reduce = a.K * (BLOCK / 32);
+    for (int it = blockIdx.x; it < S * n_reduce; it += grid_n) {
       const int so = BATCHED ? it / n_reduce : 0;
       const int j = it - so * n_reduce;
       const int k = j >> 2, q = j & 3;
@@ -293,16 +393,24 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
       }
       __syncthreads();
     }
-    grid.sync();
+    sync();
     // 3: z += A_B δ (EMIT_DZ: also dz); refresh r (and w); loss partial
     // per 32-row tile (slot so's tile t is partial it = so·n_tiles + t).
-    for (long long it = blockIdx.x; it < S * n_tiles; it += gridDim.x) {
+    for (long long it = blockIdx.x; it < S * n_tiles; it += grid_n) {
       const int so = BATCHED ? (int)(it / n_tiles) : 0;
       const long long vo = so * a.n;
-      const float ll = scatter_tile<TA, LOSS, NEWTON, true, EMIT_DZ>(
-          A + so * as, a.d, idx + so * rk, a.K, a.delta + so * kb,
-          it - so * n_tiles, a.z + vo, a.z + vo, a.y + vo, a.m + vo,
-          a.r + vo, a.w + (NEWTON ? vo : 0), a.dz, a.health);
+      const long long i0 = (it - so * n_tiles) * SCATTER_ROWS +
+                           (threadIdx.x >> 5) * ROWS_PER_WARP;
+      const RowIn p = row_preload<EMIT_DZ>(i0, a.z + vo, a.y + vo, a.m + vo,
+                                           a.dz);
+      float acc[ROWS_PER_WARP];
+#pragma unroll
+      for (int j = 0; j < ROWS_PER_WARP; ++j) acc[j] = 0.f;
+      scatter_rows<TA>(A + so * as, a.d, idx + so * rk, 0, a.K,
+                       a.delta + so * kb, i0, acc);
+      const float ll = row_finish<LOSS, NEWTON, EMIT_DZ>(
+          acc, i0, p, a.z + vo, a.r + vo, a.w + (NEWTON ? vo : 0), a.dz,
+          a.health);
       if constexpr (EMIT_DZ) continue;
       if ((threadIdx.x & 31) == 0) s[0][threadIdx.x >> 5] = ll;
       __syncthreads();
@@ -313,21 +421,20 @@ __global__ void __launch_bounds__(THREADS, 4) fused_rounds_kernel(FusedArgs a) {
       }
       __syncthreads();
     }
-    grid.sync();
+    // beside the scatter: x[blk_k] += δ_k, slot s on CTA grid−1−s (every δ
+    // of the round was taken, from the pre-round x, in phase 2)
+    for (int sl = grid_n - 1 - (int)blockIdx.x; sl < S; sl += grid_n)
+      x_update(BATCHED ? at_slot(a, sl) : a, idx + sl * rk);
+    sync();
     // 4: round end, slot s on block s % gridDim.x (unbatched: block 0).
-    // The next round's gather does not read x or δ, and its grid.sync()
-    // orders these writes before the next δ phase.
-    if constexpr (BATCHED) {
-      for (int sl = blockIdx.x; sl < S; sl += gridDim.x) {
-        const FusedArgs b = at_slot(a, sl);
-        round_end<LOSS>(b, rd, idx + sl * rk, b.scal[0], b.scal[3], n_tiles,
-                        s, s_nnz);
+    // The next round's gather reads neither x nor the loss partials, and
+    // its barrier orders these reads before the next δ and x update.
+    if constexpr (!EMIT_DZ) {
+      for (int sl = blockIdx.x; sl < S; sl += grid_n) {
+        const FusedArgs b = BATCHED ? at_slot(a, sl) : a;
+        round_end<LOSS>(b, rd, BATCHED ? b.scal[0] : lam,
+                        BATCHED ? b.scal[3] : guard, n_tiles, s, s_nnz);
       }
-    } else if (blockIdx.x == 0) {
-      if constexpr (EMIT_DZ)
-        x_update(a, idx);
-      else
-        round_end<LOSS>(a, rd, idx, lam, guard, n_tiles, s, s_nnz);
     }
   }
 }
@@ -438,16 +545,19 @@ int sb_fused_grid_blocks(int a_bf16, int loss) {
   return coop_blocks(kern);
 }
 
+// stamps: (2 + 3·R,) int64 or null.
 int sb_fused_shotgun_rounds(const void* A, int a_bf16, int loss,
                             const float* y, const float* m, const int* idx,
                             const float* scal, float* z, float* x, float* r,
                             float* w, float* gpart, float* hpart,
                             float* delta, float* lpart, float* f, int* nnz,
                             float* health, long long n, long long d, int R,
-                            int K, int rows, int T, void* stream) {
+                            int K, int rows, int T, long long* stamps,
+                            void* stream) {
   if (loss & ~3) return (int)cudaErrorInvalidValue;
   FusedArgs a{A, y, m, idx, scal, z, x, r, w, gpart, hpart, delta, lpart,
-              f, nnz, health, n, d, R, K, rows, T, nullptr, nullptr, 1, 0};
+              f, nnz, health, n, d, R, K, rows, T, nullptr, nullptr, 1, 0,
+              stamps};
   return launch_fused(pick_fused(a_bf16, loss), a, stream);
 }
 
@@ -466,7 +576,7 @@ int sb_batched_fused_shotgun_rounds(const void* A, int a_bf16, int loss,
   if ((loss & ~3) || S < 1) return (int)cudaErrorInvalidValue;
   FusedArgs a{A, y, m, idx, scal, z, x, r, w, gpart, hpart, delta, lpart,
               f, nnz, health, n, d, R, K, rows, T, nullptr, nullptr, S,
-              a_stride};
+              a_stride, nullptr};
   return launch_fused(pick_fused(a_bf16, loss | 8), a, stream);
 }
 
@@ -489,7 +599,7 @@ int sb_fused_shotgun_delta_rounds(const void* A, int a_bf16, int loss,
   if (loss & ~3) return (int)cudaErrorInvalidValue;
   FusedArgs a{A, y, m, idx, scal, view, x, r, w, gpart, hpart, delta,
               nullptr, nullptr, nullptr, health, n, d, R, K, rows, T, z0, dz,
-              1, 0};
+              1, 0, nullptr};
   return launch_fused(pick_fused(a_bf16, loss | 4), a, stream);
 }
 

@@ -157,28 +157,21 @@ __device__ __forceinline__ void reduce_item(
   }
 }
 
-// Scatter tile: rows i = tile·32 + warp·4 + j (j < 4).  Lane l owns columns
-// 4l..4l+3 of every drawn block, so each row of a block is one coalesced
-// 512 B (f32) / 256 B (bf16) read per warp.  Per row, the lane sums its
-// 4·K products in k order, then a fixed xor-shuffle tree adds the 32 lanes;
-// lane 0 writes z_out[i] = z_in[i] + Σ.  No atomics: each row has one owner.
-// FUSED also refreshes the round-start residual r (and Newton weights w)
-// from the new margin and returns this warp's loss sum over its rows (in
-// row order) in lane 0.  EMIT_DZ also adds each row's Σ to dz[i] and sets
-// health[0] = 1 when the new margin is not finite (every row is written
-// every round, so this checks the whole margin view).
-template <typename TA, int LOSS, bool NEWTON, bool FUSED, bool EMIT_DZ = false>
-__device__ __forceinline__ float scatter_tile(
-    const TA* __restrict__ A, long long d, const int* __restrict__ idx, int K,
-    const float* delta, long long tile, const float* z_in, float* z_out,
-    const float* __restrict__ y, const float* __restrict__ m, float* r,
-    float* w, float* dz = nullptr, float* health = nullptr) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long i0 = tile * SCATTER_ROWS + warp * ROWS_PER_WARP;
-  float acc[ROWS_PER_WARP];
-#pragma unroll
-  for (int j = 0; j < ROWS_PER_WARP; ++j) acc[j] = 0.f;
-  for (int k = 0; k < K; ++k) {
+// Scatter rows i = i0 + j (j < 4) of a 32-row tile (i0 = tile·32 +
+// warp·4).  Lane l owns columns 4l..4l+3 of every drawn block, so each row
+// of a block is one coalesced 512 B (f32) / 256 B (bf16) read per warp.
+// scatter_rows adds the lane's 4 products of each drawn block k in
+// [k0, k1), in k order, to its row sums acc (a chain that may be carried
+// from one call to the next over consecutive k ranges); row_sum then adds
+// the 32 lanes by a fixed xor-shuffle tree.  No atomics: each row has one
+// owner.
+template <typename TA>
+__device__ __forceinline__ void scatter_rows(
+    const TA* __restrict__ A, long long d, const int* __restrict__ idx,
+    int k0, int k1, const float* delta, long long i0,
+    float (&acc)[ROWS_PER_WARP]) {
+  const int lane = threadIdx.x & 31;
+  for (int k = k0; k < k1; ++k) {
     const long long colo = (long long)idx[k] * BLOCK + 4 * lane;
     const float4 dl = ldcg4(delta + k * BLOCK + 4 * lane);
     float4 a[ROWS_PER_WARP];
@@ -192,30 +185,30 @@ __device__ __forceinline__ float scatter_tile(
       acc[j] = fmaf(a[j].w, dl.w, acc[j]);
     }
   }
-  float ll_sum = 0.f;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The whole tile: lane 0 writes z_out[i] = z_in[i] + Σ_k A[i, blk_k] δ_k.
+template <typename TA>
+__device__ __forceinline__ void scatter_tile(
+    const TA* __restrict__ A, long long d, const int* __restrict__ idx, int K,
+    const float* delta, long long tile, const float* z_in, float* z_out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long i0 = tile * SCATTER_ROWS + warp * ROWS_PER_WARP;
+  float acc[ROWS_PER_WARP];
+#pragma unroll
+  for (int j = 0; j < ROWS_PER_WARP; ++j) acc[j] = 0.f;
+  scatter_rows<TA>(A, d, idx, 0, K, delta, i0, acc);
 #pragma unroll
   for (int j = 0; j < ROWS_PER_WARP; ++j) {
-    float v = acc[j];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) {
-      const long long i = i0 + j;
-      const float zn = ldcg(z_in + i) + v;
-      z_out[i] = zn;
-      if constexpr (EMIT_DZ) {
-        dz[i] = ldcg(dz + i) + v;
-        if (!isfinite(zn)) health[0] = 1.f;   // max-accumulated, no atomics
-      }
-      if constexpr (FUSED) {
-        float rr, ww, ll;
-        loss_tile<LOSS>(zn, y[i], m[i], rr, ww, ll);
-        r[i] = rr;
-        if constexpr (NEWTON) w[i] = ww;
-        ll_sum += ll;
-      }
-    }
+    const float v = row_sum(acc[j]);
+    if (lane == 0) z_out[i0 + j] = ldcg(z_in + i0 + j) + v;
   }
-  return ll_sum;
 }
 
 }  // namespace sb

@@ -459,7 +459,7 @@ scatter_rows_kernel(const int* __restrict__ rows, const TV* __restrict__ vals,
 // order, z, x, y, draws and [lam, beta, k_eff, guard_f] row, share ONE
 // cooperative launch and its three barriers a round: each phase's items
 // become (slot, item) pairs over the same grid (S·(K/2 + d_pad/4096) in A,
-// S·K·tile/2 run sums in B, S·(n/256 + K/2) in C), and slot s's finish
+// S·K·⌈tile/2⌉ run sums in B, S·(n/256 + K/2) in C), and slot s's finish
 // runs on block s % gridDim.x.  Every workspace — the (K, n) combine
 // buffer, padterm, δ, the loss and |x| partials — has a slot stride; the
 // tiles and the order advance t_stride elements a slot (0: a shared
@@ -583,7 +583,9 @@ fused_sparse_kernel(SparseArgs a) {
   const long long n = a.n;
   const int K = a.K, tile = a.tile;
   const int n_pair = (K + HALF - 1) / HALF;       // (k, column) item pairs
-  const int nq = tile * BLOCK / THREADS;          // run-sum items per k
+  // run-sum items per k: 256 sorted slots each, the last one ragged when
+  // tile is odd (scatter_runs skips slots past the block's count)
+  const int nq = (tile * BLOCK + THREADS - 1) / THREADS;
   const int n_runs = K * nq;
   const int n_lt = (int)((n + THREADS - 1) / THREADS);
   const int n_xc = EMIT_DZ ? 0 : (int)((a.d_pad + XCHUNK - 1) / XCHUNK);

@@ -170,7 +170,9 @@ class BlockedCSC:
         packs it) and place the tiles on ``device``; exact (no
         thresholding), so ``to_dense(from_dense(A)) == A``."""
         if isinstance(A, torch.Tensor):
-            A = A.detach().cpu().numpy()
+            # numpy has no bf16: widen first (exact), as the reference's
+            # np.asarray(A, np.float32) does
+            A = A.detach().cpu().float().numpy()
         A = np.asarray(A, np.float32)
         n, d = A.shape
         d_pad = -(-d // block) * block

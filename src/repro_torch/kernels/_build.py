@@ -39,7 +39,7 @@ _ARGTYPES = {
     "sb_gather_block_matvec": [_P, _I, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
     "sb_scatter_block_update": [_P, _I, _P, _P, _P, _P, _L, _L, _I, _P],
     "sb_fused_shotgun_rounds": [_P, _I, _I] + [_P] * 15
-                               + [_L, _L, _I, _I, _I, _I, _P],
+                               + [_L, _L, _I, _I, _I, _I, _P, _P],
     "sb_fused_shotgun_delta_rounds": [_P, _I, _I] + [_P] * 14
                                      + [_L, _L, _I, _I, _I, _I, _P],
     "sb_fused_grid_blocks": [_I, _I],
@@ -86,27 +86,21 @@ def _run_all(cmds) -> list[tuple[list[str], int, str]]:
     return [(c, p.wait(), p.stdout.read()) for c, p in procs]
 
 
-def build() -> pathlib.Path:
-    """Compile the sources into the build directory (if not there yet) and
-    return the library's path."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    digest = _digest()
-    target = BUILD_DIR / f"librepro_torch-{digest}.so"
-    if target.exists():
-        build_info["seconds"] = 0.0
-        return target
-    tag = f"{digest}.{os.getpid()}"
+def compile_library(csrc: pathlib.Path, target: pathlib.Path) -> str:
+    """Compile the sources of ``csrc`` with this module's flags (one nvcc
+    per source, all started together) and link them into ``target``
+    (written atomically); return the compilers' output (the -Xptxas -v
+    report); raise when a step fails."""
+    tag = f"{target.stem}.{os.getpid()}"
     nvcc = _nvcc()
-    objs = [BUILD_DIR / f"{pathlib.Path(s).stem}-{tag}.o" for s in SOURCES]
-    t0 = time.perf_counter()
-    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+    objs = [target.parent / f"{pathlib.Path(s).stem}-{tag}.o"
+            for s in SOURCES]
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / s)]
                         for s, o in zip(SOURCES, objs)])
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     if all(rc == 0 for _, rc, _ in results):
         results += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
                               str(tmp), *map(str, objs)]])
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["ptxas"] = "".join(out for _, _, out in results)
     for o in objs:
         o.unlink(missing_ok=True)
     for cmd, rc, out in results:
@@ -114,6 +108,20 @@ def build() -> pathlib.Path:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     # atomic rename: a concurrent build never sees half a file
     os.replace(tmp, target)
+    return "".join(out for _, _, out in results)
+
+
+def build() -> pathlib.Path:
+    """Compile the sources into the build directory (if not there yet) and
+    return the library's path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"librepro_torch-{_digest()}.so"
+    if target.exists():
+        build_info["seconds"] = 0.0
+        return target
+    t0 = time.perf_counter()
+    build_info["ptxas"] = compile_library(CSRC, target)
+    build_info["seconds"] = time.perf_counter() - t0
     return target
 
 

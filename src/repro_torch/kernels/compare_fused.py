@@ -1,0 +1,371 @@
+"""Hold the fused kernels against an earlier copy of ``csrc/`` on the card:
+every output bit for bit, and device time per call in turns old, new, new,
+old.  Dense: ``fused_shotgun_rounds`` (#1), ``fused_shotgun_delta_rounds``
+(#7) and ``batched_fused_shotgun_rounds`` (#9); BlockedCSC:
+``fused_sparse_shotgun_rounds`` (#2), ``fused_sparse_shotgun_delta_rounds``
+(#8) and ``batched_fused_sparse_shotgun_rounds`` (#10).
+
+    PYTHONPATH=src python -m repro_torch.kernels.compare_fused OLD_CSRC [--seed N]
+
+OLD_CSRC is a ``csrc/`` whose ``sb_fused_shotgun_rounds`` takes no stamps
+(``A, a_bf16, loss, y, m, idx, scal, z, x, r, w, gpart, hpart, delta,
+lpart, f, nnz, health, n, d, R, K, rows, T, stream``) and whose other five
+fused entries have this package's C interface.  It is built with
+``_build``'s flags into a temporary directory; #1's old call allocates what
+the old wrapper allocated, the other old calls run this package's wrappers
+on the old library.
+
+Shapes are ``chip_smoke.py``'s, drawn on the card from ``--seed``, R = 8:
+
+* dense: the Lasso (sparco, 16384 × 32768, K = 8) and zeta (logistic,
+  500,224 × 2048, K = 2) designs in f32 and bf16, lasso and logistic Newton
+  (labels sign(y)) on the Lasso design, logistic and logistic Newton on
+  zeta, each with a duplicate draw and with k_eff = K and K − 1; #9 on 4
+  stacked Lasso designs (f32, slot k_eff 8, 8, 4, 0), one bf16 Lasso design
+  shared by 8 slots, and zeta shared by 4 slots (logistic Newton, slot 1's
+  guard at 0);
+* BlockedCSC, both of even tile depth: S1 at LIBSVM news20.binary's shape
+  (19,996 × 1,355,191, density 3.36e-4, K = 32, lasso) and S2 at
+  rcv1.binary's (20,242 × 47,236, density 0.16%, K = 8, logistic and
+  logistic Newton), f32 and bf16, k_eff = K and K − 1, a duplicate draw;
+  #10 on 4 stacked copies of S1 (slot k_eff 32, 32, 16, 0) and on S2
+  shared by 4 slots (logistic Newton).
+
+Equality is of the bit patterns of every output (x, z or Δz, F, nnz,
+health).  Device ms: the profiler's time of the fused kernel per call over
+``--iters`` calls (fewer at the slower shapes).  Prints one line per case
+and a JSON summary; exits 1 when any output differs in a bit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import pathlib
+import sys
+import tempfile
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import batched as kb
+from repro_torch.kernels import shotgun_block as sb
+from repro_torch.kernels import shotgun_sparse as ss
+from repro_torch.kernels._compare import (bits_equal, build_old, device_ms,
+                                          library, turns)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LASSO = dict(n=16384, d=32768, K=8)
+ZETA = dict(n=500_000, d=2000, K=2)
+S1 = dict(n=19_996, d=1_355_191, density=3.36e-4, K=32)
+S2 = dict(n=20_242, d=47_236, density=0.0016, K=8)
+R = 8
+DENSE, SPARSE = ("fused_rounds_kernel",), ("fused_sparse_kernel",)
+_OLD_ARGTYPES = {
+    "sb_fused_shotgun_rounds": [_P, _I, _I] + [_P] * 15
+                               + [_L, _L, _I, _I, _I, _I, _P],
+    **{name: _build._ARGTYPES[name] for name in (
+        "sb_fused_shotgun_delta_rounds", "sb_batched_fused_shotgun_rounds",
+        "sp_fused_shotgun_rounds", "sp_fused_shotgun_delta_rounds",
+        "sp_batched_fused_shotgun_rounds")},
+}
+
+
+def old_rounds(lib, A, z, x, idx, lam, beta, y, m, loss, k_eff=None,
+               guard_f=None):
+    """#1 through the old entry, with the old wrapper's allocations."""
+    ls = sb.resolve_loss(loss)
+    n, d = A.shape
+    K = idx.shape[1]
+    rows = sb._gather_rows(n)
+    T = math.ceil(n / rows)
+    dev = A.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    scal = sb._scalars(lam, beta, K if k_eff is None else k_eff,
+                       math.inf if guard_f is None else guard_f, dev)
+    r = torch.empty(n, **f32)
+    w = torch.empty(n if ls.newton else 1, **f32)
+    gpart = torch.empty((K, T, 128), **f32)
+    hpart = torch.empty((K, T, 128) if ls.newton else (1,), **f32)
+    dlt = torch.empty((K, 128), **f32)
+    z_out, x_out = z.float().clone(), x.float().clone()
+    lpart = torch.empty(n // 32, **f32)
+    f = torch.empty(R, **f32)
+    nnz = torch.empty(R, dtype=torch.int32, device=dev)
+    health = torch.zeros((), **f32)
+    ix = idx.to(torch.int32).contiguous()
+
+    def p(t):
+        return ctypes.c_void_p(t.data_ptr())
+    rc = lib.sb_fused_shotgun_rounds(
+        p(A), int(A.dtype == torch.bfloat16), sb._loss_code(ls), p(y), p(m),
+        p(ix), p(scal), p(z_out), p(x_out), p(r), p(w), p(gpart), p(hpart),
+        p(dlt), p(lpart), p(f), p(nnz), p(health), n, d, R, K, rows, T,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc:
+        raise RuntimeError(f"old sb_fused_shotgun_rounds: CUDA error {rc}")
+    return x_out, z_out, f, nnz, health
+
+
+def on(lib, fn):
+    """``fn`` with every launch through ``lib``."""
+    def call():
+        with library(lib):
+            return fn()
+    return call
+
+
+def _dense_designs(seed: int, dev):
+    """The Lasso and zeta problems of ``chip_smoke.py``, padded."""
+    from repro_torch.core import objectives as obj
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ops
+    A, y, _ = syn.sparco_on_device(seed, n=LASSO["n"], d=LASSO["d"],
+                                   device=dev)
+    lasso = obj.make_problem(A, y, 1.0, device=dev)
+    del A
+    lasso = lasso._replace(lam=0.1 * obj.lambda_max(lasso.A, lasso.y,
+                                                     "lasso"))
+    A, y, _ = syn.logistic_data_on_device(seed + 1, n=ZETA["n"],
+                                          d=ZETA["d"], device=dev)
+    zeta = obj.make_problem(A, y, 1.0, loss="logistic", device=dev)
+    del A
+    zeta = zeta._replace(lam=0.1 * obj.lambda_max(zeta.A, zeta.y,
+                                                   "logistic"))
+    La, Ly, Lm = ops.pad_problem(lasso.A, lasso.y)
+    Za, Zy, Zm = ops.pad_problem(zeta.A, zeta.y)
+    return (dict(A=La, A16=La.to(torch.bfloat16), y=Ly, m=Lm.float(),
+                 lam=lasso.lam, beta=1.0),
+            dict(A=Za, A16=Za.to(torch.bfloat16), y=Zy, m=Zm.float(),
+                 lam=zeta.lam, beta=0.25))
+
+
+def _sparse_designs(seed: int, dev):
+    """The S1 (lasso) and S2 (logistic) BlockedCSC problems."""
+    from repro_torch.core import objectives as obj
+    from repro_torch.data import synthetic as syn
+    out = []
+    for tag, shape, gen, loss in (
+            ("S1", S1, syn.large_sparse_bcsc_on_device, "lasso"),
+            ("S2", S2, syn.logistic_bcsc_on_device, "logistic")):
+        A, y, _ = gen(seed + (10 if tag == "S1" else 11), n=shape["n"],
+                      d=shape["d"], density=shape["density"], device=dev)
+        prob = obj.make_problem(A, y, 1.0, loss=loss, device=dev)
+        del A
+        prob = prob._replace(lam=0.1 * obj.lambda_max(prob.A, prob.y, loss))
+        out.append(prob)
+    return out
+
+
+def _draws(g, K, nblk, dup=True):
+    idx = torch.rand(R, nblk, generator=g, device=g.device).argsort(
+        dim=-1)[:, :K].to(torch.int32)
+    if dup and K > 1:
+        idx[R // 2, -1] = idx[R // 2, 0]
+    return idx
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old_csrc", type=pathlib.Path)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_fused: needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        old = build_old(args.old_csrc, pathlib.Path(tmp), _OLD_ARGTYPES)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 40)
+    summary, times, failed = {}, {}, False
+    inf = float("inf")
+
+    def record(case, got, want):
+        nonlocal failed
+        same = bits_equal(got, want)
+        failed |= not same
+        summary[case] = dict(bitwise=same)
+        print(f"compare [{case}]: {'bit-identical' if same else 'DIFFER'}")
+
+    def timed(name, fo, fn, iters, kernels):
+        t = turns(fo, fn, lambda f: device_ms(f, iters, kernels))
+        times[name] = t
+        print(f"time {name}: " + "; ".join(
+            f"{lb} {ms:.4f}" if ms is not None else f"{lb} n/a"
+            for lb, ms in t) + " ms device")
+
+    def full(S, v):
+        return torch.full((S,), float(v), device=dev)
+
+    def ladder(lam, S):
+        return lam * (1.0 + 0.5 * torch.arange(S, dtype=torch.float32,
+                                                device=dev))
+
+    # ---- #1 and #7 at chip_smoke.py's shapes, losses and storage types ---
+    lasso, zeta = _dense_designs(args.seed, dev)
+    ylog = torch.where(lasso["y"] >= 0, 1.0, -1.0) * lasso["m"]
+    for tag, P, loss, K, y in (
+            ("lasso", lasso, "lasso", LASSO["K"], lasso["y"]),
+            ("lasso", lasso, "logistic_newton", LASSO["K"], ylog),
+            ("zeta", zeta, "logistic", ZETA["K"], zeta["y"]),
+            ("zeta", zeta, "logistic_newton", ZETA["K"], zeta["y"])):
+        d = P["A"].shape[1]
+        idx = _draws(g, K, d // 128)
+        x0 = torch.randn(d, generator=g, device=dev) * 0.01
+        for store in ("f32", "bf16"):
+            A = P["A"] if store == "f32" else P["A16"]
+            z0 = A.float() @ x0
+            for k_eff in (None, K - 1):
+                fa = (A, z0, x0, idx, P["lam"], P["beta"], y, P["m"])
+                case = f"{tag} {loss} {store} K={K} R={R} k_eff={k_eff}"
+                record("#1 " + case,
+                       sb.fused_shotgun_rounds(*fa, loss=loss, k_eff=k_eff),
+                       old_rounds(old, *fa, loss, k_eff))
+                delta = lambda: sb.fused_shotgun_delta_rounds(  # noqa: E731
+                    *fa, loss=loss, k_eff=k_eff)
+                record("#7 " + case, delta(), on(old, delta)())
+
+    # ---- #9 at chip_smoke.py's serve shapes -------------------------------
+    stacked = torch.stack([lasso["A"] * (1.0 + 0.1 * s) for s in range(4)])
+    kl = full(4, 8)
+    kl[2], kl[3] = 4, 0
+    gz = full(4, inf)
+    gz[1] = 0.0
+    for tag, A, shared, P, loss, K, S, k_eff, guard in (
+            ("lasso f32 stacked S=4", stacked, False, lasso, "lasso", 8, 4,
+             kl, full(4, inf)),
+            ("lasso bf16 shared S=8", lasso["A16"], True, lasso, "lasso", 8,
+             8, full(8, 8), full(8, inf)),
+            ("zeta logistic_newton f32 shared S=4", zeta["A"], True, zeta,
+             "logistic_newton", 2, 4, full(4, 2), gz)):
+        dd = P["A"].shape[1]
+        x0 = torch.randn(S, dd, generator=g, device=dev) * 0.01
+        z0 = torch.stack([(A if shared else A[s]).float() @ x0[s]
+                          for s in range(S)])
+        idx = torch.stack([_draws(g, K, dd // 128) for _ in range(S)])
+        fa = (A, z0, x0, idx, ladder(P["lam"], S), full(S, P["beta"]),
+              P["y"].expand(S, -1).contiguous(),
+              P["m"].expand(S, -1).contiguous(), k_eff, guard)
+        fn = lambda: kb.batched_fused_shotgun_rounds(  # noqa: E731
+            *fa, loss=loss, shared_design=shared)
+        record(f"#9 {tag} K={K} R={R}", fn(), on(old, fn)())
+
+    # ---- device time per call at chip_smoke.py's timing shapes ------------
+    def zeros_args(P, A, K):
+        nn, dd = A.shape
+        return (A, torch.zeros(nn, device=dev), torch.zeros(dd, device=dev),
+                _draws(g, K, dd // 128, dup=False), P["lam"], P["beta"],
+                P["y"], P["m"])
+
+    for tag, P, A, loss, K, iters in (
+            ("lasso f32", lasso, lasso["A"], "lasso", 8, args.iters),
+            ("lasso bf16", lasso, lasso["A16"], "lasso", 8, args.iters),
+            ("zeta f32 logistic_newton", zeta, zeta["A"], "logistic_newton",
+             2, max(2, args.iters // 2))):
+        fa = zeros_args(P, A, K)
+        timed(f"#1 {tag} R={R}", lambda: old_rounds(old, *fa, loss),
+              lambda: sb.fused_shotgun_rounds(*fa, loss=loss), iters, DENSE)
+        fn = lambda: sb.fused_shotgun_delta_rounds(*fa, loss=loss)  # noqa
+        timed(f"#7 {tag} R={R}", on(old, fn), fn, iters, DENSE)
+    for tag, A, shared, P, loss, K, S, iters in (
+            ("lasso f32 stacked S=4", stacked, False, lasso, "lasso", 8, 4,
+             max(2, args.iters // 2)),
+            ("lasso bf16 shared S=8", lasso["A16"], True, lasso, "lasso", 8,
+             8, max(2, args.iters // 2)),
+            ("zeta logistic_newton f32 shared S=4", zeta["A"], True, zeta,
+             "logistic_newton", 2, 4, max(2, args.iters // 5))):
+        nn, dd = P["A"].shape
+        fa = (A, torch.zeros(S, nn, device=dev),
+              torch.zeros(S, dd, device=dev),
+              torch.stack([_draws(g, K, dd // 128, dup=False)
+                           for _ in range(S)]),
+              ladder(P["lam"], S), full(S, P["beta"]),
+              P["y"].expand(S, -1).contiguous(),
+              P["m"].expand(S, -1).contiguous(), full(S, K), full(S, inf))
+        fn = lambda: kb.batched_fused_shotgun_rounds(  # noqa: E731
+            *fa, loss=loss, shared_design=shared)
+        timed(f"#9 {tag} R={R}", on(old, fn), fn, iters, DENSE)
+    del stacked, lasso, zeta
+
+    # ---- #2 and #8 at S1 and S2, f32 and bf16 ------------------------------
+    s1, s2 = _sparse_designs(args.seed, dev)
+    for tag, prob, K, losses in (("S1", s1, S1["K"], ("lasso",)),
+                                 ("S2", s2, S2["K"],
+                                  ("logistic", "logistic_newton"))):
+        for store in ("f32", "bf16"):
+            A = prob.A if store == "f32" else prob.A.astype(torch.bfloat16)
+            od = A.scatter_order()
+            for loss in losses:
+                idx = _draws(g, K, A.nblk)
+                x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
+                x0[A.d:] = 0.0
+                z0 = A.matvec(x0)
+                for k_eff in (None, K - 1):
+                    fa = (A.rows, A.vals, z0, x0, idx, prob.lam, prob.beta,
+                          prob.y)
+                    case = (f"{tag} {loss} {store} tile={A.tile} K={K} "
+                            f"R={R} k_eff={k_eff}")
+                    fn = lambda: ss.fused_sparse_shotgun_rounds(  # noqa
+                        *fa, loss=loss, k_eff=k_eff, order=od)
+                    record("#2 " + case, fn(), on(old, fn)())
+                    fn = lambda: ss.fused_sparse_shotgun_delta_rounds(  # noqa
+                        *fa, loss=loss, k_eff=k_eff, order=od)
+                    record("#8 " + case, fn(), on(old, fn)())
+            if store == "f32":
+                loss = losses[-1]
+                fa = (A.rows, A.vals, torch.zeros(A.n, device=dev),
+                      torch.zeros(A.d_pad, device=dev),
+                      _draws(g, K, A.nblk, dup=False), prob.lam, prob.beta,
+                      prob.y)
+                fn = lambda: ss.fused_sparse_shotgun_rounds(  # noqa: E731
+                    *fa, loss=loss, order=od)
+                timed(f"#2 {tag} f32 {loss} R={R}", on(old, fn), fn,
+                      args.iters, SPARSE)
+                fn = lambda: ss.fused_sparse_shotgun_delta_rounds(  # noqa
+                    *fa, loss=loss, order=od)
+                timed(f"#8 {tag} f32 {loss} R={R}", on(old, fn), fn,
+                      args.iters, SPARSE)
+
+    # ---- #10: S1 stacked on 4 slots, S2 shared by 4 -----------------------
+    S = 4
+    st_rows = s1.A.rows.expand(S, -1, -1, -1).contiguous()
+    st_vals = s1.A.vals.expand(S, -1, -1, -1).contiguous()
+    k1 = full(S, S1["K"])
+    k1[2], k1[3] = S1["K"] // 2, 0
+    for tag, prob, rows, vals, shared, loss, K, k_eff in (
+            ("S1 lasso f32 stacked S=4", s1, st_rows, st_vals, False,
+             "lasso", S1["K"], k1),
+            ("S2 logistic_newton f32 shared S=4", s2, s2.A.rows, s2.A.vals,
+             True, "logistic_newton", S2["K"], full(S, S2["K"]))):
+        A = prob.A
+        od = (A.scatter_order() if shared
+              else kb.stacked_scatter_order(rows, vals))
+        x0 = torch.randn(S, A.d_pad, generator=g, device=dev) * 0.01
+        x0[:, A.d:] = 0.0
+        z0 = torch.stack([A.matvec(x0[s]) for s in range(S)])
+        idx = torch.stack([_draws(g, K, A.nblk) for _ in range(S)])
+        y = prob.y.expand(S, -1).contiguous()
+        fa = (rows, vals, z0, x0, idx, ladder(prob.lam, S),
+              full(S, prob.beta), y, k_eff, full(S, inf))
+        fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
+            *fa, loss=loss, shared_design=shared, order=od)
+        record(f"#10 {tag} K={K} R={R}", fn(), on(old, fn)())
+        fa = (rows, vals, torch.zeros(S, A.n, device=dev),
+              torch.zeros(S, A.d_pad, device=dev),
+              torch.stack([_draws(g, K, A.nblk, dup=False)
+                           for _ in range(S)]),
+              ladder(prob.lam, S), full(S, prob.beta), y, full(S, K),
+              full(S, inf))
+        fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
+            *fa, loss=loss, shared_design=shared, order=od)
+        timed(f"#10 {tag} R={R}", on(old, fn), fn, args.iters, SPARSE)
+    print(json.dumps({"compare_fused": summary, "times": times,
+                      "ok": not failed}))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,8 +38,9 @@ import tempfile
 import torch
 
 from repro_torch.data import synthetic as syn
-from repro_torch.kernels import _build
 from repro_torch.kernels import shotgun_sparse as ss
+from repro_torch.kernels._compare import (bit_compare, build_old, device_ms,
+                                          events_ms, turns)
 
 GATHER_RTOL = 1e-5
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -47,28 +48,10 @@ S1 = dict(n=19_996, d=1_355_191, density=3.36e-4, K=32)
 S2 = dict(n=20_242, d=47_236, density=0.0016, K=8)
 
 
-def build_old(csrc: pathlib.Path, work: pathlib.Path) -> ctypes.CDLL:
-    """The library of ``csrc`` with the build's flags, loaded."""
-    nvcc = _build._nvcc()
-    objs = [work / f"{pathlib.Path(s).stem}.o" for s in _build.SOURCES]
-    results = _build._run_all(
-        [[nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(o), str(csrc / s)]
-         for s, o in zip(_build.SOURCES, objs)])
-    lib_path = work / "libold.so"
-    if all(rc == 0 for _, rc, _ in results):
-        results += _build._run_all([[nvcc, *_build.NVCC_FLAGS[:2], "-shared",
-                                     "-o", str(lib_path), *map(str, objs)]])
-    for cmd, rc, out in results:
-        if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
-    lib = ctypes.CDLL(str(lib_path))
-    lib.sp_scatter_block_update.argtypes = ([_P, _P, _I] + [_P] * 9
-                                            + [_L, _I, _I, _P])
-    lib.sp_gather_block_matvec.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I,
-                                           _P]
-    lib.sp_scatter_block_update.restype = _I
-    lib.sp_gather_block_matvec.restype = _I
-    return lib
+_OLD_ARGTYPES = {
+    "sp_scatter_block_update": [_P, _P, _I] + [_P] * 9 + [_L, _I, _I, _P],
+    "sp_gather_block_matvec": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
+}
 
 
 def _ptr(t):
@@ -115,45 +98,6 @@ def old_gather(lib, rows, vals, r, idx):
     return g
 
 
-def bit_compare(a: torch.Tensor, b: torch.Tensor) -> dict:
-    """Counts of f32 elements equal in bits, equal but for the sign of a
-    zero, and otherwise different."""
-    ai, bi = a.view(torch.int32), b.view(torch.int32)
-    same = ai == bi
-    zero_sign = ~same & (a == 0) & (b == 0)
-    return dict(n=a.numel(), bitwise=int(same.sum()),
-                zero_sign=int(zero_sign.sum()),
-                other=int((~same & ~zero_sign).sum()))
-
-
-def events_ms(fn, iters: int) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int) -> float | None:
-    """Every device op in a profiled window of ``iters`` calls of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / iters / 1e3 if total else None
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old_csrc", type=pathlib.Path)
@@ -165,7 +109,7 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        old = build_old(args.old_csrc, pathlib.Path(tmp))
+        old = build_old(args.old_csrc, pathlib.Path(tmp), _OLD_ARGTYPES)
     g = torch.Generator(device=dev).manual_seed(args.seed + 30)
     summary, failed = {}, False
     for tag, shape, gen in (("S1", S1, syn.large_sparse_bcsc_on_device),
@@ -214,15 +158,13 @@ def main(argv=None) -> int:
                             lambda: ss.sparse_gather_block_matvec(
                                 A.rows, A.vals, r, idx))}
                     for name, (fo, fn) in calls.items():
-                        turns = []
-                        for label, f in (("old", fo), ("new", fn),
-                                         ("new", fn), ("old", fo)):
-                            turns.append((label, events_ms(f, args.iters),
-                                          device_ms(f, args.iters)))
-                        res[f"{name}_turns"] = turns
+                        t = turns(fo, fn,
+                                  lambda f: events_ms(f, args.iters),
+                                  lambda f: device_ms(f, args.iters))
+                        res[f"{name}_turns"] = t
                         print(f"time {name} [{case}]: " + "; ".join(
                             f"{lb} events {e:.4f} ms device {d:.4f} ms"
-                            for lb, e, d in turns))
+                            for lb, e, d in t))
                 print(f"compare [{case}]: scatter z {res['z']}; nan-pad "
                       f"{res['z nan-pad']}; gather max rel {rel:.3e}")
                 summary[case] = res

@@ -10,7 +10,8 @@ in ``csrc/shotgun_block.cu`` and built by ``kernels/_build.py``:
                               emitting Δz (the sharded driver's engine)
 
 Each wrapper keeps the JAX signature and return tuple, minus the TPU-only
-``interpret``/``tile_n`` knobs.  A wrapper given CPU tensors runs its plain
+``interpret``/``tile_n`` knobs; ``fused_shotgun_rounds`` adds keyword-only
+``stamps`` (a per-phase clock).  A wrapper given CPU tensors runs its plain
 version (``*_plain``, same module, same dataflow); given CUDA tensors it
 launches the kernel or raises — it never falls back.  ``LAUNCHES`` counts
 kernel launches per wrapper.
@@ -172,6 +173,15 @@ def _gather_rows(n: int) -> int:
     the fixed-order reduction over tiles stays short at any n."""
     return _GATHER_ROW_UNIT * max(1, math.ceil(n / (_GATHER_ROW_UNIT
                                                     * _GATHER_MAX_TILES)))
+
+
+def _check_stamps(stamps, R: int, dev) -> None:
+    need = 2 + 3 * R
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.numel() < need
+                               or stamps.device != dev):
+        raise ValueError(f"stamps must be an int64 tensor of >= {need} "
+                         f"elements on {dev}")
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -346,7 +356,8 @@ def fused_shotgun_rounds_plain(A, z, x, blk_idx, lam, beta, y, mask,
 
 
 def fused_shotgun_rounds(A, z, x, blk_idx, lam, beta, y, mask,
-                         loss: str | Loss = LASSO, k_eff=None, guard_f=None):
+                         loss: str | Loss = LASSO, k_eff=None, guard_f=None,
+                         *, stamps: torch.Tensor | None = None):
     """R Block-Shotgun rounds in ONE kernel launch.
 
     A        (n, d) design, f32 or bf16 (accumulation is f32 regardless).
@@ -363,6 +374,11 @@ def fused_shotgun_rounds(A, z, x, blk_idx, lam, beta, y, mask,
 
     ``lam``, ``beta``, ``k_eff`` and ``guard_f`` may be numbers or 0-dim
     device tensors; tensors are never read back to the host.
+
+    stamps   optional (2 + 3·R,) int64 CUDA tensor: the SM clock of the
+             grid's last block at launch start, after the launch's first
+             barrier and, each round, after its gather, reduce and scatter
+             (ignored on the CPU).
 
     Returns (x_new (d,) f32, z_new (n,) f32, f (R,) f32, nnz (R,) int32,
     health () f32).
@@ -396,13 +412,15 @@ def fused_shotgun_rounds(A, z, x, blk_idx, lam, beta, y, mask,
     f = torch.empty(R, **f32)
     nnz = torch.empty(R, dtype=torch.int32, device=dev)
     health = torch.zeros((), **f32)
+    _check_stamps(stamps, R, dev)
     with torch.cuda.device(dev):
         rc = lib.sb_fused_shotgun_rounds(
             _ptr(A), int(A.dtype == torch.bfloat16), _loss_code(ls),
             _ptr(yv), _ptr(mv), _ptr(idx), _ptr(scal), _ptr(z_out),
             _ptr(x_out), _ptr(r), _ptr(w), _ptr(gpart), _ptr(hpart),
             _ptr(dlt), _ptr(lpart), _ptr(f), _ptr(nnz), _ptr(health), n, d,
-            R, K, rows, T, _stream(dev))
+            R, K, rows, T, None if stamps is None else _ptr(stamps),
+            _stream(dev))
     _check_rc(rc, "fused_shotgun_rounds")
     LAUNCHES["fused_shotgun_rounds"] += 1
     return x_out, z_out, f, nnz, health
@@ -454,7 +472,8 @@ def fused_shotgun_delta_rounds(A, z, x, blk_idx, lam, beta, y, mask,
     accumulates those contributions into Δz = A_shard δx for the caller to
     all-reduce.  No objective or nnz: ``health`` trips when the view holds
     a non-finite value after a round.  Arguments as ``fused_shotgun_rounds``
-    (no ``guard_f``); ``k_eff`` may be a 0-dim device tensor.
+    (no ``guard_f`` or ``stamps``); ``k_eff`` may be a 0-dim device
+    tensor.
 
     Returns (x_new (d,) f32, dz (n,) f32, health () f32).
     """

@@ -65,8 +65,8 @@ def block_delta(x_sel, g, lam, beta):
 
 def _check_tiles(rows: torch.Tensor, vals: torch.Tensor) -> tuple[int, int]:
     """Raise (don't assert) when the tiles are not what the kernels index:
-    (nblk, tile, 128) int32 rows and f32/bf16 vals of one shape, tile a
-    multiple of 2 (the scatter's 256-slot items)."""
+    (nblk, tile, 128) int32 rows and f32/bf16 vals of one shape (any tile
+    depth >= 1)."""
     if rows.dim() != 3 or rows.shape != vals.shape:
         raise ValueError(f"rows {tuple(rows.shape)} and vals "
                          f"{tuple(vals.shape)} must be one (nblk, tile, "
@@ -74,9 +74,8 @@ def _check_tiles(rows: torch.Tensor, vals: torch.Tensor) -> tuple[int, int]:
     nblk, tile, block = rows.shape
     if block != BLOCK:
         raise ValueError(f"block width {block} != {BLOCK}")
-    if tile % 2:
-        raise ValueError(f"tile={tile} must be even (BlockedCSC pads it to "
-                         "a multiple of 8)")
+    if tile < 1:
+        raise ValueError(f"tile={tile} must be >= 1")
     if rows.dtype != torch.int32:
         raise ValueError(f"rows must be int32, got {rows.dtype}")
     if vals.dtype not in (torch.float32, torch.bfloat16):

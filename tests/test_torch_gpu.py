@@ -117,6 +117,80 @@ def test_fused_invariants_on_card(cuda):
     assert float(h) == 1.0
 
 
+def _wide(loss, dev, n, d=4096, seed=0):
+    """A padded problem with more scatter tiles than the fused grid has
+    CTAs (n = 32768: 1024 tiles on 528)."""
+    name = "lasso" if loss == "lasso" else "logistic"
+    A, y, _ = (tsyn.sparco_on_device(seed, n=n, d=d, device=dev)
+               if name == "lasso" else
+               tsyn.logistic_data_on_device(seed, n=n, d=d, device=dev))
+    prob = tobj.make_problem(A, y, 0.1, loss=name, device=dev)
+    Ap, yp, mask = tops.pad_problem(prob.A, prob.y)
+    return prob, Ap, yp, mask
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", ["lasso", "logistic_newton"])
+def test_fused_wide_matches_plain_and_repeats_bitwise(cuda, loss, store):
+    """#1 and #7 at n = 32768 against the plain version, a second launch
+    bit for bit against the first, and the phase stamps."""
+    prob, Ap, yp, mask = _wide(loss, cuda, 32768)
+    A = Ap.to(torch.bfloat16) if store == "bf16" else Ap
+    x, z, idx = _inputs(A.float(), K=8)
+    tol = 1e-3 if store == "bf16" else 1e-4
+    args = (A, z, x, idx, prob.lam, prob.beta, yp, mask)
+    got = tsb.fused_shotgun_rounds(*args, loss=loss)
+    want = tsb.fused_shotgun_rounds_plain(*args, loss=loss)
+    for u, v in zip(got[:3], want[:3]):
+        torch.testing.assert_close(u, v, rtol=tol, atol=tol)
+    assert torch.all((got[3] - want[3]).abs() <= 1)
+    got7 = tsb.fused_shotgun_delta_rounds(*args, loss=loss)
+    _delta_check(got7, tsb.fused_shotgun_delta_rounds_plain(*args, loss=loss),
+                 tol)
+    assert all(torch.equal(u, v) for u, v in zip(
+        got7, tsb.fused_shotgun_delta_rounds(*args, loss=loss)))
+    # the phase stamps: one per barrier, in order, outputs unchanged
+    stamps = torch.zeros(2 + 3 * idx.shape[0], dtype=torch.int64,
+                         device=cuda)
+    timed = tsb.fused_shotgun_rounds(*args, loss=loss, stamps=stamps)
+    assert all(torch.equal(u, v) for u, v in zip(got, timed))
+    assert int(stamps[0]) > 0 and bool(torch.all(stamps[1:] > stamps[:-1]))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("loss", ["lasso", "logistic_newton"])
+def test_batched_wide_equals_unbatched_bitwise(cuda, loss, shared):
+    """#9 on 2 slots at n = 16384 (1024 scatter tiles a launch) against the
+    plain version, and bit for bit against the unbatched kernel slot by
+    slot."""
+    padded = [_wide(loss, cuda, 16384, seed=s) for s in range(2)]
+    prob = padded[0][0]
+    A = torch.stack([p[1] for p in padded])
+    A = A[0].to(torch.bfloat16) if shared else A
+    y = torch.stack([p[2] for p in padded])
+    mask = torch.stack([p[3] for p in padded])
+    cols = [_inputs((A if shared else A[s]).float(), K=8, seed=10 + s)
+            for s in range(2)]
+    x, z, idx = (torch.stack(c) for c in zip(*cols))
+    lam = prob.lam * torch.tensor([1.0, 1.5], device=cuda)
+    beta = torch.full((2,), prob.beta, device=cuda)
+    k_eff = torch.tensor([8.0, 5.0], device=cuda)
+    guard = torch.full((2,), float("inf"), device=cuda)
+    args = (A, z, x, idx, lam, beta, y, mask, k_eff, guard)
+    want = tkb.batched_fused_shotgun_rounds_plain(*args, loss=loss,
+                                                  shared_design=shared)
+    tol = 1e-3 if shared else 1e-4
+    got = tkb.batched_fused_shotgun_rounds(*args, loss=loss,
+                                           shared_design=shared)
+    for u, v in zip(got[:3], want[:3]):
+        torch.testing.assert_close(u, v, rtol=tol, atol=tol)
+    for s in range(2):
+        one = tsb.fused_shotgun_rounds(
+            A if shared else A[s], z[s], x[s], idx[s], lam[s], beta[s], y[s],
+            mask[s], loss=loss, k_eff=k_eff[s])
+        assert all(torch.equal(a[s], b) for a, b in zip(got, one)), s
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_solve_on_card_matches_cpu_and_counts_launches(cuda, fused):
     A, y, _ = tsyn.sparco(seed=3, n=900, d=1000)
@@ -147,9 +221,27 @@ def test_solve_on_card_matches_cpu_and_counts_launches(cuda, fused):
 # BlockedCSC kernels
 # ---------------------------------------------------------------------------
 
-def _sparse(loss, dev, n=1500, d=3000, seed=0):
+def _shallow(name, n, d, tile, seed):
+    """A BlockedCSC of 1..tile nonzeros a column (tile ``tile``, odd or
+    even) and its labels, on the CPU."""
+    rng = np.random.default_rng(seed + 100 * tile)
+    A = np.zeros((n, d), np.float32)
+    for j in range(d):
+        k = int(rng.integers(1, tile + 1))
+        A[rng.choice(n, k, replace=False), j] = rng.standard_normal(k)
+    x = np.zeros(d, np.float32)
+    x[rng.choice(d, 30, replace=False)] = rng.standard_normal(30)
+    y = A @ x + 0.05 * rng.standard_normal(n).astype(np.float32)
+    if name == "logistic":
+        y = np.where(y >= 0, 1.0, -1.0).astype(np.float32)
+    return tsp.BlockedCSC.from_dense(A, tile=tile, device="cpu"), y
+
+
+def _sparse(loss, dev, n=1500, d=3000, seed=0, tile=None):
     name = "lasso" if loss == "lasso" else "logistic"
-    if name == "lasso":
+    if tile is not None:
+        S, y = _shallow(name, n, d, tile, seed)
+    elif name == "lasso":
         S, y, _ = tsyn.large_sparse(seed=seed, n=n, d=d, density=0.01,
                                     layout="bcsc")
     else:
@@ -193,20 +285,22 @@ def test_sparse_gather_and_scatter_match_plain(cuda, store):
         S.rows, S.vals, r, idx, delta))
 
 
-def _padded_sparse(dev, store, n=1500, d=3000):
+def _padded_sparse(dev, store, n=1500, d=3000, tile=None):
     """A BlockedCSC at n rows (not a multiple of RANGE_ROWS) with two
-    all-padding tail blocks (count 0), in f32 or bf16."""
-    S, _, _ = tsyn.large_sparse(seed=5, n=n, d=d, density=0.01,
-                                layout="bcsc")
+    all-padding tail blocks (count 0), in f32 or bf16, of the generator's
+    tile depth or of ``tile``."""
+    S = (tsyn.large_sparse(seed=5, n=n, d=d, density=0.01, layout="bcsc")[0]
+         if tile is None else _shallow("lasso", n, d, tile, 5)[0])
     S = tsp.pad_feature_blocks(S, S.nblk + 2).to(dev)
     return S.astype(torch.bfloat16) if store == "bf16" else S
 
 
+@pytest.mark.parametrize("tile", [None, 7])
 @pytest.mark.parametrize("store", ["f32", "bf16"])
 @pytest.mark.parametrize("K", [1, 8, 64])
 def test_sparse_scatter_rows_matches_plain_and_repeats_bitwise(cuda, K,
-                                                               store):
-    S = _padded_sparse(cuda, store)
+                                                               store, tile):
+    S = _padded_sparse(cuda, store, tile=tile)
     assert S.n % tsp.RANGE_ROWS and int(S.scatter_order().count[-1]) == 0
     g = torch.Generator(device=cuda).manual_seed(K)
     idx = torch.randint(0, S.nblk, (K,), generator=g, device=cuda,
@@ -259,7 +353,7 @@ def _deep_tiles(dev, tile, n=2000, nblk=40, seed=0):
 
 
 @pytest.mark.parametrize("K", [1, 8, 32])
-@pytest.mark.parametrize("tile", [8, 24, 64, 72])
+@pytest.mark.parametrize("tile", [7, 8, 24, 64, 72])
 def test_sparse_gather_split_matches_plain_and_repeats_bitwise(cuda, tile,
                                                                K):
     rows, vals = _deep_tiles(cuda, tile)
@@ -319,10 +413,12 @@ def test_sparse_two_kernel_wrappers_raise_off_the_current_device(cuda):
                                        torch.zeros(S.n, device=S.device), idx)
 
 
+@pytest.mark.parametrize("tile", [None, 7])
 @pytest.mark.parametrize("store", ["f32", "bf16"])
 @pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
-def test_fused_sparse_matches_plain_and_repeats_bitwise(cuda, loss, store):
-    prob = _sparse(loss, cuda)
+def test_fused_sparse_matches_plain_and_repeats_bitwise(cuda, loss, store,
+                                                        tile):
+    prob = _sparse(loss, cuda, tile=tile)
     S = prob.A.astype(torch.bfloat16) if store == "bf16" else prob.A
     x, z, idx = _sparse_inputs(S)
     for k_eff in (None, 2):
@@ -459,11 +555,12 @@ def test_fused_delta_matches_plain_and_repeats_bitwise(cuda, loss, store):
         tsb.fused_shotgun_delta_rounds_plain(*args, loss=loss)[2])
 
 
+@pytest.mark.parametrize("tile", [None, 7])
 @pytest.mark.parametrize("store", ["f32", "bf16"])
 @pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
 def test_fused_sparse_delta_matches_plain_and_repeats_bitwise(cuda, loss,
-                                                              store):
-    prob = _sparse(loss, cuda)
+                                                              store, tile):
+    prob = _sparse(loss, cuda, tile=tile)
     S = prob.A.astype(torch.bfloat16) if store == "bf16" else prob.A
     x, z, idx = _sparse_inputs(S)
     od = S.scatter_order()
@@ -599,12 +696,14 @@ def _stacked_tiles(probs, store):
     return rows, vals, tkb.stacked_scatter_order(rows, vals)
 
 
+@pytest.mark.parametrize("tile", [None, 7])
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("store", ["f32", "bf16"])
 @pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
 def test_batched_sparse_matches_plain_and_unbatched_bitwise(cuda, loss,
-                                                            store, shared):
-    probs = [_sparse(loss, cuda, seed=s) for s in range(3)]
+                                                            store, shared,
+                                                            tile):
+    probs = [_sparse(loss, cuda, seed=s, tile=tile) for s in range(3)]
     rows, vals, od = _stacked_tiles(probs, store)
     if shared:
         rows, vals = rows[0], vals[0]

@@ -297,3 +297,23 @@ def test_compare_sass_maps_a_new_template_flag_to_the_old_kernel(new, want):
     from repro_torch.kernels import compare_sass as cs
     old = {"_Z6kernelIfLb0EEvv": [], "_Z6kernelIfLb1EEvv": []}
     assert cs.counterpart(new, old) == want
+
+
+# ---------------------------------------------------------------------------
+# The fused kernel's phase stamps: (2 + 3·R,) int64 on the launch's device
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stamps,ok", [
+    (None, True),
+    (torch.zeros(2 + 3 * 4, dtype=torch.int64), True),
+    (torch.zeros(2 + 3 * 4 + 5, dtype=torch.int64), True),
+    (torch.zeros(2 + 3 * 4 - 1, dtype=torch.int64), False),
+    (torch.zeros(2 + 3 * 4, dtype=torch.int32), False),
+    (torch.zeros(2 + 3 * 4, dtype=torch.int64, device="meta"), False),
+])
+def test_fused_stamps_are_checked(stamps, ok):
+    if ok:
+        tsb._check_stamps(stamps, 4, torch.device("cpu"))
+    else:
+        with pytest.raises(ValueError, match="stamps must be an int64"):
+            tsb._check_stamps(stamps, 4, torch.device("cpu"))

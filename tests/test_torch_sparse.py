@@ -609,6 +609,110 @@ def test_sparse_wrappers_reject_bad_tiles():
 
 
 # ---------------------------------------------------------------------------
+# Odd tile depths (1, 3, 5, 7) and bf16 packing, held against the reference
+# ---------------------------------------------------------------------------
+
+def _odd_tile_design(loss, seed=7, tile=7):
+    """A 40 x 256 design with 1..tile nonzeros per column (column 3 has
+    tile), so ``from_dense(tile=tile)`` packs it, and its labels."""
+    rng = np.random.default_rng(seed)
+    n, d = 40, 256
+    A = np.zeros((n, d), np.float32)
+    for j in range(d):
+        k = tile if j == 3 else int(rng.integers(1, tile + 1))
+        A[rng.choice(n, k, replace=False), j] = rng.standard_normal(k)
+    x = np.zeros(d, np.float32)
+    x[rng.choice(d, 12, replace=False)] = rng.standard_normal(12)
+    y = A @ x + 0.05 * rng.standard_normal(n).astype(np.float32)
+    if loss == "logistic":
+        y = np.where(y >= 0, 1.0, -1.0).astype(np.float32)
+    return A, y
+
+
+def _odd_tile_problems(loss, lam, tile=7):
+    A, y = _odd_tile_design(loss, tile=tile)
+    S = jsp.BlockedCSC.from_dense(A, tile=tile)
+    T = tsp.BlockedCSC.from_dense(torch.tensor(A), tile=tile, device="cpu")
+    assert S.tile == T.tile == tile
+    np.testing.assert_array_equal(T.rows.numpy(), np.asarray(S.rows))
+    np.testing.assert_array_equal(T.vals.numpy(), np.asarray(S.vals))
+    jp = jobj.make_problem(S, y, lam=lam, loss=loss)
+    tp = convert.problem_from_numpy(_port_bcsc(jp.A), np.asarray(jp.y),
+                                    float(jp.lam), loss,
+                                    scales=np.asarray(jp.scales),
+                                    device="cpu")
+    return jp, tp
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+def test_tile7_gather_and_scatter_match_jax(store):
+    _odd_tile_gather_and_scatter(store, 7)
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("tile", [1, 3, 5])
+def test_odd_tile_gather_and_scatter_match_jax(tile, store):
+    _odd_tile_gather_and_scatter(store, tile)
+
+
+def _odd_tile_gather_and_scatter(store, tile):
+    jp, _ = _odd_tile_problems("lasso", 0.5, tile)
+    S, T = _stored(jp.A, store)
+    rng = np.random.default_rng(8)
+    r = rng.standard_normal(S.n).astype(np.float32)
+    z = rng.standard_normal(S.n).astype(np.float32)
+    delta = (rng.standard_normal((3, BLOCK)) * 0.1).astype(np.float32)
+    idx = np.array([1, 0, 1], np.int32)                  # duplicate draw
+    g = tss.sparse_gather_block_matvec(T.rows, T.vals, _t(r),
+                                       torch.tensor(idx))
+    jg = jss.sparse_gather_block_matvec(S.rows, S.vals, jnp.asarray(r),
+                                        jnp.asarray(idx), interpret=True)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-5)
+    zk = tss.sparse_scatter_block_update(T.rows, T.vals, _t(z),
+                                         torch.tensor(idx), _t(delta))
+    jz = jss.sparse_scatter_block_update(S.rows, S.vals, jnp.asarray(z),
+                                         jnp.asarray(idx),
+                                         jnp.asarray(delta), interpret=True)
+    np.testing.assert_allclose(zk.numpy(), np.asarray(jz), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("loss,newton,fused", [
+    ("lasso", False, True), ("lasso", False, False),
+    ("logistic", True, True), ("logistic", False, False)])
+def test_tile7_solve_matches_jax(loss, newton, fused):
+    _odd_tile_solve(loss, newton, fused, 7)
+
+
+@pytest.mark.parametrize("newton,fused", [(True, True), (False, False)])
+def test_odd_tile_solve_matches_jax(newton, fused):
+    _odd_tile_solve("logistic", newton, fused, 3)
+
+
+def _odd_tile_solve(loss, newton, fused, tile):
+    jp, tp = _odd_tile_problems(loss, 1.0 if loss == "logistic" else 0.2, tile)
+    key = jax.random.PRNGKey(3)
+    kw = dict(loss=loss, P=128, rounds=16, fused=fused, newton=newton)
+    jres = jops.block_shotgun_solve(jp, key, spec=JSpec(**kw))
+    tres = tops.block_shotgun_solve(
+        tp, spec=SolverSpec(**kw), blk_idx=_jax_draws(key, 16, 1, jp.A.nblk))
+    _assert_solves_close(tres, jres)
+
+
+def test_from_dense_of_bf16_is_bit_identical_to_jax():
+    Ad, _, _ = _gen("sparse_imaging", "dense")
+    Ab = torch.tensor(Ad).to(torch.bfloat16)
+    S = jsp.BlockedCSC.from_dense(jnp.asarray(Ad, jnp.bfloat16))
+    T = tsp.BlockedCSC.from_dense(Ab, device="cpu")
+    assert T.vals.dtype == torch.float32 and T.tile == S.tile
+    np.testing.assert_array_equal(T.rows.numpy(), np.asarray(S.rows))
+    np.testing.assert_array_equal(T.vals.numpy().view(np.int32),
+                                  np.asarray(S.vals).view(np.int32))
+    np.testing.assert_array_equal(T.to_dense().numpy(), Ab.float().numpy())
+
+
+# ---------------------------------------------------------------------------
 # Solves against JAX on the same draws (tests/test_sparse.py:179-415,
 # tests/test_logreg_fused.py:71, :115)
 # ---------------------------------------------------------------------------
