@@ -161,9 +161,12 @@ def device_busy(fn, kernels: tuple[str, ...] = ()):
     is the union of the device intervals, so idle share = 1 - busy /
     span."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.005)      # no device record at the window's edges
         fn()
         torch.cuda.synchronize()
+        time.sleep(0.005)
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -262,25 +265,29 @@ def trace_rel(a, b) -> float:
     return float(((a - b).abs() / b.abs()).max())
 
 
-def device_ms(fn, kernels: tuple[str, ...] | None, iters: int) -> float | None:
-    """Device time per call of ``fn`` from the profiler over ``iters``
-    calls (after a warm-up): the summed duration of the device events whose
-    names contain one of ``kernels`` or, with ``kernels=None``, of every
-    device event in the window — all the call enqueues (kernels, memsets,
-    copies); None when the profiler sees no such event.  For a kernel of a
-    few microseconds the CUDA-event time of back-to-back calls is set by the
+def device_ms(fn, kernels: tuple[str, ...] | None, iters: int,
+              per_call: int = 1) -> float | None:
+    """Device time per call of ``fn`` from the profiler over ``iters`` calls
+    (after a warm-up): the summed duration of the device records whose
+    names contain one of ``kernels`` (``per_call`` launches of them a call)
+    or, with ``kernels=None``, of every device record in the window — all
+    the call enqueues (kernels, memsets, copies), as many a call as one
+    profiled call shows.  A window short of records is retried and reported
+    (``repro_torch.kernels._compare.device_ms``).  For a kernel of a few
+    microseconds the CUDA-event time of back-to-back calls is set by the
     host enqueue, not by the device."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and (kernels is None or any(k in e.name for k in kernels)))
-    return total / iters / 1e3 if total else None
+    from repro_torch.kernels import _compare
+    return _compare.device_ms(fn, iters, kernels or (),
+                              per_call if kernels else None)
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn`` from CUDA events around each call,
+    enqueued behind a spin kernel so that the host's enqueue is hidden
+    (``repro_torch.kernels._compare.queued_ms``): every device op of the
+    call, on a clock apart from the profiler's."""
+    from repro_torch.kernels import _compare
+    return _compare.queued_ms(fn, iters)
 
 
 def main() -> int:
@@ -364,6 +371,7 @@ def kernel_entry(name, source, replaces, launches, t, shape):
                 max_rel_err=WORST[name][1], ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=b, bound_by=by,
                 library_ms=t.get("library_ms"), device_ms=t.get("device_ms"),
+                queued_ms=t.get("queued_ms"),
                 library_device_ms=t.get("library_device_ms"), shape=shape)
 
 
@@ -498,7 +506,8 @@ def dense_leg(args):
     phases = dense_phases(
         lambda st: sb.fused_shotgun_rounds(La, pz, px, pidx, lasso.lam, 1.0,
                                            Ly, Lm, loss="lasso", stamps=st),
-        t_lasso["fused_shotgun_rounds"]["device_ms"], R, dev)
+        t_lasso["fused_shotgun_rounds"]["device_ms"]
+        or t_lasso["fused_shotgun_rounds"]["ms"], R, dev)
     print(f"phases fused_shotgun_rounds [{lasso_shape} R={R}]: " + "; ".join(
         f"{k[:-3]} {v * 1e3:.2f} us" for k, v in phases.items()
         if k not in ("launch_ms",)))
@@ -592,12 +601,15 @@ def print_times(groups):
             lib = v.get("library_ms")
             dms = v.get("device_ms")
             ldms = v.get("library_device_ms")
+            qms = v.get("queued_ms")
             print(f"time {name} [{tag}]: {v['ms']:.4f} ms; plain "
                   f"{v['plain_ms']:.4f} ms; bound {b:.4f} ms ({by}); "
                   f"{100 * b / v['ms']:.1f}% of bound"
                   + ("" if dms is None else
                      f"; device {dms:.4f} ms ({100 * b / dms:.1f}% of bound;"
                      f" host enqueue {v['ms'] - dms:.4f} ms)")
+                  + ("" if qms is None else
+                     f"; call behind a spin {qms:.4f} ms")
                   + ("" if lib is None else f"; library {lib:.4f} ms")
                   + ("" if ldms is None else
                      f", device {ldms:.4f} ms (host enqueue "
@@ -657,26 +669,77 @@ def dense_phases(launch, ms: float, R: int, dev) -> dict:
     return out
 
 
-def sparse_phases(launch, ms: float, R: int, dev) -> dict:
-    """Phase breakdown of one fused sparse launch: ``launch(stamps)`` runs
-    it with block 0's clock stamped at each barrier; the cycles are scaled
-    to the launch's device time ``ms``."""
-    stamps = torch.zeros(3 * R + 4, dtype=torch.int64, device=dev)
-    launch(stamps)
-    torch.cuda.synchronize()
-    st = stamps.cpu().double()
-    cyc = st[1:] - st[:-1]
-    per_cycle = ms / float(st[-1] - st[0])
-    rounds = cyc[1:1 + 3 * R].reshape(R, 3)
+def sparse_phases(launch, ms: float | None, R: int, dev,
+                  reps: int = 5) -> dict:
+    """Phase breakdown of a fused sparse launch: ``launch(stamps)`` runs it
+    with the grid's last block's SM clock stamped at each barrier (two a
+    round: A, then BC) and the card's ns timer at launch start and end.  Of
+    ``reps`` stamped launches the one of median ns span is broken down, its
+    cycles turned into ms by its own ns per cycle, so the phases need no
+    other clock.  ``ms`` (the profiler's device time per launch, or None)
+    is set beside the stamped span, and the SM clock the stamps imply
+    beside the card's maximum: three clocks that must agree."""
+    runs = []
+    for _ in range(reps):
+        stamps = torch.zeros(2 * R + 6, dtype=torch.int64, device=dev)
+        launch(stamps)
+        torch.cuda.synchronize()
+        runs.append(stamps.cpu())
+    runs.sort(key=lambda t: int(t[-1] - t[-2]))
+    spans = [float(t[-1] - t[-2]) / 1e6 for t in runs]
+    st = runs[reps // 2].double()
+    clk = st[:2 * R + 4]
+    cyc = clk[1:] - clk[:-1]
+    span = spans[reps // 2]
+    per_cycle = span / float(clk[-1] - clk[0])
+    rounds = cyc[1:1 + 2 * R].reshape(R, 2)
     return {
-        "launch_ms": ms, "launch_cycles": float(st[-1] - st[0]),
+        "profiler_ms": ms, "stamped_ms": span, "stamped_ms_min": spans[0],
+        "stamped_ms_max": spans[-1], "launch_cycles": float(clk[-1] - clk[0]),
+        "sm_ghz": 1e-6 / per_cycle, "sm_ghz_max": sm_clock_max_ghz(),
         "launch_start_ms": float(cyc[0]) * per_cycle,
         "round_ms": float(rounds.sum(1).mean()) * per_cycle,
         "A_gather_delta_xpartial_ms": float(rounds[:, 0].mean()) * per_cycle,
-        "B_runs_finish_ms": float(rounds[:, 1].mean()) * per_cycle,
-        "C_combine_xupdate_ms": float(rounds[:, 2].mean()) * per_cycle,
-        "final_A_xpartial_only_ms": float(cyc[1 + 3 * R]) * per_cycle,
-        "final_B_finish_only_ms": float(cyc[2 + 3 * R]) * per_cycle}
+        "BC_rowrange_sums_xupdate_finish_ms":
+            float(rounds[:, 1].mean()) * per_cycle,
+        "final_A_xpartial_only_ms": float(cyc[1 + 2 * R]) * per_cycle,
+        "final_finish_only_ms": float(cyc[2 + 2 * R]) * per_cycle}
+
+
+def print_sparse_phases(label: str, p: dict) -> None:
+    """The phase line of a fused sparse launch and its three clocks, which
+    must agree, each within 2% (the ns timer's grain and the spread between
+    launches): the SM clock the stamps imply at most the card's maximum,
+    and the profiler's record no shorter than the stamped span it holds."""
+    print(f"phases {label}: " + "; ".join(
+        f"{k} {'n/a' if v is None else f'{v:.4f}'}" for k, v in p.items()))
+    prof = p["profiler_ms"]
+    print(f"clocks {label}: stamped span {p['stamped_ms']:.4f} ms "
+          f"({p['stamped_ms_min']:.4f}-{p['stamped_ms_max']:.4f} over the "
+          f"stamped launches); profiler "
+          + ("n/a" if prof is None else
+             f"{prof:.4f} ms ({prof / p['stamped_ms']:.3f} of the span)")
+          + f"; SM clock from the stamps {p['sm_ghz']:.3f} GHz (max "
+          + ("n/a" if p["sm_ghz_max"] is None else
+             f"{p['sm_ghz_max']:.3f}") + ")")
+    require(p["sm_ghz_max"] is None or p["sm_ghz"] <= 1.02 * p["sm_ghz_max"],
+            f"{label}: the stamps imply an SM clock of {p['sm_ghz']:.3f} GHz")
+    require(prof is None or prof >= 0.98 * p["stamped_ms"],
+            f"{label}: profiler {prof} ms below the stamped span "
+            f"{p['stamped_ms']:.4f} ms")
+
+
+def sm_clock_max_ghz() -> float | None:
+    """The card's maximum SM clock from nvidia-smi, in GHz (None when it
+    cannot be read)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60,
+                             check=True)
+        return float(out.stdout.split()[0]) / 1e3
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
 
 
 def sparse_leg(args):
@@ -788,7 +851,7 @@ def sparse_leg(args):
                     fargs = (A.rows, A.vals, z0, x0, idx, prob.lam,
                              prob.beta, prob.y)
                     got = ss.fused_sparse_shotgun_rounds(
-                        *fargs, loss=loss, k_eff=k_eff, order=od)
+                        *fargs, loss=loss, k_eff=k_eff, **sk)
                     want = ss.fused_sparse_shotgun_rounds_plain(
                         *fargs, loss=loss, k_eff=k_eff)
                     check("fused_sparse_shotgun_rounds", t,
@@ -798,7 +861,7 @@ def sparse_leg(args):
                           nnz_pair=(got[3], want[3]),
                           health_pair=(got[4], want[4]))
                     require_repeat(lambda: ss.fused_sparse_shotgun_rounds(
-                        *fargs, loss=loss, k_eff=k_eff, order=od),
+                        *fargs, loss=loss, k_eff=k_eff, **sk),
                         f"fused_sparse_shotgun_rounds [{t}]")
 
     # ---- kernel times and the fused launch's phases -----------------------
@@ -821,7 +884,7 @@ def sparse_leg(args):
         out = {}
         out["fused_sparse_shotgun_rounds"] = dict(
             ms=time_ms(lambda: ss.fused_sparse_shotgun_rounds(
-                *fargs, loss=loss, order=od), iters),
+                *fargs, loss=loss, **sk), iters),
             plain_ms=time_ms(lambda: ss.fused_sparse_shotgun_rounds_plain(
                 *fargs, loss=loss), max(2, iters // 4), warmup=1),
             bound=bound(R * tiles + 4 * (3 * n + 2 * d_pad) + 8 * R,
@@ -849,8 +912,7 @@ def sparse_leg(args):
             library_ms=addmv_ms,
             bound=bound(tiles + 8 * n + 512 * K, 2 * slots + K * n))
         out["fused_sparse_shotgun_rounds"]["device_ms"] = device_ms(
-            lambda: ss.fused_sparse_shotgun_rounds(*fargs, loss=loss,
-                                                   order=od),
+            lambda: ss.fused_sparse_shotgun_rounds(*fargs, loss=loss, **sk),
             ("fused_sparse_kernel",), iters)
         # the two-kernel pair and its cuSPARSE yardsticks on one clock:
         # every device op in a window of that call alone
@@ -860,10 +922,13 @@ def sparse_leg(args):
             out[name]["device_ms"] = device_ms(fn, None, PAIR_ITERS)
             out[name]["library_device_ms"] = device_ms(lib, None, PAIR_ITERS)
         t = out["fused_sparse_shotgun_rounds"]
+        t["queued_ms"] = queued_ms(
+            lambda: ss.fused_sparse_shotgun_rounds(*fargs, loss=loss, **sk),
+            iters)
         out["phases"] = sparse_phases(
             lambda st: ss.fused_sparse_shotgun_rounds(
-                *fargs, loss=loss, order=od, stamps=st),
-            t["device_ms"] or t["ms"], R, dev)
+                *fargs, loss=loss, **sk, stamps=st),
+            t["device_ms"], R, dev)
         return out
 
     t_s1 = kernel_times(s1, K1, "lasso", 20)
@@ -872,8 +937,7 @@ def sparse_leg(args):
     print_times(((f"S1 lasso f32 K={K1} R={R}", t_s1),
                  (f"S2 f32 K={K2} R={R} logistic_newton", t_s2)))
     for tag, p in ph.items():
-        print(f"phases fused_sparse_shotgun_rounds [{tag}]: " + "; ".join(
-            f"{k} {v:.4f}" for k, v in p.items()))
+        print_sparse_phases(f"fused_sparse_shotgun_rounds [{tag}]", p)
 
     # ---- the main path (sparse leg) ---------------------------------------
     runs = []
@@ -912,12 +976,31 @@ def sparse_leg(args):
           f"same draws): max rel {rel:.3e}")
     require(rel <= TRACE_RTOL, f"sparse fused vs two-kernel rel {rel:.3e}")
 
+    # Who sets the pace of a fused solve: its host ms/round beside the
+    # fused kernel's device ms/round and the device's idle share over a
+    # profiled rerun of the same solve.
+    pace = {}
     for label, prob, spec_, kw in (
             ("S1 lasso fused f32", s1, s1_spec, dict(blk_idx=s1_idx)),
             ("S2 logistic newton guarded fused f32", s2, s2_spec,
              dict(generator=torch.Generator(device=dev).manual_seed(1)))):
-        print_busy(label, lambda: ops.block_shotgun_solve(prob, spec=spec_,
-                                                          **kw))
+        busy, span, n_ev, kms, kn = device_busy(
+            lambda: ops.block_shotgun_solve(prob, spec=spec_, **kw),
+            ("fused_sparse_kernel",))
+        require(n_ev > 0 and kn > 0,
+                f"{label}: the profiler saw no fused launch")
+        host = next(r["ms_per_round"] for r in runs if r["label"] == label)
+        dev_round = kms / kn / R          # mean device ms a recorded launch
+        pace[label] = dict(host_ms_per_round=host,
+                           device_ms_per_round=dev_round,
+                           idle_share=1 - busy / span)
+        print(f"profile {label}: device busy {busy:.3f} ms of a {span:.3f} "
+              f"ms span ({n_ev} device events); idle share "
+              f"{1 - busy / span:.3f}")
+        print(f"pace {label}: host {host:.4f} ms/round; fused kernel "
+              f"{dev_round:.4f} ms/round of device time ({kn} of "
+              f"{spec_.rounds // R} launches recorded); idle share "
+              f"{1 - busy / span:.3f}")
 
     # A small problem solved sparse and dense on the card: one trajectory.
     Ad, y, _ = syn.large_sparse(seed=args.seed, n=2000, d=3000, density=0.01)
@@ -954,12 +1037,13 @@ def sparse_leg(args):
     ]
     extra = {"s2_kernel_times": {
         k: dict(ms=v["ms"], device_ms=v["device_ms"], plain_ms=v["plain_ms"],
+                queued_ms=v.get("queued_ms"),
                 bound_ms=v["bound"][0], bound_by=v["bound"][1],
                 library_ms=v.get("library_ms"),
                 library_device_ms=v.get("library_device_ms"))
         for k, v in t_s2.items()},
         "s1_device_ms": {k: v["device_ms"] for k, v in t_s1.items()},
-        "sparse_phases": ph, "sparse_solves": runs}
+        "sparse_phases": ph, "sparse_solves": runs, "sparse_pace": pace}
     data = dict(s1=s1, s2=s2, s1_16=s1_16, s2_16=s2_16, K1=K1, K2=K2,
                 s1_idx=s1_idx)
     return kernels, extra, data
@@ -1208,7 +1292,7 @@ def sharded_leg(args, dd, sd, dense_json, sparse_json):
                                  K2, "logistic_newton")):
         for store, prob in probs:
             A = prob.A
-            od = A.scatter_order()
+            od, rs = A.scatter_order(), A.range_starts()
             idx = draws(R, K, A.nblk, g)
             x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
             x0[A.d:] = 0.0
@@ -1218,7 +1302,7 @@ def sharded_leg(args, dd, sd, dense_json, sparse_json):
                 fargs = (A.rows, A.vals, z0, x0, idx, prob.lam, prob.beta,
                          prob.y)
                 got = ss.fused_sparse_shotgun_delta_rounds(
-                    *fargs, loss=loss, k_eff=k_eff, order=od)
+                    *fargs, loss=loss, k_eff=k_eff, order=od, rstart=rs)
                 want = ss.fused_sparse_shotgun_delta_rounds_plain(
                     *fargs, loss=loss, k_eff=k_eff)
                 check("fused_sparse_shotgun_delta_rounds", t,
@@ -1227,7 +1311,7 @@ def sharded_leg(args, dd, sd, dense_json, sparse_json):
                       health_pair=(got[2], want[2]))
                 require(float(got[2]) == 0.0, f"#8 [{t}] health tripped")
                 require_repeat(lambda: ss.fused_sparse_shotgun_delta_rounds(
-                    *fargs, loss=loss, k_eff=k_eff, order=od),
+                    *fargs, loss=loss, k_eff=k_eff, order=od, rstart=rs),
                     f"fused_sparse_shotgun_delta_rounds [{t}]")
             # a NaN iterate in a column with padding slots reaches dz[0]
             b, c = map(int, torch.nonzero(od.zmask)[0])
@@ -1237,7 +1321,7 @@ def sharded_leg(args, dd, sd, dense_json, sparse_json):
             nargs = (A.rows, A.vals, z0, xn, one, prob.lam, prob.beta,
                      prob.y)
             _, dz, h = ss.fused_sparse_shotgun_delta_rounds(
-                *nargs, loss=loss, order=od)
+                *nargs, loss=loss, order=od, rstart=rs)
             hp = ss.fused_sparse_shotgun_delta_rounds_plain(*nargs,
                                                             loss=loss)[2]
             require(float(h) == float(hp) == 1.0
@@ -1266,17 +1350,18 @@ def sharded_leg(args, dd, sd, dense_json, sparse_json):
     def sparse_times(prob, K, loss, iters):
         A = prob.A
         n, d_pad, tile = A.n, A.d_pad, A.tile
-        od = A.scatter_order()
+        od, rs = A.scatter_order(), A.range_starts()
         idx = draws(R, K, A.nblk, g, dup=False)
         x0, z0 = torch.zeros(d_pad, device=dev), torch.zeros(n, device=dev)
         fargs = (A.rows, A.vals, z0, x0, idx, prob.lam, prob.beta, prob.y)
         newton = 1 if ss.resolve_loss(loss).newton else 0
         slots = K * tile * B
         fn = lambda: ss.fused_sparse_shotgun_delta_rounds(  # noqa: E731
-            *fargs, loss=loss, order=od)
+            *fargs, loss=loss, order=od, rstart=rs)
         return dict(
             ms=time_ms(fn, iters),
             device_ms=device_ms(fn, ("fused_sparse_kernel",), iters),
+            queued_ms=queued_ms(fn, iters),
             plain_ms=time_ms(lambda: ss.fused_sparse_shotgun_delta_rounds_plain(
                 *fargs, loss=loss), max(2, iters // 4), warmup=1),
             bound=bound(R * slots * (4 + A.vals.element_size())
@@ -1439,6 +1524,7 @@ def sharded_leg(args, dd, sd, dense_json, sparse_json):
     extra = {"sharded": {
         "kernel_times": {
             k: dict(ms=v["ms"], device_ms=v["device_ms"],
+                    queued_ms=v.get("queued_ms"),
                     plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
                     bound_by=v["bound"][1])
             for k, v in {**{f"#7 {a}": b for a, b in t7.items()},
@@ -1559,7 +1645,7 @@ def serve_leg(args, dd, sd):
         return dict(
             ms=time_ms(fn, iters), device_ms=device_ms(fn, kern, iters),
             unbatched_ms=time_ms(one, iters),
-            unbatched_device_ms=device_ms(one, kern, iters),
+            unbatched_device_ms=device_ms(one, kern, iters, per_call=S),
             plain_ms=time_ms(lambda: kb.batched_fused_shotgun_rounds_plain(
                 *fargs, loss=loss, shared_design=shared), 2, warmup=1),
             bound=bound(blocks * n * B * A.element_size()
@@ -1626,8 +1712,8 @@ def serve_leg(args, dd, sd):
     del yz, mz
 
     # ---- #10 against its plain version and #2, slot by slot ---------------
-    def sparse_case(tag, rows, vals, order, y, lam, beta, K, k_eff, guard,
-                    loss, shared, d, frozen=()):
+    def sparse_case(tag, rows, vals, order, rstart, y, lam, beta, K, k_eff,
+                    guard, loss, shared, d, frozen=()):
         S = y.shape[0]
         d_pad = rows.shape[-3] * B
         x0 = torch.randn(S, d_pad, generator=g, device=dev) * 0.01
@@ -1638,7 +1724,8 @@ def serve_leg(args, dd, sd):
         idx = slot_draws(S, K, rows.shape[-3])
         fargs = (rows, vals, z0, x0, idx, lam, beta, y, k_eff, guard)
         got = kb.batched_fused_sparse_shotgun_rounds(
-            *fargs, loss=loss, shared_design=shared, order=order)
+            *fargs, loss=loss, shared_design=shared, order=order,
+            rstart=rstart)
         want = kb.batched_fused_sparse_shotgun_rounds_plain(
             *fargs, loss=loss, shared_design=shared)
         _check_batched(sname, tag, got, want, x0, z0, frozen)
@@ -1646,9 +1733,11 @@ def serve_leg(args, dd, sd):
             rows if shared else rows[s], vals if shared else vals[s], z0[s],
             x0[s], idx[s], lam[s], beta[s], y[s], loss=loss, k_eff=k_eff[s],
             guard_f=guard[s], order=order if shared else ScatterOrder(
-                *(t[s] for t in order))))
+                *(t[s] for t in order)),
+            rstart=rstart if shared else rstart[s]))
 
-    def sparse_times(rows, vals, order, y, lam, beta, K, loss, shared, iters):
+    def sparse_times(rows, vals, order, rstart, y, lam, beta, K, loss, shared,
+                     iters):
         S, n = y.shape
         nblk, tile = rows.shape[-3], rows.shape[-2]
         d_pad = nblk * B
@@ -1658,26 +1747,28 @@ def serve_leg(args, dd, sd):
         z0 = torch.zeros(S, n, device=dev)
         fargs = (rows, vals, z0, x0, idx, lam, beta, y, k_eff, guard)
         fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
-            *fargs, loss=loss, shared_design=shared, order=order)
+            *fargs, loss=loss, shared_design=shared, order=order,
+            rstart=rstart)
         orders = [order if shared else ScatterOrder(*(t[s] for t in order))
                   for s in range(S)]
         one = lambda: [ss.fused_sparse_shotgun_rounds(  # noqa: E731
             rows if shared else rows[s], vals if shared else vals[s], z0[s],
             x0[s], idx[s], lam[s], beta[s], y[s], loss=loss,
-            order=orders[s]) for s in range(S)]
+            order=orders[s], rstart=rstart if shared else rstart[s])
+            for s in range(S)]
         newton = 1 if ss.resolve_loss(loss).newton else 0
         blocks = distinct_blocks(idx, k_eff, shared)
         slots = K * tile * B
         kern = ("fused_sparse_kernel",)
         ms, dms = time_ms(fn, iters), device_ms(fn, kern, iters)
         return dict(
-            ms=ms, device_ms=dms,
+            ms=ms, device_ms=dms, queued_ms=queued_ms(fn, iters),
             phases=sparse_phases(
                 lambda st: kb.batched_fused_sparse_shotgun_rounds(
                     *fargs, loss=loss, shared_design=shared, order=order,
-                    stamps=st), dms or ms, R, dev),
+                    rstart=rstart, stamps=st), dms, R, dev),
             unbatched_ms=time_ms(one, iters),
-            unbatched_device_ms=device_ms(one, kern, iters),
+            unbatched_device_ms=device_ms(one, kern, iters, per_call=S),
             plain_ms=time_ms(lambda: kb.batched_fused_sparse_shotgun_rounds_plain(
                 *fargs, loss=loss, shared_design=shared), 2, warmup=1),
             bound=bound(blocks * tile * B * (4 + vals.element_size())
@@ -1708,28 +1799,27 @@ def serve_leg(args, dd, sd):
     k_eff[2], k_eff[3] = K1 // 2, 0
     sparse_case(f"S1 lasso f32 stacked S={S} K={K1} k_eff="
                 f"{k_eff.int().tolist()} tile={meta.tile}", st.rows, st.vals,
-                st.order, st.y, ladder(s1.lam, S), full(S, 1.0), K1, k_eff,
-                full(S, inf), "lasso", False, S1_D, frozen=(3,))
-    times["S1 stacked"] = sparse_times(st.rows, st.vals, st.order, st.y,
-                                       ladder(s1.lam, S), full(S, 1.0), K1,
-                                       "lasso", False, 20)
+                st.order, st.rstart, st.y, ladder(s1.lam, S), full(S, 1.0),
+                K1, k_eff, full(S, inf), "lasso", False, S1_D, frozen=(3,))
+    times["S1 stacked"] = sparse_times(st.rows, st.vals, st.order, st.rstart,
+                                       st.y, ladder(s1.lam, S), full(S, 1.0),
+                                       K1, "lasso", False, 20)
     del st
     s2 = sd["s2"]
     S = SV_S2
     y2 = s2.y.expand(S, -1).contiguous()
-    od2 = s2.A.scatter_order()
+    od2, rs2 = s2.A.scatter_order(), s2.A.range_starts()
     sparse_case(f"S2 logistic_newton f32 shared S={S} K={K2}", s2.A.rows,
-                s2.A.vals, od2, y2, ladder(s2.lam, S), full(S, 0.25), K2,
+                s2.A.vals, od2, rs2, y2, ladder(s2.lam, S), full(S, 0.25), K2,
                 full(S, K2), full(S, inf), "logistic_newton", True, S2_D)
-    times["S2 shared"] = sparse_times(s2.A.rows, s2.A.vals, od2, y2,
+    times["S2 shared"] = sparse_times(s2.A.rows, s2.A.vals, od2, rs2, y2,
                                       ladder(s2.lam, S), full(S, 0.25), K2,
                                       "logistic_newton", True, 20)
     for tag, t in times.items():
         name = sname if tag.startswith("S") else dname
         print_times(((tag + f" R={R}", {name: t}),))
         if "phases" in t:
-            print(f"phases {name} [{tag}]: " + "; ".join(
-                f"{k} {v:.4f}" for k, v in t["phases"].items()))
+            print_sparse_phases(f"{name} [{tag}]", t["phases"])
         ub, ubd = t["unbatched_ms"], t["unbatched_device_ms"]
         print(f"time {name} [{tag}]: the same slots as unbatched launches "
               f"{ub:.4f} ms" + ("" if ubd is None else f", device {ubd:.4f} ms")

@@ -61,9 +61,11 @@ def slot_arrays_from_numpy(meta_tuple, stacked_numpy, *, device="cuda"):
     normalized, stacked ``SlotArrays`` (as numpy, fields in order; unused
     fields None) and its ``BatchMeta`` (as a tuple), so both packages'
     ``launch_rounds`` can run on the identical stacked state.  BlockedCSC
-    stacks get their scatter order built on the device."""
+    stacks get their scatter order and range-start tables built on the
+    device."""
     from repro_torch.core.batched import BatchMeta, SlotArrays
-    from repro_torch.kernels.batched import stacked_scatter_order
+    from repro_torch.kernels.batched import (stacked_range_starts,
+                                             stacked_scatter_order)
     dev = resolve_device(device)
     meta = BatchMeta(*meta_tuple)
 
@@ -73,8 +75,10 @@ def slot_arrays_from_numpy(meta_tuple, stacked_numpy, *, device="cuda"):
 
     A, rows, vals, y, mask, lam, beta = stacked_numpy
     rows, vals = tensor(rows, np.int32), tensor(vals, np.float32)
+    order = None if rows is None else stacked_scatter_order(rows, vals)
     return meta, SlotArrays(
         A=tensor(A, np.float32), rows=rows, vals=vals,
         y=tensor(y, np.float32), mask=tensor(mask, np.float32),
         lam=tensor(lam, np.float32), beta=tensor(beta, np.float32),
-        order=None if rows is None else stacked_scatter_order(rows, vals))
+        order=order, rstart=None if rows is None else stacked_range_starts(
+            rows, order, meta.n_pad))

@@ -10,7 +10,8 @@ on a leading *slot* axis and drives the batched fused kernels
     request is zero-padded to ONE canonical stacked shape (dense: sample and
     block padding as ``ops.pad_problem``; BlockedCSC: block padding with
     ``data.sparse.pad_feature_blocks`` and tile-axis padding with (row 0,
-    value 0) slots, the slot's ``ScatterOrder`` built on the padded tiles),
+    value 0) slots, the slot's ``ScatterOrder`` and range-start table built
+    on the padded tiles),
     so a whole request stream runs one compiled kernel, chosen by (A's
     dtype, loss, batched) and never re-selected on refill or backoff.
     Padded rows and columns are fixed points of the update, so a slot's
@@ -45,7 +46,8 @@ from repro_torch.core.objectives import Problem
 from repro_torch.core.shotgun import Result, Trace
 from repro_torch.core.spec import SolverSpec
 from repro_torch.data.sparse import (BlockedCSC, ScatterOrder, bcsc_matvec,
-                                     pad_feature_blocks, scatter_order)
+                                     pad_feature_blocks, range_starts,
+                                     scatter_order)
 from repro_torch.device import exact_f32_matmul
 from repro_torch.kernels.batched import (batched_fused_shotgun_rounds,
                                          batched_fused_sparse_shotgun_rounds)
@@ -92,8 +94,9 @@ def batch_meta_of(prob: Problem, block: int = BLOCK,
 class SlotArrays(NamedTuple):
     """One admitted problem, normalized to a ``BatchMeta`` canvas (or S of
     them stacked on a leading axis).  Dense slots carry ``A``/``mask``;
-    bcsc slots carry ``rows``/``vals`` and their ``order``.  The unused
-    fields are None — a stream is single-layout by construction."""
+    bcsc slots carry ``rows``/``vals``, their ``order`` and their
+    range-start table ``rstart`` (over the canvas's n_pad rows).  The
+    unused fields are None — a stream is single-layout by construction."""
     A: torch.Tensor | None          # (n_pad, d_pad) f32
     rows: torch.Tensor | None       # (nblk, tile, block) int32
     vals: torch.Tensor | None       # (nblk, tile, block) f32
@@ -102,6 +105,7 @@ class SlotArrays(NamedTuple):
     lam: torch.Tensor               # () f32
     beta: torch.Tensor              # () f32
     order: ScatterOrder | None = None   # bcsc: of the padded tiles
+    rstart: torch.Tensor | None = None  # bcsc: (nblk, n_pad / 128 + 1) int32
 
 
 def _scalar(v, device) -> torch.Tensor:
@@ -141,9 +145,10 @@ def normalize_problem(prob: Problem, meta: BatchMeta) -> SlotArrays:
         pad = (0, 0, 0, meta.tile - S.tile)        # pad the nnz-tile axis:
         rows = F.pad(S.rows, pad)                  # (row 0, val 0) slots are
         vals = F.pad(S.vals, pad).to(torch.float32)   # additive identities
+        order = scatter_order(rows, vals)
         return SlotArrays(A=None, rows=rows, vals=vals, y=y, mask=None,
-                          lam=lam, beta=beta,
-                          order=scatter_order(rows, vals))
+                          lam=lam, beta=beta, order=order,
+                          rstart=range_starts(rows, order, meta.n_pad))
     n, d = prob.A.shape
     if d > meta.d_pad:
         raise ValueError(f"d={d} > stream d_pad={meta.d_pad}")
@@ -180,12 +185,13 @@ def stack_problems(probs: Sequence[Problem], meta: BatchMeta | None = None
     slots = [normalize_problem(p, meta) for p in probs]
 
     def stack(*xs):
-        return None if xs[0] is None else torch.stack(xs)
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], ScatterOrder):
+            return ScatterOrder(*(torch.stack(f) for f in zip(*xs)))
+        return torch.stack(xs)
 
-    fields = [stack(*xs) for xs in zip(*(s[:-1] for s in slots))]
-    order = (None if slots[0].order is None else ScatterOrder(
-        *(torch.stack(xs) for xs in zip(*(s.order for s in slots)))))
-    return meta, SlotArrays(*fields, order=order)
+    return meta, SlotArrays(*(stack(*xs) for xs in zip(*slots)))
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +216,7 @@ def launch_rounds(meta: BatchMeta, stacked: SlotArrays, z, x, idx, k_eff,
         return batched_fused_sparse_shotgun_rounds(
             stacked.rows, stacked.vals, z, x, idx, stacked.lam,
             stacked.beta, stacked.y, k_eff, guard, loss=meta.loss,
-            order=stacked.order)
+            order=stacked.order, rstart=stacked.rstart)
     return batched_fused_shotgun_rounds(
         stacked.A, z, x, idx, stacked.lam, stacked.beta, stacked.y,
         stacked.mask, k_eff, guard, loss=meta.loss)

@@ -185,7 +185,8 @@ class SparseFusedEngine(NamedTuple):
     def run(self, A_blk, y, mask, lam, beta, z, x_l, idx, p_eff):
         return ss.fused_sparse_shotgun_delta_rounds(
             A_blk.rows, A_blk.vals, z, x_l, idx, lam, beta, y,
-            loss=self.loss, k_eff=p_eff, order=A_blk.scatter_order())
+            loss=self.loss, k_eff=p_eff, order=A_blk.scatter_order(),
+            rstart=A_blk.range_starts())
 
 
 def make_engine(name: str, *, loss, P_local: int = 8, K: int = 2,

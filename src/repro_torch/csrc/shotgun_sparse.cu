@@ -5,24 +5,26 @@
 // drawn block costs tile·128·(4 + value bytes) bytes, a few KB, so at the
 // sizes users run (n ≈ 2·10⁴, K ≤ 32) every call moves under 1 MB of
 // tiles and is bound by launch and memory latency, not by HBM bandwidth.
-// The margin-sized vectors (z, r, the fused kernels' (K, n) scatter
-// buffer) fit in L2.
+// The margin-sized vectors (z, r) fit in L2.
 //
-// Determinism without float atomics: the fused kernels' gather gives each
-// (k, column) one owner that sums the tile axis in order (the two-kernel
-// gather: fixed slices, added in slice order); the scatter sums each run of
-// equal rows of a block in the block's row-sorted slot order (built once
-// per problem, data/sparse.py::scatter_order) into its own row of a (K, n)
-// buffer, and one pass over n then adds the K rows in k order (the
-// two-kernel scatter: the same sums in the same order, with each row
-// range's runs staged in shared memory instead of the buffer).  Padding
-// slots (row 0, value 0) are left out of the runs; their 0·δ_c (NaN for a
-// non-finite δ_c, as in the reference) reaches row 0 through a per-block
-// term over the columns that have one.
+// Determinism without float atomics: the gathers give each (k, column) one
+// owner that sums the tile axis in a fixed order; the scatters give each
+// row one owner.  A CTA owns a range of rows and, for each drawn block k in
+// order, reads the block's slots of that range from its row-sorted slot
+// order (built once per problem, data/sparse.py::scatter_order) through the
+// cached range-start table (data/sparse.py::range_starts); the head of each
+// run of equal rows sums the run in slot order, and the row's owner adds
+// the K run sums to its z in k order.  Padding slots (row 0, value 0) are
+// left out of the runs; their 0·δ_c (NaN for a non-finite δ_c, as in the
+// reference) reaches row 0 last.
 //
 // Every entry returns cudaGetLastError() (0 on success) and launches on the
 // caller's stream without synchronising; the caller allocates every buffer.
 #include <cooperative_groups.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "shotgun_block.cuh"
 
@@ -32,6 +34,7 @@ using namespace sb;
 namespace {
 
 constexpr int XCHUNK = 4096;      // |x| / nnz partial: elements per item
+constexpr int XBLK = XCHUNK / BLOCK;    // column blocks per |x| chunk
 constexpr int HALF = THREADS / BLOCK;   // (k, column) items per CUDA block
 // Two-kernel gather: tile rows in flight per thread and pass.
 constexpr int GATHER_U = 16;
@@ -40,6 +43,12 @@ constexpr int GATHER_U = 16;
 constexpr int RANGE_ROWS = 128;
 constexpr int RANGE_KC = 64;
 constexpr int RANGE_STAGE = 1024;
+// Fused kernels' scatter: rows per item (two ranges of the table, the loss
+// partial's 256-row tile), drawn blocks per chunk and staged slots per
+// window, so that the item's shared memory stays under 48 KB.
+constexpr int FUSED_ROWS = 2 * RANGE_ROWS;
+constexpr int FUSED_KC = 32;
+constexpr int FUSED_STAGE = 512;
 
 // Fixed-order block-wide sum (valid in thread 0).  Every thread calls it.
 __device__ __forceinline__ float block_sum(float v, float* s) {
@@ -100,118 +109,6 @@ __device__ __forceinline__ void gather_col(const int* __restrict__ rows,
   }
   g = acc;
   h = hacc;
-}
-
-// Run sums of item (k, q): sorted slots j in [q·256, (q+1)·256) of block
-// b = idx[k].  The thread at the head of a run of equal rows sums the run
-// in slot order (the sort is stable) and writes buf[k][row]; rows the block
-// does not touch keep buf's zero.  Item q == 0 also writes the block's
-// padding term (warp 0, a fixed shuffle tree over the 128 columns).
-template <typename TV>
-__device__ __forceinline__ void scatter_runs(
-    const int* __restrict__ rows, const TV* __restrict__ vals,
-    const int* __restrict__ order, const int* __restrict__ count,
-    const unsigned char* __restrict__ zmask, const int* idx,
-    const float* delta, int k, int q, int tile, long long n, float* buf,
-    float* padterm) {
-  const long long b = idx[k];
-  const long long bo = b * tile * BLOCK;
-  const int m = count[b];
-  const int j = q * THREADS + threadIdx.x;
-  const float* dk = delta + (long long)k * BLOCK;
-  if (j < m) {
-    const int s = order[bo + j];
-    const int row = rows[bo + s];
-    if (j == 0 || rows[bo + order[bo + j - 1]] != row) {
-      float acc = to_f32(vals[bo + s]) * ldcg(dk + (s & (BLOCK - 1)));
-      for (int jj = j + 1; jj < m; ++jj) {
-        const int s2 = order[bo + jj];
-        if (rows[bo + s2] != row) break;
-        acc = fmaf(to_f32(vals[bo + s2]), ldcg(dk + (s2 & (BLOCK - 1))), acc);
-      }
-      buf[(long long)k * n + row] = acc;
-    }
-  }
-  if (q == 0 && threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float t = 0.f;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int c = lane * 4 + u;
-      if (zmask[b * BLOCK + c]) t += 0.f * ldcg(dk + c);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
-    if (lane == 0) padterm[k] = t;
-  }
-}
-
-// acc + Σ_k buf[k][i] in k order (+ the padding terms on row 0), zeroing
-// buf as it is read.
-__device__ __forceinline__ float combine_sum(float acc, long long i,
-                                             long long n, int K, float* buf,
-                                             const float* padterm) {
-  int k = 0;
-  for (; k + UNROLL <= K; k += UNROLL) {
-    float v[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) v[u] = ldcg(buf + (long long)(k + u) * n + i);
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      buf[(long long)(k + u) * n + i] = 0.f;
-      acc += v[u];
-    }
-  }
-  for (; k < K; ++k) {
-    acc += ldcg(buf + (long long)k * n + i);
-    buf[(long long)k * n + i] = 0.f;
-  }
-  if (i == 0)
-    for (int kk = 0; kk < K; ++kk) acc += ldcg(padterm + kk);
-  return acc;
-}
-
-// Combine tile q (rows q·256 ..): z_out[i] = z_in[i] + Σ_k buf[k][i].  FUSED
-// also refreshes r (and w) from the new margin and returns this thread's
-// per-sample loss (0 past n).
-template <int LOSS, bool NEWTON, bool FUSED>
-__device__ __forceinline__ float combine_row(long long i, long long n, int K,
-                                             const float* z_in, float* z_out,
-                                             float* buf,
-                                             const float* padterm,
-                                             const float* __restrict__ y,
-                                             float* r, float* w) {
-  if (i >= n) return 0.f;
-  const float acc = combine_sum(ldcg(z_in + i), i, n, K, buf, padterm);
-  z_out[i] = acc;
-  if constexpr (FUSED) {
-    float rr, ww, ll;
-    loss_tile<LOSS>(acc, y[i], 1.f, rr, ww, ll);   // no sample mask here
-    r[i] = rr;
-    if constexpr (NEWTON) w[i] = ww;
-    return ll;
-  }
-  return 0.f;
-}
-
-// The delta kernel's combine: c = Σ_k buf[k][i] (+ the padding terms on
-// row 0) is added to the live view and to dz; a non-finite view row raises
-// health (every row is visited every round); r (and w) from the new view.
-template <int LOSS, bool NEWTON>
-__device__ __forceinline__ void combine_delta_row(
-    long long i, long long n, int K, float* view, float* dz, float* buf,
-    const float* padterm, const float* __restrict__ y, float* r, float* w,
-    float* health) {
-  if (i >= n) return;
-  const float c = combine_sum(0.f, i, n, K, buf, padterm);
-  const float zn = ldcg(view + i) + c;
-  view[i] = zn;
-  dz[i] = ldcg(dz + i) + c;
-  if (!isfinite(zn)) health[0] = 1.f;   // max-accumulated, no atomics
-  float rr, ww, ll;
-  loss_tile<LOSS>(zn, y[i], 1.f, rr, ww, ll);
-  r[i] = rr;
-  if constexpr (NEWTON) w[i] = ww;
 }
 
 }  // namespace
@@ -276,18 +173,11 @@ sparse_gather_split_kernel(const int* __restrict__ rows,
 // Bound: the K drawn tiles plus z read and written once; at n ≈ 2·10⁴
 // under 1 MB, so latency bounds it.  Design: ONE launch, no (K, n) buffer.
 // CTA q owns rows [q·RANGE_ROWS, (q+1)·RANGE_ROWS) and reads z over them
-// once.  For a chunk of up to RANGE_KC drawn blocks it reads each block's
-// segment bounds from the cached range-start table (data/sparse.py::
-// range_starts), lays the segments end to end (a block-wide prefix sum),
-// and every thread loads its slots at once: order → (row, val, δ), staged
-// in shared memory (windows of RANGE_STAGE slots).  The head of each run
-// of equal rows of a block sums the run in slot order (fmaf, the first
-// term a product) into part[k][row]; each row's owner then adds the
-// chunk's part[k][row] to its z in k order.  So z_out[i] = ((z[i] + s_0(i))
-// + s_1(i)) + … + s_{K−1}(i) with s_k the run sum (0 where block k has no
-// slot at row i), the order of the fused kernels' buffer and combine.  A
-// padding slot's 0·δ_c is +0 or NaN, so the K padding terms of row 0 add
-// up to one +0 or NaN, added last.  No atomics; repeats are bit-identical.
+// once; range_sums (below, shared with the fused kernels) adds the K run
+// sums.  So z_out[i] = ((z[i] + s_0(i)) + s_1(i)) + … + s_{K−1}(i) with s_k
+// the run sum (0 where block k has no slot at row i).  A padding slot's
+// 0·δ_c is +0 or NaN, so the K padding terms of row 0 add up to one +0 or
+// NaN, added last.  No atomics; repeats are bit-identical.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -317,6 +207,133 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* wsum,
   return before + x - v;
 }
 
+// δ as the two-kernel scatter reads it (written by an earlier launch: a
+// plain load) or as the fused kernels do (written in the same launch: L2
+// only, after the barrier).
+template <bool CG>
+__device__ __forceinline__ float load_delta(const float* p) {
+  if constexpr (CG) return ldcg(p);
+  else return *p;
+}
+
+// The shared arrays of one row-range item: part (KC·ROWS), sv/sd/skey
+// (STAGE), sblk/slo (KC), soff (KC + 1), wsum (WARPS), carry.
+struct RangeBufs {
+  float* part;
+  float* sv;
+  float* sd;
+  int* skey;
+  int* sblk;
+  int* slo;
+  int* soff;
+  int* wsum;
+  int* carry;     // key of the previous window's last slot
+};
+
+// acc + s_0(i) + … + s_{K−1}(i) in k order for the owner of row i, where
+// the CTA owns rows [row0, row0 + ROWS) (thread t, row row0 + t) and s_k is
+// block idx[k]'s run sum at row i (row 0's padding terms are the caller's,
+// add_padding).  For
+// a chunk of up to KC drawn blocks it reads each block's segment, columns
+// c0 .. c0 + dc of its row of the range-start table (nq1 columns), lays the
+// segments end to end (a block-wide prefix sum), and every thread loads its
+// slots at once: order → (row, val, δ), staged in shared memory (windows of
+// STAGE slots).  The head of each run of equal rows of a block sums the run
+// in slot order (fmaf, the first term a product) into part[k][row]; each
+// row's owner then adds the chunk's part[k][row] to acc in k order.
+// `first`: the CTA owns row 0 and sets `bad` (block-wide) when a δ_k,c of
+// a column with a padding slot is non-finite: row 0's K padding terms then
+// add up to NaN, else to +0.  Every thread of the CTA calls it.
+template <typename TV, int ROWS, int KC, int STAGE, bool CG>
+__device__ __forceinline__ float range_sums(
+    const int* __restrict__ rows, const TV* __restrict__ vals,
+    const int* __restrict__ order, const int* __restrict__ rstart,
+    const unsigned char* __restrict__ zmask, const int* __restrict__ idx,
+    const float* __restrict__ delta, long long nq1, long long tslots, int K,
+    int c0, int dc, int row0, bool first, bool owner, float acc,
+    const RangeBufs& m, bool& bad_out) {
+  bool bad = false;                      // first: a padding term is NaN
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    const int nk = min(KC, K - k0);
+    int len = 0;
+    if (threadIdx.x < nk) {
+      const int b = idx[k0 + threadIdx.x];
+      const int* rs = rstart + b * nq1 + c0;
+      const int lo = rs[0];
+      len = rs[dc] - lo;
+      m.sblk[threadIdx.x] = b;
+      m.slo[threadIdx.x] = lo;
+    }
+    int total;
+    const int off = block_exclusive_scan(len, m.wsum, total);
+    if (threadIdx.x < nk) m.soff[threadIdx.x] = off;
+    if (threadIdx.x == 0) m.soff[nk] = total;
+    for (int j = threadIdx.x; j < nk * ROWS; j += THREADS) m.part[j] = 0.f;
+    if (first) {   // warp w checks columns 4·lane.. of blocks w, w + 8, ..
+      const int lane = threadIdx.x & 31;
+#pragma unroll 4
+      for (int kk = threadIdx.x >> 5; kk < nk; kk += WARPS) {
+        const unsigned char* zm = zmask + (long long)m.sblk[kk] * BLOCK + 4 * lane;
+        const float* dk = delta + (long long)(k0 + kk) * BLOCK + 4 * lane;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          bad |= (zm[u] != 0) & !isfinite(load_delta<CG>(dk + u));
+      }
+    }
+    __syncthreads();
+    for (int w0 = 0; w0 < total; w0 += STAGE) {
+      const int wn = min(STAGE, total - w0);
+      // stage: slot f of the chunk's segments laid end to end
+#pragma unroll
+      for (int u = 0; u < STAGE / THREADS; ++u) {
+        const int e = u * THREADS + threadIdx.x;
+        if (e < wn) {
+          const int f = w0 + e;
+          int lo = 0, hi = nk;           // soff[lo] <= f < soff[hi]
+          while (hi - lo > 1) {
+            const int mid = (lo + hi) >> 1;
+            if (m.soff[mid] <= f) lo = mid; else hi = mid;
+          }
+          const long long bo = m.sblk[lo] * tslots;
+          const int s = order[bo + m.slo[lo] + (f - m.soff[lo])];
+          const int row = rows[bo + s];
+          m.skey[e] = lo * ROWS + (row - row0);
+          m.sv[e] = to_f32(vals[bo + s]);
+          m.sd[e] = load_delta<CG>(delta + (long long)(k0 + lo) * BLOCK
+                                   + (s & (BLOCK - 1)));
+        }
+      }
+      __syncthreads();
+      // run sums: the head of each run of one key walks it in slot order;
+      // a run cut by the window edge goes on from its partial sum
+      for (int e = threadIdx.x; e < wn; e += THREADS) {
+        const int key = m.skey[e];
+        if (e > 0 && m.skey[e - 1] == key) continue;
+        float a = (e == 0 && w0 > 0 && *m.carry == key)
+                      ? fmaf(m.sv[0], m.sd[0], m.part[key])
+                      : __fmul_rn(m.sv[e], m.sd[e]);
+        for (int e2 = e + 1; e2 < wn && m.skey[e2] == key; ++e2)
+          a = fmaf(m.sv[e2], m.sd[e2], a);
+        m.part[key] = a;
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) *m.carry = m.skey[wn - 1];
+      __syncthreads();
+    }
+    if (owner)
+      for (int kk = 0; kk < nk; ++kk)
+        acc = __fadd_rn(acc, m.part[kk * ROWS + threadIdx.x]);
+    __syncthreads();
+  }
+  bad_out = __syncthreads_or(bad);
+  return acc;
+}
+
+// Row 0's padding terms, added last: one +0, or NaN when `bad`.
+__device__ __forceinline__ float add_padding(float acc, bool bad) {
+  return __fadd_rn(acc, bad ? __int_as_float(0x7fffffff) : 0.f);
+}
+
 }  // namespace
 
 template <typename TV>
@@ -331,90 +348,22 @@ scatter_rows_kernel(const int* __restrict__ rows, const TV* __restrict__ vals,
                     float* __restrict__ z_out, long long n, int tile, int K) {
   __shared__ float part[RANGE_KC * RANGE_ROWS];
   __shared__ float sv[RANGE_STAGE], sd[RANGE_STAGE];
-  __shared__ int skey[RANGE_STAGE];      // chunk k · RANGE_ROWS + local row
+  __shared__ int skey[RANGE_STAGE];
   __shared__ int sblk[RANGE_KC], slo[RANGE_KC], soff[RANGE_KC + 1];
   __shared__ int wsum[WARPS];
-  __shared__ int carry;                  // key of the previous window's last
+  __shared__ int carry;
   const int q = blockIdx.x;
   const long long nq1 = (n + RANGE_ROWS - 1) / RANGE_ROWS + 1;
   const long long i = (long long)q * RANGE_ROWS + threadIdx.x;
   const bool owner = threadIdx.x < RANGE_ROWS && i < n;
-  const long long tslots = (long long)tile * BLOCK;
-  float acc = owner ? z_in[i] : 0.f;
-  bool bad = false;                      // CTA 0: a padding term is NaN
-  for (int k0 = 0; k0 < K; k0 += RANGE_KC) {
-    const int nk = min(RANGE_KC, K - k0);
-    int len = 0;
-    if (threadIdx.x < nk) {
-      const int b = idx[k0 + threadIdx.x];
-      const int* rs = rstart + b * nq1 + q;
-      const int lo = rs[0];
-      len = rs[1] - lo;
-      sblk[threadIdx.x] = b;
-      slo[threadIdx.x] = lo;
-    }
-    int total;
-    const int off = block_exclusive_scan(len, wsum, total);
-    if (threadIdx.x < nk) soff[threadIdx.x] = off;
-    if (threadIdx.x == 0) soff[nk] = total;
-    for (int j = threadIdx.x; j < nk * RANGE_ROWS; j += THREADS) part[j] = 0.f;
-    if (q == 0) {   // warp w checks columns 4·lane.. of blocks w, w + 8, ..
-      const int lane = threadIdx.x & 31;
-#pragma unroll 4
-      for (int kk = threadIdx.x >> 5; kk < nk; kk += WARPS) {
-        const unsigned char* zm = zmask + (long long)sblk[kk] * BLOCK + 4 * lane;
-        const float* dk = delta + (long long)(k0 + kk) * BLOCK + 4 * lane;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) bad |= (zm[u] != 0) & !isfinite(dk[u]);
-      }
-    }
-    __syncthreads();
-    for (int w0 = 0; w0 < total; w0 += RANGE_STAGE) {
-      const int wn = min(RANGE_STAGE, total - w0);
-      // stage: slot f of the chunk's segments laid end to end
-#pragma unroll
-      for (int u = 0; u < RANGE_STAGE / THREADS; ++u) {
-        const int e = u * THREADS + threadIdx.x;
-        if (e < wn) {
-          const int f = w0 + e;
-          int lo = 0, hi = nk;           // soff[lo] <= f < soff[hi]
-          while (hi - lo > 1) {
-            const int mid = (lo + hi) >> 1;
-            if (soff[mid] <= f) lo = mid; else hi = mid;
-          }
-          const long long bo = sblk[lo] * tslots;
-          const int s = order[bo + slo[lo] + (f - soff[lo])];
-          const int row = rows[bo + s];
-          skey[e] = lo * RANGE_ROWS + (row - q * RANGE_ROWS);
-          sv[e] = to_f32(vals[bo + s]);
-          sd[e] = delta[(long long)(k0 + lo) * BLOCK + (s & (BLOCK - 1))];
-        }
-      }
-      __syncthreads();
-      // run sums: the head of each run of one key walks it in slot order;
-      // a run cut by the window edge goes on from its partial sum
-      for (int e = threadIdx.x; e < wn; e += THREADS) {
-        const int key = skey[e];
-        if (e > 0 && skey[e - 1] == key) continue;
-        float a = (e == 0 && w0 > 0 && carry == key)
-                      ? fmaf(sv[0], sd[0], part[key])
-                      : __fmul_rn(sv[e], sd[e]);
-        for (int e2 = e + 1; e2 < wn && skey[e2] == key; ++e2)
-          a = fmaf(sv[e2], sd[e2], a);
-        part[key] = a;
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) carry = skey[wn - 1];
-      __syncthreads();
-    }
-    if (owner)
-      for (int kk = 0; kk < nk; ++kk)
-        acc = __fadd_rn(acc, part[kk * RANGE_ROWS + threadIdx.x]);
-    __syncthreads();
-  }
-  bad = __syncthreads_or(bad);
+  bool bad;
+  float acc = range_sums<TV, RANGE_ROWS, RANGE_KC, RANGE_STAGE, false>(
+      rows, vals, order, rstart, zmask, idx, delta, nq1,
+      (long long)tile * BLOCK, K, q, 1, q * RANGE_ROWS, q == 0, owner,
+      owner ? z_in[i] : 0.f,
+      RangeBufs{part, sv, sd, skey, sblk, slo, soff, wsum, &carry}, bad);
   if (owner) {
-    if (i == 0 && K > 0) acc = __fadd_rn(acc, bad ? __int_as_float(0x7fffffff) : 0.f);
+    if (i == 0 && K > 0) acc = add_padding(acc, bad);
     z_out[i] = acc;
   }
 }
@@ -423,80 +372,95 @@ scatter_rows_kernel(const int* __restrict__ rows, const TV* __restrict__ vals,
 // fused_sparse_shotgun_rounds — replaces repro/kernels/shotgun_sparse.py::
 // fused_sparse_shotgun_rounds (Pallas body _make_fused_sparse_kernel, call
 // _fused_sparse_call).  Bound per launch: R·K·tile·128·(4 + value bytes)
-// (the drawn tiles once per round) + 4·(3n + 2·d_pad) + 8R.  Design: ONE
-// persistent cooperative launch for all R rounds; phases separated by
-// grid.sync(), three per round:
-//   A  g (and h) per (k, column) from the round-start r (and w), δ from
-//      the pre-round x, masked for k >= k_eff;  beside it, the |x| / nnz
-//      partials of the previous round's x (fixed 4096-element chunks)
-//   B  run sums into the (K, n) buffer and the padding terms;  beside it,
-//      block 0 finishes the previous round: F, nnz and health from the
-//      fixed-order partials
-//   C  one pass over n: z += Σ_k buf[k] in k order (zeroing buf), r (and
-//      w) refreshed, loss partial per 256-row tile;  beside it,
-//      x[blk_k] += δ_k in k order (one owner per distinct drawn block)
-// After the last round one more A/B pair finishes it.  Every reduction has
-// a fixed owner and order, independent of the grid size, so repeat runs
-// are bit-identical.
+// (the drawn tiles once per round) + 4·(3n + 2·d_pad) + 8R.  What bounds it
+// is latency: each round's phases are a few dependent global round trips
+// (idx → tiles → r; range table → order → tiles → δ) and a grid barrier.
+// Design: ONE persistent cooperative launch for all R rounds, two phases a
+// round separated by grid.sync():
+//   A   g (and h) per (k, column) from the round-start r (and w), δ from
+//       the pre-round x, masked for k >= k_eff;  beside it, the |x| / nnz
+//       partials (fixed 4096-element chunks) of the chunks the previous
+//       round changed, one item per distinct chunk of its drawn blocks
+//       (every other chunk's partial is bit for bit what it was)
+//   BC  item j owns rows [j·256, (j+1)·256) — ranges 2j and 2j + 1 of the
+//       range-start table, the loss partial's tile — and adds the K run
+//       sums to z in k order with no (K, n) buffer (range_sums), refreshes
+//       r (and w) and writes its loss partial (two halves by round parity);
+//       beside it, x[blk_k] += δ_k in k order (one owner per distinct drawn
+//       block), and the last block finishes the previous round: F, nnz and
+//       health from the fixed-order partials (the other half of the loss
+//       partials)
+// The launch start copies z0 and x0 into z and x, computes r (and w) and
+// every chunk's |x| partials, and zeroes health; after the last round one
+// more A (partials only) and the finish.  Every reduction has a fixed owner
+// and order, independent of the grid size, so repeat runs are
+// bit-identical, and each sum is the one the buffer form took (z + s_0 + …
+// + s_{K−1}, then row 0's padding terms).  With a non-null `stamps`, the
+// last block records clock64() at launch start, after every grid.sync() and
+// at the end, after the last finish (2R + 4 stamps): the per-phase
+// breakdown of a launch, barrier included; and %globaltimer (ns) at launch
+// start and at its end in stamps[2R + 4] and stamps[2R + 5], which time the
+// launch, and the cycles, on a clock of their own.
 //
 // EMIT_DZ = true is fused_sparse_shotgun_delta_rounds — replaces repro/
 // kernels/shotgun_sparse.py::fused_sparse_shotgun_delta_rounds (the
 // emit_dz variant of the same Pallas body), the sharded driver's round
-// engine.  z0 is read-only; launch start copies it into the live view (the
-// z buffer) and zeroes dz; phase A drops the |x| / nnz partials, phase B
-// drops block 0's finish, and phase C adds each row's combined value to the
-// view and to dz and raises health on a non-finite view row (the padding
-// term's NaN reaches row 0 there).  No final A/B pair.  Bound per launch:
-// R·K·tile·128·(4 + value bytes) + 4·(3n + 2·d_pad).  With a non-null
-// `stamps`, block 0 records clock64() at launch start, after every
-// grid.sync() and at the end (3R + 4 stamps): the per-phase breakdown of a
-// launch, barrier included.
+// engine.  z0 is read-only; the launch start copies it into the live view
+// (the z buffer) and zeroes dz; phase A has no |x| / nnz partials, BC no
+// finish: each row's K run sums, from 0 in k order, are added to the view
+// and to dz, and a non-finite view row raises health (the padding terms'
+// NaN reaches row 0 there).  No final A, no barrier after the last BC.
+// Bound per launch: R·K·tile·128·(4 + value bytes) + 4·(3n + 2·d_pad).
 //
 // BATCHED = true is batched_fused_sparse_shotgun_rounds — replaces repro/
 // kernels/batched.py::batched_fused_sparse_shotgun_rounds (a jax.vmap of
 // the same Pallas kernel over a leading slot axis, the solver service's
 // step).  S slots, each with its own tiles (or one shared set), scatter
-// order, z, x, y, draws and [lam, beta, k_eff, guard_f] row, share ONE
-// cooperative launch and its three barriers a round: each phase's items
-// become (slot, item) pairs over the same grid (S·(K/2 + d_pad/4096) in A,
-// S·K·⌈tile/2⌉ run sums in B, S·(n/256 + K/2) in C), and slot s's finish
-// runs on block s % gridDim.x.  Every workspace — the (K, n) combine
-// buffer, padterm, δ, the loss and |x| partials — has a slot stride; the
-// tiles and the order advance t_stride elements a slot (0: a shared
-// design).  A slot's reductions follow its own items only, never the grid,
-// so slot s is bit-identical to the unbatched launch on its state.  The
-// latency of the barriers and dependent loads, which bounds one slot's
-// rounds (≈ 19 µs against a 0.65 µs byte bound at S1), is paid once for
-// all slots.  Bound: R·(bytes of the distinct live drawn tiles of all
-// slots) + S times one slot's vectors.
+// order, range-start table, z, x, y, draws and scalars, share ONE
+// cooperative launch and its two barriers a round: each phase's items
+// become (slot, item) pairs over the same grid (S·(K/2 + K) in A,
+// S·(n/256 + K/2) in BC), and slot s's finish runs on block G − 1 − s % G.
+// Every workspace — δ, the loss and |x| partials — has a slot stride; the
+// tiles and the order advance t_stride elements a slot, the table one
+// slot's table (0: a shared design).  A slot's reductions follow its own
+// items only, never the grid, so slot s is bit-identical to the unbatched
+// launch on its state.  Bound: R·(bytes of the distinct live drawn tiles of
+// all slots) + S times one slot's vectors.
 // ---------------------------------------------------------------------------
+// The card's global nanosecond timer, for the launch's stamps.
+__device__ __forceinline__ long long globaltimer_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 struct SparseArgs {
   const int* rows;
   const void* vals;
   const int* order;
-  const int* count;
+  const int* rstart;  // (nblk, ceil(n / 128) + 1) range-start table
   const unsigned char* zmask;
   const float* y;
   const int* idx;     // (R, K)
-  const float* scal;  // [lam, beta, k_eff, guard_f]
-  float* z;           // (n,)  in: z0, out: z after R rounds
-  float* x;           // (d_pad,)  in: x0, out: x after R rounds
+  const float* sp[4]; // lam, beta, k_eff, guard_f: (S,) device vectors, or
+  float sv[4];        //   null for the one value in sv that every slot takes
+  const float* z0;    // (n,)  in: the margin (read-only)
+  float* z;           // (n,)  out: z after R rounds (EMIT_DZ: the live view)
+  const float* x0;    // (d_pad,)  in: the iterate (read-only)
+  float* x;           // (d_pad,)  out: x after R rounds
   float* r;           // (n,)
   float* w;           // (n,) Newton
-  float* buf;         // (K, n) scatter buffer (zeroed at launch start)
-  float* padterm;     // (K,)
   float* delta;       // (K, 128)
-  float* lpart;       // (ceil(n / 256),)
+  float* lpart;       // (2, ceil(n / 256)): loss partials by round parity
   float* xl1;         // (ceil(d_pad / 4096),)
   int* xnz;           // (ceil(d_pad / 4096),)
   float* f;           // (R,)
   int* nnz;           // (R,)
   float* health;      // ()  0 → 1 when a round's F is non-finite or > guard
                       //     (EMIT_DZ: when a row of the view is non-finite)
-  long long* stamps;  // (3R + 4,) phase clock stamps, or null
+  long long* stamps;  // (2R + 6,) phase clock and ns stamps, or null
   long long n, d_pad;
   int R, K, tile;
-  const float* z0;    // (n,)  EMIT_DZ: read-only margin snapshot (z = view)
   float* dz;          // (n,)  EMIT_DZ: out, the launch's own Σ A_B δ
   int S;              // BATCHED: slots; every array above but `stamps`
                       //   gains a leading slot axis
@@ -504,16 +468,21 @@ struct SparseArgs {
                       //   to the next (nblk·tile·128, 0 for a shared design)
 };
 
+// Scalar j (0 lam, 1 beta, 2 k_eff, 3 guard_f) of slot so.
+__device__ __forceinline__ float scal(const SparseArgs& a, int j, long long so) {
+  return a.sp[j] ? a.sp[j][so] : a.sv[j];
+}
+
 // Slot s's view for its |x| partials and round finish (batched launches):
-// x, the |x| / nnz and loss partials, F, nnz, health and the scalars, each
-// moved by its slot stride.
+// x0, x, the |x| / nnz and loss partials, F, nnz and health, each moved by
+// its slot stride.
 __device__ __forceinline__ SparseArgs at_slot(const SparseArgs& a, int s) {
   SparseArgs b = a;
   const long long ls = s;
   const long long n_xc = (a.d_pad + XCHUNK - 1) / XCHUNK;
-  b.scal = a.scal + 4 * ls;
+  b.x0 = a.x0 + ls * a.d_pad;
   b.x = a.x + ls * a.d_pad;
-  b.lpart = a.lpart + ls * ((a.n + THREADS - 1) / THREADS);
+  b.lpart = a.lpart + ls * 2 * ((a.n + THREADS - 1) / THREADS);
   b.xl1 = a.xl1 + ls * n_xc;
   b.xnz = a.xnz + ls * n_xc;
   b.f = a.f + ls * a.R;
@@ -522,16 +491,26 @@ __device__ __forceinline__ SparseArgs at_slot(const SparseArgs& a, int s) {
   return b;
 }
 
+// The |x| / nnz partial of chunk q, from x (or, at launch start, from x0,
+// which it then copies into x).
 __device__ __forceinline__ void x_partial(const SparseArgs& a, int q,
-                                          float* s, int* si) {
+                                          bool from_x0, float* s, int* si) {
   const long long base = (long long)q * XCHUNK;
+  const float* src = from_x0 ? a.x0 : a.x;
   float l1 = 0.f;
   int nz = 0;
   float v[XCHUNK / THREADS];
 #pragma unroll
   for (int u = 0; u < XCHUNK / THREADS; ++u) {
     const long long j = base + (long long)u * THREADS + threadIdx.x;
-    v[u] = j < a.d_pad ? ldcg(a.x + j) : 0.f;
+    v[u] = j < a.d_pad ? ldcg(src + j) : 0.f;
+  }
+  if (from_x0) {
+#pragma unroll
+    for (int u = 0; u < XCHUNK / THREADS; ++u) {
+      const long long j = base + (long long)u * THREADS + threadIdx.x;
+      if (j < a.d_pad) a.x[j] = v[u];
+    }
   }
 #pragma unroll
   for (int u = 0; u < XCHUNK / THREADS; ++u) {
@@ -546,17 +525,20 @@ __device__ __forceinline__ void x_partial(const SparseArgs& a, int q,
   }
 }
 
+// F, nnz and health of round rd from the |x| / nnz partials and the loss
+// partials `lp` (the half of round rd's parity), each summed in order.
 template <int LOSS>
 __device__ __forceinline__ void finish_round(const SparseArgs& a, int rd,
                                              float lam, float guard, int n_xc,
-                                             int n_lt, float* s, int* si) {
+                                             int n_lt, const float* lp,
+                                             float* s, int* si) {
   float l1 = 0.f, data = 0.f;
   int nz = 0;
   for (int q = threadIdx.x; q < n_xc; q += THREADS) {
     l1 += ldcg(a.xl1 + q);
     nz += __ldcg(a.xnz + q);
   }
-  for (int q = threadIdx.x; q < n_lt; q += THREADS) data += ldcg(a.lpart + q);
+  for (int q = threadIdx.x; q < n_lt; q += THREADS) data += ldcg(lp + q);
   l1 = block_sum(l1, s);
   data = block_sum(data, s);
   nz = block_sum_int(nz, si);
@@ -569,149 +551,186 @@ __device__ __forceinline__ void finish_round(const SparseArgs& a, int rd,
   }
 }
 
+// Two CTAs per SM (the cooperative grid, sparse_coop_blocks): up to 128
+// registers a thread.  Without the bound ptxas kept the unbatched
+// instantiations at 48–64 registers and spilled in the delta ones.
 template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 fused_sparse_kernel(SparseArgs a) {
   static_assert(!(EMIT_DZ && BATCHED), "no batched delta kernel");
   cg::grid_group grid = cg::this_grid();
   __shared__ float s[THREADS];
   __shared__ int si[THREADS];
+  __shared__ float part[FUSED_KC * FUSED_ROWS];
+  __shared__ float sv[FUSED_STAGE], sd[FUSED_STAGE];
+  __shared__ int skey[FUSED_STAGE];
+  __shared__ int sblk[FUSED_KC], slo[FUSED_KC], soff[FUSED_KC + 1];
+  __shared__ int wsum[WARPS];
+  __shared__ int carry;
+  const RangeBufs rb{part, sv, sd, skey, sblk, slo, soff, wsum, &carry};
   const TV* vals = static_cast<const TV*>(a.vals);
-  const float lam = a.scal[0], beta = a.scal[1], guard = a.scal[3];
-  const int k_eff = (int)a.scal[2];
   const int S = BATCHED ? a.S : 1;
   const long long n = a.n;
-  const int K = a.K, tile = a.tile;
+  const int K = a.K;
   const int n_pair = (K + HALF - 1) / HALF;       // (k, column) item pairs
-  // run-sum items per k: 256 sorted slots each, the last one ragged when
-  // tile is odd (scatter_runs skips slots past the block's count)
-  const int nq = (tile * BLOCK + THREADS - 1) / THREADS;
-  const int n_runs = K * nq;
-  const int n_lt = (int)((n + THREADS - 1) / THREADS);
+  const int n_lt = (int)((n + THREADS - 1) / THREADS);   // 256-row tiles
   const int n_xc = EMIT_DZ ? 0 : (int)((a.d_pad + XCHUNK - 1) / XCHUNK);
+  const long long nq1 = (n + RANGE_ROWS - 1) / RANGE_ROWS + 1;
   const int sub = threadIdx.x >> 7, c = threadIdx.x & (BLOCK - 1);
-  // Slot so's arrays start so strides in (64-bit); the tiles, order, count
+  // Slot so's arrays start so strides in (64-bit); the tiles, order, table
   // and zmask stride 0 for a shared design.  Unbatched, so and every slot
   // stride are compile-time zeros, so the offsets fold away.
   const long long ts = BATCHED ? a.t_stride : 0;
-  const long long cs = ts ? a.d_pad / BLOCK : 0, zs = ts ? a.d_pad : 0;
+  const long long zs = ts ? a.d_pad : 0, qs = ts ? a.d_pad / BLOCK * nq1 : 0;
   const long long rk = BATCHED ? (long long)a.R * K : 0;
-  const long long kn = BATCHED ? (long long)K * n : 0;
   const long long kb = BATCHED ? (long long)K * BLOCK : 0;
-  const bool stamp = a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  const bool stamp = a.stamps != nullptr && blockIdx.x == gridDim.x - 1 &&
+                     threadIdx.x == 0;
   int ns = 0;
-  if (stamp) a.stamps[ns++] = clock64();
+  if (stamp) {
+    a.stamps[2 * a.R + 4] = globaltimer_ns();
+    a.stamps[ns++] = clock64();
+  }
 
-  // launch start: r (and w) from z0; the scatter buffer zeroed.  The
-  // (S, n) vectors and the (S, K, n) buffer are contiguous: flat passes.
+  // launch start: z and r (and w) from z0; x and every chunk's |x| / nnz
+  // partials from x0; health 0.  The (S, n) vectors are contiguous: flat
+  // passes.
+  if (blockIdx.x == 0)
+    for (int sl = threadIdx.x; sl < S; sl += THREADS) a.health[sl] = 0.f;
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < S * n;
        i += (long long)gridDim.x * THREADS) {
-    float rr, ww, ll, zi;
-    if constexpr (EMIT_DZ) {
-      zi = a.z0[i];
-      a.z[i] = zi;
-      a.dz[i] = 0.f;
-    } else {
-      zi = a.z[i];
-    }
+    float rr, ww, ll;
+    const float zi = a.z0[i];
+    a.z[i] = zi;
+    if constexpr (EMIT_DZ) a.dz[i] = 0.f;
     loss_tile<LOSS>(zi, a.y[i], 1.f, rr, ww, ll);
     a.r[i] = rr;
     if constexpr (NEWTON) a.w[i] = ww;
   }
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-       i < S * (long long)K * n; i += (long long)gridDim.x * THREADS)
-    a.buf[i] = 0.f;
+  if constexpr (EMIT_DZ) {
+    for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+         i < a.d_pad; i += (long long)gridDim.x * THREADS)
+      a.x[i] = a.x0[i];
+  } else {
+    for (int it = blockIdx.x; it < S * n_xc; it += gridDim.x) {
+      const int so = BATCHED ? it / n_xc : 0;
+      if constexpr (BATCHED)
+        x_partial(at_slot(a, so), it - so * n_xc, true, s, si);
+      else
+        x_partial(a, it, true, s, si);
+    }
+  }
   grid.sync();
   if (stamp) a.stamps[ns++] = clock64();
 
   for (int rd = 0; rd <= a.R; ++rd) {
-    if (EMIT_DZ && rd == a.R) break;   // no round end to finish
     const int* idx = a.idx + (long long)min(rd, a.R - 1) * K;
-    // A: δ of round rd; |x| / nnz partials of round rd − 1.
-    const int n_a = (rd < a.R ? n_pair : 0) + (rd > 0 ? n_xc : 0);
+    // A: δ of round rd; the |x| / nnz partials of round rd − 1's chunks.
+    const int n_d = rd < a.R ? n_pair : 0;
+    const int n_a = n_d + (!EMIT_DZ && rd > 0 ? K : 0);
     for (int it = blockIdx.x; it < S * n_a; it += gridDim.x) {
       const int so = BATCHED ? it / n_a : 0;
       const int j = it - so * n_a;
-      if (rd < a.R && j < n_pair) {
+      if (j < n_d) {
         const int k = j * HALF + sub;
         if (k < K) {
-          const float* sc = a.scal + 4 * so;
-          const float lm = BATCHED ? sc[0] : lam, bt = BATCHED ? sc[1] : beta;
-          const int ke = BATCHED ? (int)sc[2] : k_eff;
+          const float lm = scal(a, 0, so), bt = scal(a, 1, so);
+          const int ke = (int)scal(a, 2, so);
           // ik[k] is read again after the gather loop: held in a register
           // across the loop's ld.global.cg it moved ptxas's allocation of
-          // the unbatched kernel, which ran slower; read twice, the
-          // unbatched SASS is unchanged by BATCHED (compare_sass.py).
+          // the unbatched kernel, which ran slower.
           const int* ik = idx + so * rk;
           float g, h;
           gather_col<TV, NEWTON>(a.rows + so * ts, vals + so * ts,
                                  a.r + so * n, a.w + (NEWTON ? so * n : 0),
-                                 ik[k], c, tile, g, h);
+                                 ik[k], c, a.tile, g, h);
           const float xs =
               ldcg(a.x + so * a.d_pad + (long long)ik[k] * BLOCK + c);
           const float hh = NEWTON ? (h < 1e-8f ? 1e-8f : h) : bt;
           const float xn = soft_threshold(xs - g / hh, lm / hh);
           (a.delta + so * kb)[k * BLOCK + c] = (xn - xs) * (k < ke ? 1.f : 0.f);
         }
-      } else {
-        const int q = j - (rd < a.R ? n_pair : 0);
-        if constexpr (BATCHED)
-          x_partial(at_slot(a, so), q, s, si);
-        else
-          x_partial(a, q, s, si);
+      } else if constexpr (!EMIT_DZ) {
+        // chunk of round rd − 1's draw k, on its first k only
+        const int k = j - n_d;
+        const int* ip = a.idx + so * rk + (long long)(rd - 1) * K;
+        const int ch = ip[k] / XBLK;
+        bool first = true;
+        for (int kk = 0; kk < k; ++kk) first &= (ip[kk] / XBLK != ch);
+        if (first) {
+          if constexpr (BATCHED)
+            x_partial(at_slot(a, so), ch, false, s, si);
+          else
+            x_partial(a, ch, false, s, si);
+        }
       }
     }
     grid.sync();
     if (stamp) a.stamps[ns++] = clock64();
-    // B: run sums of round rd; slot s's finish of round rd − 1 on block
-    // s % gridDim.x (unbatched: block 0).
+    // Slot s's finish of round rd − 1 on block G − 1 − s % G of the G
+    // blocks (unbatched: the last), which BC's items, dealt from block 0
+    // up, reach last; from the loss partials of rd − 1's parity.
+    const int half = ((rd - 1) & 1) * n_lt;
+    const int last = gridDim.x - 1 - blockIdx.x;
     if constexpr (BATCHED) {
-      for (int sl = blockIdx.x; rd > 0 && sl < S; sl += gridDim.x) {
+      for (int sl = last; rd > 0 && sl < S; sl += gridDim.x) {
         const SparseArgs b = at_slot(a, sl);
-        finish_round<LOSS>(b, rd - 1, b.scal[0], b.scal[3], n_xc, n_lt, s,
-                           si);
+        finish_round<LOSS>(b, rd - 1, scal(a, 0, sl), scal(a, 3, sl), n_xc,
+                           n_lt, b.lpart + half, s, si);
       }
-    } else if (!EMIT_DZ && rd > 0 && blockIdx.x == 0) {
-      finish_round<LOSS>(a, rd - 1, lam, guard, n_xc, n_lt, s, si);
+    } else if (!EMIT_DZ && rd > 0 && last == 0) {
+      finish_round<LOSS>(a, rd - 1, scal(a, 0, 0), scal(a, 3, 0), n_xc, n_lt,
+                         a.lpart + half, s, si);
     }
     if (rd == a.R) {
       if (stamp) a.stamps[ns++] = clock64();
       break;
     }
-    for (int it = blockIdx.x; it < S * n_runs; it += gridDim.x) {
-      const int so = BATCHED ? it / n_runs : 0;
-      const int j = it - so * n_runs;
-      const int k = j / nq, q = j - k * nq;
-      scatter_runs<TV>(a.rows + so * ts, vals + so * ts, a.order + so * ts,
-                       a.count + so * cs, a.zmask + so * zs, idx + so * rk,
-                       a.delta + so * kb, k, q, tile, n, a.buf + so * kn,
-                       a.padterm + so * K);
-    }
-    grid.sync();
-    if (stamp) a.stamps[ns++] = clock64();
-    // C: the pass over n; x[blk_k] += δ_k for each distinct drawn block.
+    // BC: the row tiles' sums; x[blk_k] += δ_k for each distinct block.
     const int n_c = n_lt + n_pair;
     for (int it = blockIdx.x; it < S * n_c; it += gridDim.x) {
       const int so = BATCHED ? it / n_c : 0;
       const int j = it - so * n_c;
+      const int* ik = idx + so * rk;
       if (j < n_lt) {
         const long long i = (long long)j * THREADS + threadIdx.x;
+        const long long vo = so * n;
+        const bool owner = i < n;
+        bool bad;
+        float acc = range_sums<TV, FUSED_ROWS, FUSED_KC, FUSED_STAGE, true>(
+            a.rows + so * ts, vals + so * ts, a.order + so * ts,
+            a.rstart + so * qs, a.zmask + so * zs, ik, a.delta + so * kb,
+            nq1, (long long)a.tile * BLOCK, K, 2 * j,
+            2 * j + 2 < nq1 ? 2 : 1, j * FUSED_ROWS, j == 0, owner,
+            !EMIT_DZ && owner ? ldcg(a.z + vo + i) : 0.f, rb, bad);
+        if (i == 0 && K > 0) acc = add_padding(acc, bad);
         if constexpr (EMIT_DZ) {
-          combine_delta_row<LOSS, NEWTON>(i, n, K, a.z, a.dz, a.buf,
-                                          a.padterm, a.y, a.r, a.w, a.health);
+          if (owner) {
+            const float zn = ldcg(a.z + i) + acc;
+            a.z[i] = zn;
+            a.dz[i] = ldcg(a.dz + i) + acc;
+            if (!isfinite(zn)) a.health[0] = 1.f;   // max-accumulated
+            float rr, ww, ll;
+            loss_tile<LOSS>(zn, a.y[i], 1.f, rr, ww, ll);
+            a.r[i] = rr;
+            if constexpr (NEWTON) a.w[i] = ww;
+          }
         } else {
-          const long long vo = so * n;
-          const float ll = combine_row<LOSS, NEWTON, true>(
-              i, n, K, a.z + vo, a.z + vo, a.buf + so * kn,
-              a.padterm + so * K, a.y + vo, a.r + vo,
-              a.w + (NEWTON ? vo : 0));
+          float ll = 0.f;
+          if (owner) {
+            float rr, ww;
+            a.z[vo + i] = acc;
+            loss_tile<LOSS>(acc, a.y[vo + i], 1.f, rr, ww, ll);
+            a.r[vo + i] = rr;
+            if constexpr (NEWTON) a.w[vo + i] = ww;
+          }
           const float tot = block_sum(ll, s);
-          if (threadIdx.x == 0) a.lpart[so * n_lt + j] = tot;
+          if (threadIdx.x == 0)
+            a.lpart[(so * 2 + (rd & 1)) * n_lt + j] = tot;
         }
       } else {
         const int k = (j - n_lt) * HALF + sub;
         if (k < K) {
-          const int* ik = idx + so * rk;
           const int b = ik[k];
           bool first = true;
           for (int kk = 0; kk < k; ++kk) first &= (ik[kk] != b);
@@ -725,9 +744,11 @@ fused_sparse_kernel(SparseArgs a) {
         }
       }
     }
+    if (EMIT_DZ && rd == a.R - 1) break;   // the launch's end is the barrier
     grid.sync();
     if (stamp) a.stamps[ns++] = clock64();
   }
+  if (stamp) a.stamps[2 * a.R + 5] = globaltimer_ns();
 }
 
 namespace {
@@ -781,9 +802,61 @@ const void* pick_sparse(int v_bf16, int code) {
                 : pick_sparse<float, false, false>(loss);
 }
 
+// The arguments every fused entry takes; the rest null (or one slot).
+SparseArgs fused_args(const int* rows, const void* vals, const int* order,
+                      const int* rstart, const unsigned char* zmask,
+                      const float* y, const int* idx, const float* const* sp,
+                      const float* sv, const float* z0, float* z,
+                      const float* x0, float* x, float* r, float* w,
+                      float* delta, long long n, long long d_pad, int R,
+                      int K, int tile) {
+  SparseArgs a{};
+  a.rows = rows;
+  a.vals = vals;
+  a.order = order;
+  a.rstart = rstart;
+  a.zmask = zmask;
+  a.y = y;
+  a.idx = idx;
+  for (int j = 0; j < 4; ++j) {
+    a.sp[j] = sp[j];
+    a.sv[j] = sv[j];
+  }
+  a.z0 = z0;
+  a.z = z;
+  a.x0 = x0;
+  a.x = x;
+  a.r = r;
+  a.w = w;
+  a.delta = delta;
+  a.n = n;
+  a.d_pad = d_pad;
+  a.R = R;
+  a.K = K;
+  a.tile = tile;
+  a.S = 1;
+  return a;
+}
+
+// sparse_coop_blocks of `kern` on the current device, queried once per
+// (kernel, device): the queries cost host time on every launch otherwise.
+int sparse_grid(const void* kern) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> grids;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto it = grids.find({kern, dev});
+  if (it != grids.end()) return it->second;
+  const int blocks = sparse_coop_blocks(kern);
+  if (blocks > 0) grids[{kern, dev}] = blocks;
+  return blocks;
+}
+
 int launch_sparse(const void* kern, SparseArgs a, void* stream) {
   if (!kern) return (int)cudaErrorInvalidValue;
-  const int blocks = sparse_coop_blocks(kern);
+  const int blocks = sparse_grid(kern);
   if (blocks <= 0) return blocks < 0 ? -blocks : (int)cudaErrorInvalidConfiguration;
   void* params[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(THREADS),
@@ -846,40 +919,60 @@ int sp_fused_grid_blocks(int v_bf16, int loss) {
   return sparse_coop_blocks(kern);
 }
 
+// The fused entries' arguments.  sp: a host array of 4 device pointers
+// (lam, beta, k_eff, guard_f, each an (S,) f32 vector, one value a slot) or
+// nulls; sv: a host array of the 4 values taken where sp[j] is null.
+// rstart: (nblk, ceil(n / 128) + 1) int32 range-start table
+// (data/sparse.py::range_starts); z0 and x0 are read-only, z and x written.
 int sp_fused_shotgun_rounds(const int* rows, const void* vals, int v_bf16,
-                            int loss, const int* order, const int* count,
+                            int loss, const int* order, const int* rstart,
                             const unsigned char* zmask, const float* y,
-                            const int* idx, const float* scal, float* z,
-                            float* x, float* r, float* w, float* buf,
-                            float* padterm, float* delta, float* lpart,
-                            float* xl1, int* xnz, float* f, int* nnz,
-                            float* health, long long* stamps, long long n,
-                            long long d_pad, int R, int K, int tile,
-                            void* stream) {
+                            const int* idx, const float* const* sp,
+                            const float* sv, const float* z0, float* z,
+                            const float* x0, float* x, float* r, float* w,
+                            float* delta, float* lpart, float* xl1, int* xnz,
+                            float* f, int* nnz, float* health,
+                            long long* stamps, long long n, long long d_pad,
+                            int R, int K, int tile, void* stream) {
   if (loss & ~3) return (int)cudaErrorInvalidValue;
-  SparseArgs a{rows, vals, order, count, zmask, y, idx, scal, z, x, r, w,
-               buf, padterm, delta, lpart, xl1, xnz, f, nnz, health, stamps,
-               n, d_pad, R, K, tile, nullptr, nullptr, 1, 0};
+  SparseArgs a = fused_args(rows, vals, order, rstart, zmask, y, idx, sp, sv,
+                            z0, z, x0, x, r, w, delta, n, d_pad, R, K, tile);
+  a.lpart = lpart;
+  a.xl1 = xl1;
+  a.xnz = xnz;
+  a.f = f;
+  a.nnz = nnz;
+  a.health = health;
+  a.stamps = stamps;
   return launch_sparse(pick_sparse(v_bf16, loss), a, stream);
 }
 
-// The slot kernel: every array but the tiles, the order and `stamps`
-// carries a leading slot axis of S (scal (S, 4), buf (S, K, n), health
+// The slot kernel: every array but the tiles, the order, the table and
+// `stamps` carries a leading slot axis of S (z (S, n), x (S, d_pad), health
 // (S,), ...); rows, vals and order advance t_stride elements per slot,
-// count and zmask one slot's worth when t_stride != 0 (0: one shared
+// rstart and zmask one slot's worth when t_stride != 0 (0: one shared
 // design).  `stamps`, as for the unbatched launch, may be null.
 int sp_batched_fused_shotgun_rounds(
     const int* rows, const void* vals, int v_bf16, int loss,
-    long long t_stride, const int* order, const int* count,
+    long long t_stride, const int* order, const int* rstart,
     const unsigned char* zmask, const float* y, const int* idx,
-    const float* scal, float* z, float* x, float* r, float* w, float* buf,
-    float* padterm, float* delta, float* lpart, float* xl1, int* xnz,
-    float* f, int* nnz, float* health, long long* stamps, long long n,
-    long long d_pad, int S, int R, int K, int tile, void* stream) {
+    const float* const* sp, const float* sv, const float* z0, float* z,
+    const float* x0, float* x, float* r, float* w, float* delta,
+    float* lpart, float* xl1, int* xnz, float* f, int* nnz, float* health,
+    long long* stamps, long long n, long long d_pad, int S, int R, int K,
+    int tile, void* stream) {
   if ((loss & ~3) || S < 1) return (int)cudaErrorInvalidValue;
-  SparseArgs a{rows, vals, order, count, zmask, y, idx, scal, z, x, r, w,
-               buf, padterm, delta, lpart, xl1, xnz, f, nnz, health, stamps,
-               n, d_pad, R, K, tile, nullptr, nullptr, S, t_stride};
+  SparseArgs a = fused_args(rows, vals, order, rstart, zmask, y, idx, sp, sv,
+                            z0, z, x0, x, r, w, delta, n, d_pad, R, K, tile);
+  a.lpart = lpart;
+  a.xl1 = xl1;
+  a.xnz = xnz;
+  a.f = f;
+  a.nnz = nnz;
+  a.health = health;
+  a.stamps = stamps;
+  a.S = S;
+  a.t_stride = t_stride;
   return launch_sparse(pick_sparse(v_bf16, loss | 8), a, stream);
 }
 
@@ -890,22 +983,24 @@ int sp_batched_grid_blocks(int v_bf16, int loss) {
   return sparse_coop_blocks(pick_sparse(v_bf16, loss | 8));
 }
 
-// The delta kernel: z0 read-only, view (n,) scratch, dz (n,) out, x in/out;
-// buf (K, n) is zeroed by the kernel.
+// The delta kernel: z0 read-only, view (n,) scratch, dz (n,) out, x0
+// read-only, x (d_pad,) out.
 int sp_fused_shotgun_delta_rounds(const int* rows, const void* vals,
                                   int v_bf16, int loss, const int* order,
-                                  const int* count, const unsigned char* zmask,
-                                  const float* y, const int* idx,
-                                  const float* scal, const float* z0,
-                                  float* view, float* dz, float* x, float* r,
-                                  float* w, float* buf, float* padterm,
-                                  float* delta, float* health, long long n,
-                                  long long d_pad, int R, int K, int tile,
-                                  void* stream) {
+                                  const int* rstart,
+                                  const unsigned char* zmask, const float* y,
+                                  const int* idx, const float* const* sp,
+                                  const float* sv, const float* z0,
+                                  float* view, float* dz, const float* x0,
+                                  float* x, float* r, float* w, float* delta,
+                                  float* health, long long n, long long d_pad,
+                                  int R, int K, int tile, void* stream) {
   if (loss & ~3) return (int)cudaErrorInvalidValue;
-  SparseArgs a{rows, vals, order, count, zmask, y, idx, scal, view, x, r, w,
-               buf, padterm, delta, nullptr, nullptr, nullptr, nullptr,
-               nullptr, health, nullptr, n, d_pad, R, K, tile, z0, dz, 1, 0};
+  SparseArgs a = fused_args(rows, vals, order, rstart, zmask, y, idx, sp, sv,
+                            z0, view, x0, x, r, w, delta, n, d_pad, R, K,
+                            tile);
+  a.health = health;
+  a.dz = dz;
   return launch_sparse(pick_sparse(v_bf16, loss | 4), a, stream);
 }
 

@@ -49,12 +49,12 @@ _ARGTYPES = {
     "sp_gather_block_matvec": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
     "sp_scatter_block_update": [_P, _P, _I] + [_P] * 7 + [_L, _I, _I, _P],
     "sp_range_rows": [],
-    "sp_fused_shotgun_rounds": [_P, _P, _I, _I] + [_P] * 20
+    "sp_fused_shotgun_rounds": [_P, _P, _I, _I] + [_P] * 21
                                + [_L, _L, _I, _I, _I, _P],
     "sp_fused_shotgun_delta_rounds": [_P, _P, _I, _I] + [_P] * 16
                                      + [_L, _L, _I, _I, _I, _P],
     "sp_fused_grid_blocks": [_I, _I],
-    "sp_batched_fused_shotgun_rounds": [_P, _P, _I, _I, _L] + [_P] * 20
+    "sp_batched_fused_shotgun_rounds": [_P, _P, _I, _I, _L] + [_P] * 21
                                        + [_L, _L, _I, _I, _I, _I, _P],
     "sp_batched_grid_blocks": [_I, _I],
 }
@@ -126,13 +126,20 @@ def build() -> pathlib.Path:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use; raises when its
+    scatters' range width is not ``data/sparse.py::RANGE_ROWS`` (the
+    range-start table would not fit them)."""
     global _lib
     if _lib is None:
+        from repro_torch.data.sparse import RANGE_ROWS
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _ARGTYPES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        if lib.sp_range_rows() != RANGE_ROWS:
+            raise RuntimeError(f"the scatter kernels take ranges of "
+                               f"{lib.sp_range_rows()} rows, the range-start "
+                               f"table {RANGE_ROWS}")
         _lib = lib
     return _lib

@@ -39,7 +39,8 @@ import math
 
 import torch
 
-from repro_torch.data.sparse import BLOCK, ScatterOrder, scatter_order
+from repro_torch.data.sparse import (BLOCK, ScatterOrder, range_starts,
+                                     scatter_order)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import draw_blocks
 from repro_torch.kernels.shotgun_block import (LASSO, Loss, _SCATTER_ROWS,
@@ -50,8 +51,10 @@ from repro_torch.kernels.shotgun_block import (LASSO, Loss, _SCATTER_ROWS,
                                                fused_shotgun_rounds_plain,
                                                resolve_loss)
 from repro_torch.kernels.shotgun_sparse import (_THREADS, _XCHUNK,
-                                                _check_stamps, _check_tiles,
+                                                _check_rstart, _check_stamps,
+                                                _check_tiles,
                                                 _require_contiguous,
+                                                _scalar_args,
                                                 fused_sparse_shotgun_rounds_plain)
 
 # Kernel launches per wrapper (``reset_launches`` zeroes them).
@@ -209,6 +212,21 @@ def stacked_scatter_order(rows: torch.Tensor,
                         od.zmask.reshape(S, nblk, block))
 
 
+def stacked_range_starts(rows: torch.Tensor, od: ScatterOrder,
+                         n: int) -> torch.Tensor:
+    """``range_starts`` of (nblk, tile, 128) tiles, or slot by slot of (S,
+    nblk, tile, 128) stacked tiles and their stacked ``od``: (S, nblk,
+    ceil(n / RANGE_ROWS) + 1)."""
+    if rows.dim() == 3:
+        return range_starts(rows, od, n)
+    S, nblk, tile, block = rows.shape
+    flat = ScatterOrder(od.order.reshape(S * nblk, tile * block),
+                        od.count.reshape(S * nblk),
+                        od.zmask.reshape(S * nblk, block))
+    rs = range_starts(rows.reshape(S * nblk, tile, block), flat, n)
+    return rs.reshape(S, nblk, -1)
+
+
 def _check_sparse(rows, vals, z, x, y, blk_idx, shared_design):
     """(S, nblk, tile, n, R, K), raising on what the kernel does not take."""
     if z.dim() != 2:
@@ -250,6 +268,7 @@ def batched_fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta,
                                         loss: str | Loss = LASSO,
                                         shared_design: bool = False,
                                         order: ScatterOrder | None = None,
+                                        rstart: torch.Tensor | None = None,
                                         stamps: torch.Tensor | None = None):
     """R fused BlockedCSC rounds on S stacked slots in ONE kernel launch.
 
@@ -257,13 +276,20 @@ def batched_fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta,
                (nblk, tile, 128) with ``shared_design``.
     z/y        (S, n);  x (S, nblk·128);  blk_idx (S, R, K) int.
     lam/beta/k_eff/guard_f  (S,) per-slot scalars, as
-               ``batched_fused_shotgun_rounds``.
+               ``batched_fused_shotgun_rounds`` (a number, or a
+               one-element tensor, serves every slot).
     order      the tiles' ``ScatterOrder`` (``stacked_scatter_order``;
                a stream builds it once per admitted slot), built here when
                not given.
-    stamps     optional (3R + 4,) int64 CUDA tensor: block 0's SM clock at
-               launch start, after each grid-wide barrier and at the end,
-               as for ``fused_sparse_shotgun_rounds`` (ignored on the CPU).
+    rstart     the tiles' range-start tables, (S, nblk, ceil(n / 128) + 1)
+               or (nblk, ceil(n / 128) + 1) with ``shared_design``
+               (``stacked_range_starts``; a stream keeps them in its
+               ``SlotArrays``), built here when not given.
+    stamps     optional (2R + 6,) int64 CUDA tensor: the grid's last
+               block's SM clock at launch start, after each grid-wide
+               barrier and at the end, then the card's ns timer at launch
+               start and at the end, as for ``fused_sparse_shotgun_rounds``
+               (ignored on the CPU).
 
     Returns (x (S, nblk·128), z (S, n), f (S, R), nnz (S, R) int32,
     health (S,)).
@@ -271,6 +297,8 @@ def batched_fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta,
     ls = resolve_loss(loss)
     S, nblk, tile, n, R, K = _check_sparse(rows, vals, z, x, y, blk_idx,
                                            shared_design)
+    _check_rstart(rstart, () if shared_design else (S,), nblk, n,
+                  vals.device)
     if not _on_cuda(rows, vals, z, x, blk_idx, y):
         return batched_fused_sparse_shotgun_rounds_plain(
             rows, vals, z, x, blk_idx, lam, beta, y, k_eff, guard_f, loss=ls,
@@ -279,45 +307,46 @@ def batched_fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta,
     od = stacked_scatter_order(rows, vals) if order is None else order
     slots = 1 if shared_design else S
     if (od.order.numel() != slots * nblk * tile * BLOCK
-            or od.count.numel() != slots * nblk
             or od.zmask.numel() != slots * nblk * BLOCK):
         raise ValueError("order does not match the tiles "
                          "(stacked_scatter_order of rows, vals)")
+    rs = stacked_range_starts(rows, od, n) if rstart is None else rstart
     from repro_torch.kernels import _build
     lib = _build.load()
     dev = vals.device
     d_pad = nblk * BLOCK
-    scal = _slot_scalars(lam, beta, k_eff, guard_f, S, dev)
+    sp, sv, keep = _scalar_args((lam, beta, k_eff, guard_f), S, dev)
     idx = _contig(blk_idx, torch.int32)
     yv = _contig(y, torch.float32)
-    z_out = z.to(torch.float32, copy=True).contiguous()
-    x_out = x.to(torch.float32, copy=True).contiguous()
+    z0 = _contig(z, torch.float32)
+    x0 = _contig(x, torch.float32)
     f32 = dict(dtype=torch.float32, device=dev)
     n_xc = -(-d_pad // _XCHUNK)
+    z_out = torch.empty((S, n), **f32)       # every output filled by the
+    x_out = torch.empty((S, d_pad), **f32)   # kernel
     r = torch.empty((S, n), **f32)
     w = torch.empty((S, n) if ls.newton else (1,), **f32)
-    buf = torch.empty((S, K, n), **f32)      # zeroed by the kernel
-    padterm = torch.empty((S, K), **f32)
     dlt = torch.empty((S, K, BLOCK), **f32)
-    lpart = torch.empty((S, -(-n // _THREADS)), **f32)
+    lpart = torch.empty((S, 2, -(-n // _THREADS)), **f32)
     xl1 = torch.empty((S, n_xc), **f32)
     xnz = torch.empty((S, n_xc), dtype=torch.int32, device=dev)
     f = torch.empty((S, R), **f32)
     nnz = torch.empty((S, R), dtype=torch.int32, device=dev)
-    health = torch.zeros(S, **f32)
+    health = torch.empty(S, **f32)
     _check_stamps(stamps, R, dev)
     with torch.cuda.device(dev):
         rc = lib.sp_batched_fused_shotgun_rounds(
             _ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
             _loss_code(ls), 0 if shared_design else nblk * tile * BLOCK,
-            _ptr(od.order), _ptr(od.count), _ptr(od.zmask), _ptr(yv),
-            _ptr(idx), _ptr(scal), _ptr(z_out), _ptr(x_out), _ptr(r),
-            _ptr(w), _ptr(buf), _ptr(padterm), _ptr(dlt), _ptr(lpart),
-            _ptr(xl1), _ptr(xnz), _ptr(f), _ptr(nnz), _ptr(health),
+            _ptr(od.order), _ptr(rs), _ptr(od.zmask), _ptr(yv), _ptr(idx),
+            sp, sv, _ptr(z0), _ptr(z_out), _ptr(x0), _ptr(x_out), _ptr(r),
+            _ptr(w), _ptr(dlt), _ptr(lpart), _ptr(xl1), _ptr(xnz), _ptr(f),
+            _ptr(nnz), _ptr(health),
             None if stamps is None else _ptr(stamps), n, d_pad, S, R, K, tile,
             _stream(dev))
     _check_rc(rc, "batched_fused_sparse_shotgun_rounds")
     LAUNCHES["batched_fused_sparse_shotgun_rounds"] += 1
+    del keep
     return x_out, z_out, f, nnz, health
 
 

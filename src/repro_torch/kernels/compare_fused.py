@@ -7,13 +7,15 @@ old.  Dense: ``fused_shotgun_rounds`` (#1), ``fused_shotgun_delta_rounds``
 
     PYTHONPATH=src python -m repro_torch.kernels.compare_fused OLD_CSRC [--seed N]
 
-OLD_CSRC is a ``csrc/`` whose ``sb_fused_shotgun_rounds`` takes no stamps
-(``A, a_bf16, loss, y, m, idx, scal, z, x, r, w, gpart, hpart, delta,
-lpart, f, nnz, health, n, d, R, K, rows, T, stream``) and whose other five
-fused entries have this package's C interface.  It is built with
-``_build``'s flags into a temporary directory; #1's old call allocates what
-the old wrapper allocated, the other old calls run this package's wrappers
-on the old library.
+OLD_CSRC is a ``csrc/`` with the C interface of the fused entries before
+the BlockedCSC round lost its (K, n) buffer: the dense entries as they are
+now, and the sparse ones (``sp_fused_shotgun_rounds``,
+``sp_fused_shotgun_delta_rounds``, ``sp_batched_fused_shotgun_rounds``)
+taking a (K, n) scatter buffer, padding terms and a (4,) scalar vector, and
+no range-start table.  It is built with ``_build``'s flags into a
+temporary directory; the dense old calls run this package's wrappers on the
+old library, the sparse old calls (``old_sparse``, ``old_batched_sparse``)
+allocate what the old wrappers allocated.
 
 Shapes are ``chip_smoke.py``'s, drawn on the card from ``--seed``, R = 8:
 
@@ -24,17 +26,23 @@ Shapes are ``chip_smoke.py``'s, drawn on the card from ``--seed``, R = 8:
   stacked Lasso designs (f32, slot k_eff 8, 8, 4, 0), one bf16 Lasso design
   shared by 8 slots, and zeta shared by 4 slots (logistic Newton, slot 1's
   guard at 0);
-* BlockedCSC, both of even tile depth: S1 at LIBSVM news20.binary's shape
-  (19,996 × 1,355,191, density 3.36e-4, K = 32, lasso) and S2 at
-  rcv1.binary's (20,242 × 47,236, density 0.16%, K = 8, logistic and
-  logistic Newton), f32 and bf16, k_eff = K and K − 1, a duplicate draw;
+* BlockedCSC: S1 at LIBSVM news20.binary's shape (19,996 × 1,355,191,
+  density 3.36e-4, K = 32, lasso) and S2 at rcv1.binary's (20,242 ×
+  47,236, density 0.16%, K = 8, logistic and logistic Newton), f32 and
+  bf16, k_eff = K and K − 1, a duplicate draw; S2 with K = 72 (above the
+  kernel's chunk of 32 drawn blocks), S2 cut to an odd tile of 7, and S2
+  with a NaN iterate in a column with a padding slot (row 0 goes NaN);
   #10 on 4 stacked copies of S1 (slot k_eff 32, 32, 16, 0) and on S2
-  shared by 4 slots (logistic Newton).
+  shared by 4 slots (logistic Newton), once with slot 2 frozen (k_eff 0).
 
 Equality is of the bit patterns of every output (x, z or Δz, F, nnz,
-health).  Device ms: the profiler's time of the fused kernel per call over
-``--iters`` calls (fewer at the slower shapes).  Prints one line per case
-and a JSON summary; exits 1 when any output differs in a bit.
+health).  Two device clocks per call, over ``--iters`` calls (fewer at
+the slower shapes): the profiler's records of the fused kernel alone,
+one a call (a window short of records is retried, and reported), and,
+in brackets as "call", CUDA events around each call enqueued behind a spin
+kernel — every device op of the call (the old calls' copies and fills
+too), none of the host's enqueue.  Prints one line per case and a JSON
+summary; exits 1 when any output differs in a bit.
 """
 from __future__ import annotations
 
@@ -53,7 +61,7 @@ from repro_torch.kernels import batched as kb
 from repro_torch.kernels import shotgun_block as sb
 from repro_torch.kernels import shotgun_sparse as ss
 from repro_torch.kernels._compare import (bits_equal, build_old, device_ms,
-                                          library, turns)
+                                          library, queued_ms, turns)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LASSO = dict(n=16384, d=32768, K=8)
@@ -63,48 +71,103 @@ S2 = dict(n=20_242, d=47_236, density=0.0016, K=8)
 R = 8
 DENSE, SPARSE = ("fused_rounds_kernel",), ("fused_sparse_kernel",)
 _OLD_ARGTYPES = {
-    "sb_fused_shotgun_rounds": [_P, _I, _I] + [_P] * 15
-                               + [_L, _L, _I, _I, _I, _I, _P],
     **{name: _build._ARGTYPES[name] for name in (
-        "sb_fused_shotgun_delta_rounds", "sb_batched_fused_shotgun_rounds",
-        "sp_fused_shotgun_rounds", "sp_fused_shotgun_delta_rounds",
-        "sp_batched_fused_shotgun_rounds")},
+        "sb_fused_shotgun_rounds", "sb_fused_shotgun_delta_rounds",
+        "sb_batched_fused_shotgun_rounds")},
+    "sp_fused_shotgun_rounds": [_P, _P, _I, _I] + [_P] * 20
+                               + [_L, _L, _I, _I, _I, _P],
+    "sp_fused_shotgun_delta_rounds": [_P, _P, _I, _I] + [_P] * 16
+                                     + [_L, _L, _I, _I, _I, _P],
+    "sp_batched_fused_shotgun_rounds": [_P, _P, _I, _I, _L] + [_P] * 20
+                                       + [_L, _L, _I, _I, _I, _I, _P],
 }
 
 
-def old_rounds(lib, A, z, x, idx, lam, beta, y, m, loss, k_eff=None,
-               guard_f=None):
-    """#1 through the old entry, with the old wrapper's allocations."""
-    ls = sb.resolve_loss(loss)
-    n, d = A.shape
-    K = idx.shape[1]
-    rows = sb._gather_rows(n)
-    T = math.ceil(n / rows)
-    dev = A.device
+def _p(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def old_sparse(lib, rows, vals, z, x, idx, lam, beta, y, loss, k_eff=None,
+               guard_f=None, *, order, delta=False):
+    """#2 (or, with ``delta``, #8) through the old entry, with the old
+    wrapper's allocations."""
+    ls = ss.resolve_loss(loss)
+    nblk, tile = rows.shape[0], rows.shape[1]
+    R, K = idx.shape
+    n, d_pad, dev = z.shape[0], nblk * 128, vals.device
     f32 = dict(dtype=torch.float32, device=dev)
     scal = sb._scalars(lam, beta, K if k_eff is None else k_eff,
                        math.inf if guard_f is None else guard_f, dev)
-    r = torch.empty(n, **f32)
+    yv, ix = y.float().contiguous(), idx.to(torch.int32).contiguous()
+    head = (_p(rows), _p(vals), int(vals.dtype == torch.bfloat16),
+            sb._loss_code(ls), _p(order.order), _p(order.count),
+            _p(order.zmask), _p(yv), _p(ix), _p(scal))
+    x_out = x.float().clone()
+    r, dlt = torch.empty(n, **f32), torch.empty((K, 128), **f32)
     w = torch.empty(n if ls.newton else 1, **f32)
-    gpart = torch.empty((K, T, 128), **f32)
-    hpart = torch.empty((K, T, 128) if ls.newton else (1,), **f32)
-    dlt = torch.empty((K, 128), **f32)
-    z_out, x_out = z.float().clone(), x.float().clone()
-    lpart = torch.empty(n // 32, **f32)
-    f = torch.empty(R, **f32)
-    nnz = torch.empty(R, dtype=torch.int32, device=dev)
+    buf, padterm = torch.empty(K * n, **f32), torch.empty(K, **f32)
     health = torch.zeros((), **f32)
-    ix = idx.to(torch.int32).contiguous()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if delta:
+        z0 = z.float().contiguous()
+        view, dz = torch.empty(n, **f32), torch.empty(n, **f32)
+        rc = lib.sp_fused_shotgun_delta_rounds(
+            *head, _p(z0), _p(view), _p(dz), _p(x_out), _p(r), _p(w),
+            _p(buf), _p(padterm), _p(dlt), _p(health), n, d_pad, R, K, tile,
+            stream)
+        out = (x_out, dz, health)
+    else:
+        z_out = z.float().clone()
+        n_xc = -(-d_pad // 4096)
+        lpart = torch.empty(-(-n // 256), **f32)
+        xl1 = torch.empty(n_xc, **f32)
+        xnz = torch.empty(n_xc, dtype=torch.int32, device=dev)
+        f = torch.empty(R, **f32)
+        nnz = torch.empty(R, dtype=torch.int32, device=dev)
+        rc = lib.sp_fused_shotgun_rounds(
+            *head, _p(z_out), _p(x_out), _p(r), _p(w), _p(buf), _p(padterm),
+            _p(dlt), _p(lpart), _p(xl1), _p(xnz), _p(f), _p(nnz),
+            _p(health), None, n, d_pad, R, K, tile, stream)
+        out = (x_out, z_out, f, nnz, health)
+    if rc:
+        raise RuntimeError(f"old fused sparse entry: CUDA error {rc}")
+    return out
 
-    def p(t):
-        return ctypes.c_void_p(t.data_ptr())
-    rc = lib.sb_fused_shotgun_rounds(
-        p(A), int(A.dtype == torch.bfloat16), sb._loss_code(ls), p(y), p(m),
-        p(ix), p(scal), p(z_out), p(x_out), p(r), p(w), p(gpart), p(hpart),
-        p(dlt), p(lpart), p(f), p(nnz), p(health), n, d, R, K, rows, T,
+
+def old_batched_sparse(lib, rows, vals, z, x, idx, lam, beta, y, k_eff,
+                       guard_f, *, loss, shared_design, order):
+    """#10 through the old entry, with the old wrapper's allocations."""
+    ls = ss.resolve_loss(loss)
+    S, n = z.shape
+    nblk, tile = rows.shape[-3], rows.shape[-2]
+    R, K = idx.shape[1:]
+    d_pad, dev = nblk * 128, vals.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_xc = -(-d_pad // 4096)
+    scal = kb._slot_scalars(lam, beta, k_eff, guard_f, S, dev)
+    z_out, x_out = z.float().clone(), x.float().clone()
+    # every buffer held by a name until the launch is enqueued
+    work = [torch.empty((S, n), **f32),
+            torch.empty((S, n) if ls.newton else (1,), **f32),
+            torch.empty((S, K, n), **f32), torch.empty((S, K), **f32),
+            torch.empty((S, K, 128), **f32),
+            torch.empty((S, -(-n // 256)), **f32),
+            torch.empty((S, n_xc), **f32),
+            torch.empty((S, n_xc), dtype=torch.int32, device=dev)]
+    f = torch.empty((S, R), **f32)
+    nnz = torch.empty((S, R), dtype=torch.int32, device=dev)
+    health = torch.zeros(S, **f32)
+    yv, ix = y.float().contiguous(), idx.to(torch.int32).contiguous()
+    rc = lib.sp_batched_fused_shotgun_rounds(
+        _p(rows), _p(vals), int(vals.dtype == torch.bfloat16),
+        sb._loss_code(ls), 0 if shared_design else nblk * tile * 128,
+        _p(order.order), _p(order.count), _p(order.zmask), _p(yv), _p(ix),
+        _p(scal), _p(z_out), _p(x_out), *map(_p, work), _p(f), _p(nnz),
+        _p(health), None, n, d_pad, S, R, K, tile,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc:
-        raise RuntimeError(f"old sb_fused_shotgun_rounds: CUDA error {rc}")
+        raise RuntimeError(f"old sp_batched_fused_shotgun_rounds: CUDA "
+                           f"error {rc}")
     return x_out, z_out, f, nnz, health
 
 
@@ -191,11 +254,12 @@ def main(argv=None) -> int:
         print(f"compare [{case}]: {'bit-identical' if same else 'DIFFER'}")
 
     def timed(name, fo, fn, iters, kernels):
-        t = turns(fo, fn, lambda f: device_ms(f, iters, kernels))
+        t = turns(fo, fn, lambda f: device_ms(f, iters, kernels, 1),
+                  lambda f: queued_ms(f, iters))
         times[name] = t
         print(f"time {name}: " + "; ".join(
-            f"{lb} {ms:.4f}" if ms is not None else f"{lb} n/a"
-            for lb, ms in t) + " ms device")
+            f"{lb} {'n/a' if ms is None else f'{ms:.4f}'} "
+            f"(call {q:.4f})" for lb, ms, q in t) + " ms device")
 
     def full(S, v):
         return torch.full((S,), float(v), device=dev)
@@ -221,9 +285,9 @@ def main(argv=None) -> int:
             for k_eff in (None, K - 1):
                 fa = (A, z0, x0, idx, P["lam"], P["beta"], y, P["m"])
                 case = f"{tag} {loss} {store} K={K} R={R} k_eff={k_eff}"
-                record("#1 " + case,
-                       sb.fused_shotgun_rounds(*fa, loss=loss, k_eff=k_eff),
-                       old_rounds(old, *fa, loss, k_eff))
+                rounds = lambda: sb.fused_shotgun_rounds(  # noqa: E731
+                    *fa, loss=loss, k_eff=k_eff)
+                record("#1 " + case, rounds(), on(old, rounds)())
                 delta = lambda: sb.fused_shotgun_delta_rounds(  # noqa: E731
                     *fa, loss=loss, k_eff=k_eff)
                 record("#7 " + case, delta(), on(old, delta)())
@@ -266,8 +330,8 @@ def main(argv=None) -> int:
             ("zeta f32 logistic_newton", zeta, zeta["A"], "logistic_newton",
              2, max(2, args.iters // 2))):
         fa = zeros_args(P, A, K)
-        timed(f"#1 {tag} R={R}", lambda: old_rounds(old, *fa, loss),
-              lambda: sb.fused_shotgun_rounds(*fa, loss=loss), iters, DENSE)
+        fn = lambda: sb.fused_shotgun_rounds(*fa, loss=loss)  # noqa: E731
+        timed(f"#1 {tag} R={R}", on(old, fn), fn, iters, DENSE)
         fn = lambda: sb.fused_shotgun_delta_rounds(*fa, loss=loss)  # noqa
         timed(f"#7 {tag} R={R}", on(old, fn), fn, iters, DENSE)
     for tag, A, shared, P, loss, K, S, iters in (
@@ -292,42 +356,71 @@ def main(argv=None) -> int:
 
     # ---- #2 and #8 at S1 and S2, f32 and bf16 ------------------------------
     s1, s2 = _sparse_designs(args.seed, dev)
+
+    def sparse_pair(case, A, prob, loss, idx, x0, k_eff=None):
+        """#2 and #8, new against old, on one input."""
+        od, rs = A.scatter_order(), A.range_starts()
+        fa = (A.rows, A.vals, A.matvec(x0), x0, idx, prob.lam, prob.beta,
+              prob.y)
+        record("#2 " + case, ss.fused_sparse_shotgun_rounds(
+            *fa, loss=loss, k_eff=k_eff, order=od, rstart=rs),
+            old_sparse(old, *fa, loss, k_eff, order=od))
+        record("#8 " + case, ss.fused_sparse_shotgun_delta_rounds(
+            *fa, loss=loss, k_eff=k_eff, order=od, rstart=rs),
+            old_sparse(old, *fa, loss, k_eff, order=od, delta=True))
+
+    def start(A):
+        x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
+        x0[A.d:] = 0.0
+        return x0
+
     for tag, prob, K, losses in (("S1", s1, S1["K"], ("lasso",)),
                                  ("S2", s2, S2["K"],
                                   ("logistic", "logistic_newton"))):
         for store in ("f32", "bf16"):
             A = prob.A if store == "f32" else prob.A.astype(torch.bfloat16)
-            od = A.scatter_order()
+            od, rs = A.scatter_order(), A.range_starts()
             for loss in losses:
-                idx = _draws(g, K, A.nblk)
-                x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
-                x0[A.d:] = 0.0
-                z0 = A.matvec(x0)
+                idx, x0 = _draws(g, K, A.nblk), start(A)
                 for k_eff in (None, K - 1):
-                    fa = (A.rows, A.vals, z0, x0, idx, prob.lam, prob.beta,
-                          prob.y)
-                    case = (f"{tag} {loss} {store} tile={A.tile} K={K} "
-                            f"R={R} k_eff={k_eff}")
-                    fn = lambda: ss.fused_sparse_shotgun_rounds(  # noqa
-                        *fa, loss=loss, k_eff=k_eff, order=od)
-                    record("#2 " + case, fn(), on(old, fn)())
-                    fn = lambda: ss.fused_sparse_shotgun_delta_rounds(  # noqa
-                        *fa, loss=loss, k_eff=k_eff, order=od)
-                    record("#8 " + case, fn(), on(old, fn)())
+                    sparse_pair(f"{tag} {loss} {store} tile={A.tile} K={K} "
+                                f"R={R} k_eff={k_eff}", A, prob, loss, idx,
+                                x0, k_eff)
             if store == "f32":
                 loss = losses[-1]
                 fa = (A.rows, A.vals, torch.zeros(A.n, device=dev),
                       torch.zeros(A.d_pad, device=dev),
                       _draws(g, K, A.nblk, dup=False), prob.lam, prob.beta,
                       prob.y)
-                fn = lambda: ss.fused_sparse_shotgun_rounds(  # noqa: E731
-                    *fa, loss=loss, order=od)
-                timed(f"#2 {tag} f32 {loss} R={R}", on(old, fn), fn,
+                timed(f"#2 {tag} f32 {loss} R={R}",
+                      lambda: old_sparse(old, *fa, loss, order=od),
+                      lambda: ss.fused_sparse_shotgun_rounds(
+                          *fa, loss=loss, order=od, rstart=rs),
                       args.iters, SPARSE)
-                fn = lambda: ss.fused_sparse_shotgun_delta_rounds(  # noqa
-                    *fa, loss=loss, order=od)
-                timed(f"#8 {tag} f32 {loss} R={R}", on(old, fn), fn,
+                timed(f"#8 {tag} f32 {loss} R={R}",
+                      lambda: old_sparse(old, *fa, loss, order=od,
+                                         delta=True),
+                      lambda: ss.fused_sparse_shotgun_delta_rounds(
+                          *fa, loss=loss, order=od, rstart=rs),
                       args.iters, SPARSE)
+
+    # S2 with K above the kernel's chunk of drawn blocks, cut to an odd
+    # tile, and with a NaN iterate in a column with a padding slot
+    A = s2.A
+    sparse_pair(f"S2 logistic f32 tile={A.tile} K=72 R={R}", A, s2,
+                "logistic", _draws(g, 72, A.nblk), start(A))
+    A7 = type(A)(rows=A.rows[:, :7].contiguous(),
+                 vals=A.vals[:, :7].contiguous(), n=A.n, d=A.d,
+                 block=A.block)
+    sparse_pair(f"S2 logistic_newton f32 tile=7 K={S2['K']} R={R}", A7, s2,
+                "logistic_newton", _draws(g, S2["K"], A7.nblk), start(A7))
+    b, c = map(int, torch.nonzero(A.scatter_order().zmask)[0])
+    x0 = start(A)
+    x0[b * 128 + c] = float("nan")
+    idx = _draws(g, S2["K"], A.nblk)
+    idx[:, 0] = b
+    sparse_pair(f"S2 logistic f32 NaN in padded column K={S2['K']} R={R}",
+                A, s2, "logistic", idx, x0)
 
     # ---- #10: S1 stacked on 4 slots, S2 shared by 4 -----------------------
     S = 4
@@ -335,14 +428,19 @@ def main(argv=None) -> int:
     st_vals = s1.A.vals.expand(S, -1, -1, -1).contiguous()
     k1 = full(S, S1["K"])
     k1[2], k1[3] = S1["K"] // 2, 0
+    k2 = full(S, S2["K"])
+    k2[2] = 0
     for tag, prob, rows, vals, shared, loss, K, k_eff in (
             ("S1 lasso f32 stacked S=4", s1, st_rows, st_vals, False,
              "lasso", S1["K"], k1),
             ("S2 logistic_newton f32 shared S=4", s2, s2.A.rows, s2.A.vals,
-             True, "logistic_newton", S2["K"], full(S, S2["K"]))):
+             True, "logistic_newton", S2["K"], full(S, S2["K"])),
+            ("S2 logistic_newton f32 shared S=4 slot 2 frozen", s2,
+             s2.A.rows, s2.A.vals, True, "logistic_newton", S2["K"], k2)):
         A = prob.A
         od = (A.scatter_order() if shared
               else kb.stacked_scatter_order(rows, vals))
+        rs = kb.stacked_range_starts(rows, od, A.n)
         x0 = torch.randn(S, A.d_pad, generator=g, device=dev) * 0.01
         x0[:, A.d:] = 0.0
         z0 = torch.stack([A.matvec(x0[s]) for s in range(S)])
@@ -350,18 +448,23 @@ def main(argv=None) -> int:
         y = prob.y.expand(S, -1).contiguous()
         fa = (rows, vals, z0, x0, idx, ladder(prob.lam, S),
               full(S, prob.beta), y, k_eff, full(S, inf))
-        fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
-            *fa, loss=loss, shared_design=shared, order=od)
-        record(f"#10 {tag} K={K} R={R}", fn(), on(old, fn)())
+        kw = dict(loss=loss, shared_design=shared, order=od)
+        record(f"#10 {tag} K={K} R={R}",
+               kb.batched_fused_sparse_shotgun_rounds(*fa, **kw, rstart=rs),
+               old_batched_sparse(old, *fa, **kw))
+        if "frozen" in tag:
+            continue
         fa = (rows, vals, torch.zeros(S, A.n, device=dev),
               torch.zeros(S, A.d_pad, device=dev),
               torch.stack([_draws(g, K, A.nblk, dup=False)
                            for _ in range(S)]),
               ladder(prob.lam, S), full(S, prob.beta), y, full(S, K),
               full(S, inf))
-        fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
-            *fa, loss=loss, shared_design=shared, order=od)
-        timed(f"#10 {tag} R={R}", on(old, fn), fn, args.iters, SPARSE)
+        timed(f"#10 {tag} R={R}",
+              lambda: old_batched_sparse(old, *fa, **kw),
+              lambda: kb.batched_fused_sparse_shotgun_rounds(*fa, **kw,
+                                                             rstart=rs),
+              args.iters, SPARSE)
     print(json.dumps({"compare_fused": summary, "times": times,
                       "ok": not failed}))
     return 1 if failed else 0

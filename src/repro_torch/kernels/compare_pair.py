@@ -163,7 +163,8 @@ def main(argv=None) -> int:
                                   lambda f: device_ms(f, args.iters))
                         res[f"{name}_turns"] = t
                         print(f"time {name} [{case}]: " + "; ".join(
-                            f"{lb} events {e:.4f} ms device {d:.4f} ms"
+                            f"{lb} events {e:.4f} ms device "
+                            + ("n/a" if d is None else f"{d:.4f} ms")
                             for lb, e, d in t))
                 print(f"compare [{case}]: scatter z {res['z']}; nan-pad "
                       f"{res['z nan-pad']}; gather max rel {rel:.3e}")

@@ -268,13 +268,14 @@ def _fused_sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss: Loss,
     """Loop over launches of the fused sparse kernel, one per R rounds;
     blk_idx (L, R, K); launch-granular rollback with ``guard``."""
     x, z = _sparse_start(S, x0)
-    order = S.scatter_order()
+    order, rstart = S.scatter_order(), S.range_starts()
     ones = torch.ones_like(y, dtype=torch.float32)
 
     def launch(z, x, idx, k_eff, guard_f):
         return fused_sparse_shotgun_rounds(S.rows, S.vals, z, x, idx, lam,
                                            beta, y, loss=loss, k_eff=k_eff,
-                                           guard_f=guard_f, order=order)
+                                           guard_f=guard_f, order=order,
+                                           rstart=rstart)
 
     return _launch_loop(launch, _objective(y, ones, lam, loss.name), x, z,
                         blk_idx, guard)

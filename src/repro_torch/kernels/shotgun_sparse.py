@@ -11,10 +11,10 @@ C++ in ``csrc/shotgun_sparse.cu`` and built by ``kernels/_build.py``:
                                emitting Δz (the sharded driver's engine)
 
 Each wrapper keeps the JAX signature and return tuple, minus ``interpret``;
-the scatter and the fused kernel take the container's row-sorted slot order
-as ``order=`` (``BlockedCSC.scatter_order()``, cached per problem; built
-here when not given), the scatter also its range-start table as
-``rstart=`` (``BlockedCSC.range_starts()``, likewise).  A wrapper given
+the scatter and the fused kernels take the container's row-sorted slot
+order as ``order=`` (``BlockedCSC.scatter_order()``, cached per problem;
+built here when not given) and its range-start table as ``rstart=``
+(``BlockedCSC.range_starts()``, likewise).  A wrapper given
 CPU tensors runs its plain version (``*_plain``, same module, same
 dataflow); given CUDA tensors it launches the kernel or raises — it never
 falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
@@ -25,6 +25,7 @@ padded tile slots (row 0, value 0) are additive no-ops in both directions
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -92,10 +93,48 @@ def _require_contiguous(*tensors: torch.Tensor) -> None:
 
 def _check_stamps(stamps, R: int, dev) -> None:
     if stamps is not None and (stamps.dtype != torch.int64
-                               or stamps.numel() < 3 * R + 4
+                               or stamps.numel() < 2 * R + 6
                                or stamps.device != dev):
-        raise ValueError(f"stamps must be an int64 tensor of >= {3 * R + 4} "
+        raise ValueError(f"stamps must be an int64 tensor of >= {2 * R + 6} "
                          f"elements on {dev}")
+
+
+def _check_rstart(rstart, lead: tuple, nblk: int, n: int, dev) -> None:
+    """Raise unless ``rstart`` is None or a contiguous int32 range-start
+    table of shape ``lead + (nblk, ceil(n / RANGE_ROWS) + 1)`` on ``dev``,
+    the operands' device (a table elsewhere would reach the kernel as a
+    pointer it cannot read)."""
+    want = (*lead, nblk, -(-n // RANGE_ROWS) + 1)
+    if rstart is not None and (rstart.dtype != torch.int32
+                               or not rstart.is_contiguous()
+                               or tuple(rstart.shape) != want
+                               or rstart.device != dev):
+        raise ValueError(f"rstart must be a contiguous int32 {want} "
+                         f"range-start table on {dev}, got {rstart.dtype} "
+                         f"{tuple(rstart.shape)} on {rstart.device}")
+
+
+def _scalar_args(values, S: int, dev):
+    """The fused kernels' four scalars [lam, beta, k_eff, guard_f]: a
+    ctypes array of 4 device pointers, a ctypes array of 4 floats and the
+    tensors behind the pointers.  A tensor stays on the device (never read
+    back): S values, one a slot (a single value serves every slot), read by
+    the kernel through its pointer.  A number goes by value."""
+    ptrs, nums, keep = (ctypes.c_void_p * 4)(), (ctypes.c_float * 4)(), []
+    for j, v in enumerate(values):
+        if not isinstance(v, torch.Tensor):
+            nums[j] = float(v)
+            continue
+        t = v.to(device=dev, dtype=torch.float32)
+        if t.numel() == 1:
+            t = t.reshape(1).expand(S)
+        if tuple(t.shape) != (S,):
+            raise ValueError(f"scalar of shape {tuple(v.shape)} for {S} "
+                             f"slot(s)")
+        t = t.contiguous()
+        keep.append(t)
+        ptrs[j] = t.data_ptr()
+    return ptrs, nums, keep
 
 
 def _take_tiles(rows, vals, idx):
@@ -105,9 +144,9 @@ def _take_tiles(rows, vals, idx):
 
 
 def _scatter_plain(rows_k, vals_k, z, delta):
-    """z + Σ_k A_{B_k} δ_k with the kernel's dataflow: block k's
-    contributions land in row k of a (K, n) buffer, then the rows are added
-    to z in k order."""
+    """z + Σ_k A_{B_k} δ_k, each row's sum in the fused kernels' order:
+    block k's contributions land in row k of a (K, n) buffer, then the rows
+    are added to z in k order."""
     K = rows_k.shape[0]
     n = z.shape[0]
     contrib = vals_k * delta[:, None, :]
@@ -131,16 +170,11 @@ _RAW_STREAM = None   # device index -> PyTorch's current stream (int)
 
 
 def _lib():
-    """The kernel library, built at first use and kept; raises when its
-    scatter range width is not ``RANGE_ROWS`` (the table would not fit)."""
+    """The kernel library, built at first use and kept."""
     global _LIB, _RAW_STREAM
     if _LIB is None:
         from repro_torch.kernels import _build
         lib = _build.load()
-        if lib.sp_range_rows() != RANGE_ROWS:
-            raise RuntimeError(f"the scatter kernel takes ranges of "
-                               f"{lib.sp_range_rows()} rows, the range-start "
-                               f"table {RANGE_ROWS}")
         _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
             or (lambda dev: torch.cuda.current_stream(dev).cuda_stream)
         _LIB = lib
@@ -265,13 +299,9 @@ def sparse_scatter_block_update(rows, vals, z, blk_idx, delta, *,
                                                  delta, order=order,
                                                  rstart=rstart)
     _require_contiguous(rows, vals)
+    _check_rstart(rstart, (), nblk, n, vals.device)
     od = scatter_order(rows, vals) if order is None else order
     rs = range_starts(rows, od, n) if rstart is None else rstart
-    if (rs.dtype != torch.int32 or not rs.is_contiguous()
-            or rs.shape != (nblk, -(-n // RANGE_ROWS) + 1)):
-        raise ValueError(f"rstart must be a contiguous int32 "
-                         f"({nblk}, {-(-n // RANGE_ROWS) + 1}) range-start "
-                         f"table, got {rs.dtype} {tuple(rs.shape)}")
     lib = _lib()
     z_in = _as(z, torch.float32)
     idx = _as(blk_idx, torch.int32)
@@ -349,6 +379,7 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
                                 loss: str | Loss = LASSO, k_eff=None,
                                 guard_f=None, *,
                                 order: ScatterOrder | None = None,
+                                rstart: torch.Tensor | None = None,
                                 stamps: torch.Tensor | None = None):
     """R Block-Shotgun rounds over BlockedCSC tiles in ONE kernel launch.
 
@@ -360,9 +391,18 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
                ``Loss``; Newton divides by max(Σ vals²·w[rows], 1e-8).
     k_eff      blocks k >= k_eff are drawn but masked out.  None = all K.
     guard_f    health trips when a round's F exceeds it or goes non-finite.
-    stamps     optional (3R + 4,) int64 CUDA tensor: the kernel writes the
-               SM clock at launch start, after each grid-wide barrier and at
-               the end (phase breakdown; ignored on the CPU).
+    order/rstart  the container's ``scatter_order()`` and
+               ``range_starts()`` (built here when not given).
+    stamps     optional (2R + 6,) int64 CUDA tensor: the grid's last block
+               writes the SM clock at launch start, after each grid-wide
+               barrier (two a round: A, then BC) and at the end (phase
+               breakdown), then the card's ns timer at launch start and at
+               the end (ignored on the CPU).
+
+    ``lam``, ``beta``, ``k_eff`` and ``guard_f`` are numbers (passed by
+    value) or one-element device tensors (read by the kernel, never read
+    back).  With operands in the kernel's types (f32 z, x and y, int32
+    blk_idx), a call is the one launch and no other device operation.
 
     Returns (x_new (nblk·128,) f32, z_new (n,) f32, f (R,) f32,
     nnz (R,) int32, health () f32).
@@ -371,47 +411,51 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
     nblk, tile = _check_tiles(rows, vals)
     R, K = blk_idx.shape
     n = z.shape[0]
+    _check_rstart(rstart, (), nblk, n, vals.device)
     if not _on_cuda(rows, vals, z, x, blk_idx, y):
         return fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx,
                                                  lam, beta, y, ls, k_eff,
                                                  guard_f)
     _require_contiguous(rows, vals)
     od = scatter_order(rows, vals) if order is None else order
+    rs = range_starts(rows, od, n) if rstart is None else rstart
     from repro_torch.kernels import _build
     lib = _build.load()
     dev = vals.device
     d_pad = nblk * BLOCK
-    scal = _scalars(lam, beta, K if k_eff is None else k_eff,
-                    math.inf if guard_f is None else guard_f, dev)
+    sp, sv, keep = _scalar_args(
+        (lam, beta, K if k_eff is None else k_eff,
+         math.inf if guard_f is None else guard_f), 1, dev)
     idx = _contig(blk_idx, torch.int32)
     yv = _contig(y, torch.float32)
-    z_out = z.to(torch.float32, copy=True).contiguous()
-    x_out = x.to(torch.float32, copy=True).contiguous()
+    z0 = _contig(z, torch.float32)
+    x0 = _contig(x, torch.float32)
     f32 = dict(dtype=torch.float32, device=dev)
     n_xc = -(-d_pad // _XCHUNK)
+    z_out = torch.empty(n, **f32)            # every output filled by the
+    x_out = torch.empty(d_pad, **f32)        # kernel
     r = torch.empty(n, **f32)
     w = torch.empty(n if ls.newton else 1, **f32)
-    buf = torch.empty(K * n, **f32)          # zeroed by the kernel
-    padterm = torch.empty(K, **f32)
     dlt = torch.empty((K, BLOCK), **f32)
-    lpart = torch.empty(-(-n // _THREADS), **f32)
+    lpart = torch.empty((2, -(-n // _THREADS)), **f32)
     xl1 = torch.empty(n_xc, **f32)
     xnz = torch.empty(n_xc, dtype=torch.int32, device=dev)
     f = torch.empty(R, **f32)
     nnz = torch.empty(R, dtype=torch.int32, device=dev)
-    health = torch.zeros((), **f32)
+    health = torch.empty((), **f32)
     _check_stamps(stamps, R, dev)
     with torch.cuda.device(dev):
         rc = lib.sp_fused_shotgun_rounds(
             _ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
-            _loss_code(ls), _ptr(od.order), _ptr(od.count), _ptr(od.zmask),
-            _ptr(yv), _ptr(idx), _ptr(scal), _ptr(z_out), _ptr(x_out),
-            _ptr(r), _ptr(w), _ptr(buf), _ptr(padterm), _ptr(dlt),
-            _ptr(lpart), _ptr(xl1), _ptr(xnz), _ptr(f), _ptr(nnz),
-            _ptr(health), _ptr(stamps) if stamps is not None else None, n,
-            d_pad, R, K, tile, _stream(dev))
+            _loss_code(ls), _ptr(od.order), _ptr(rs), _ptr(od.zmask),
+            _ptr(yv), _ptr(idx), sp, sv, _ptr(z0), _ptr(z_out), _ptr(x0),
+            _ptr(x_out), _ptr(r), _ptr(w), _ptr(dlt), _ptr(lpart),
+            _ptr(xl1), _ptr(xnz), _ptr(f), _ptr(nnz), _ptr(health),
+            _ptr(stamps) if stamps is not None else None, n, d_pad, R, K,
+            tile, _stream(dev))
     _check_rc(rc, "fused_sparse_shotgun_rounds")
     LAUNCHES["fused_sparse_shotgun_rounds"] += 1
+    del keep
     return x_out, z_out, f, nnz, health
 
 
@@ -456,7 +500,8 @@ def fused_sparse_shotgun_delta_rounds_plain(rows, vals, z, x, blk_idx, lam,
 def fused_sparse_shotgun_delta_rounds(rows, vals, z, x, blk_idx, lam, beta,
                                       y, loss: str | Loss = LASSO,
                                       k_eff=None, *,
-                                      order: ScatterOrder | None = None):
+                                      order: ScatterOrder | None = None,
+                                      rstart: torch.Tensor | None = None):
     """The sharded driver's fused sparse engine: R rounds over BlockedCSC
     tiles in ONE launch against a read-only margin snapshot ``z``.
 
@@ -465,7 +510,7 @@ def fused_sparse_shotgun_delta_rounds(rows, vals, z, x, blk_idx, lam, beta,
     objective or nnz; ``health`` trips when the view holds a non-finite
     value after a round (a non-finite δ in a column with padding slots
     reaches row 0, as in the reference).  Arguments as
-    ``fused_sparse_shotgun_rounds`` (no ``guard_f``).
+    ``fused_sparse_shotgun_rounds`` (no ``guard_f``, no ``stamps``).
 
     Returns (x_new (nblk·128,) f32, dz (n,) f32, health () f32).
     """
@@ -473,36 +518,39 @@ def fused_sparse_shotgun_delta_rounds(rows, vals, z, x, blk_idx, lam, beta,
     nblk, tile = _check_tiles(rows, vals)
     R, K = blk_idx.shape
     n = z.shape[0]
+    _check_rstart(rstart, (), nblk, n, vals.device)
     if not _on_cuda(rows, vals, z, x, blk_idx, y):
         return fused_sparse_shotgun_delta_rounds_plain(
             rows, vals, z, x, blk_idx, lam, beta, y, ls, k_eff)
     _require_contiguous(rows, vals)
     od = scatter_order(rows, vals) if order is None else order
+    rs = range_starts(rows, od, n) if rstart is None else rstart
     from repro_torch.kernels import _build
     lib = _build.load()
     dev = vals.device
-    scal = _scalars(lam, beta, K if k_eff is None else k_eff, math.inf, dev)
+    d_pad = nblk * BLOCK
+    sp, sv, keep = _scalar_args(
+        (lam, beta, K if k_eff is None else k_eff, math.inf), 1, dev)
     idx = _contig(blk_idx, torch.int32)
     yv = _contig(y, torch.float32)
     z0 = _contig(z, torch.float32)
-    x_out = x.to(torch.float32, copy=True).contiguous()
+    x0 = _contig(x, torch.float32)
     f32 = dict(dtype=torch.float32, device=dev)
     view = torch.empty(n, **f32)             # filled from z0 by the kernel
     dz = torch.empty(n, **f32)               # zeroed by the kernel
+    x_out = torch.empty(d_pad, **f32)        # filled from x0 by the kernel
     r = torch.empty(n, **f32)
     w = torch.empty(n if ls.newton else 1, **f32)
-    buf = torch.empty(K * n, **f32)          # zeroed by the kernel
-    padterm = torch.empty(K, **f32)
     dlt = torch.empty((K, BLOCK), **f32)
-    health = torch.zeros((), **f32)
+    health = torch.empty((), **f32)          # zeroed by the kernel
     with torch.cuda.device(dev):
         rc = lib.sp_fused_shotgun_delta_rounds(
             _ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
-            _loss_code(ls), _ptr(od.order), _ptr(od.count), _ptr(od.zmask),
-            _ptr(yv), _ptr(idx), _ptr(scal), _ptr(z0), _ptr(view), _ptr(dz),
-            _ptr(x_out), _ptr(r), _ptr(w), _ptr(buf), _ptr(padterm),
-            _ptr(dlt), _ptr(health), n, nblk * BLOCK, R, K, tile,
-            _stream(dev))
+            _loss_code(ls), _ptr(od.order), _ptr(rs), _ptr(od.zmask),
+            _ptr(yv), _ptr(idx), sp, sv, _ptr(z0), _ptr(view), _ptr(dz),
+            _ptr(x0), _ptr(x_out), _ptr(r), _ptr(w), _ptr(dlt),
+            _ptr(health), n, d_pad, R, K, tile, _stream(dev))
     _check_rc(rc, "fused_sparse_shotgun_delta_rounds")
     LAUNCHES["fused_sparse_shotgun_delta_rounds"] += 1
+    del keep
     return x_out, dz, health

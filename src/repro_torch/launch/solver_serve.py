@@ -51,9 +51,10 @@ from repro_torch.core.batched import (BatchMeta, SlotArrays, WarmStartCache,
                                       batch_meta_of, launch_converged,
                                       launch_rounds, normalize_problem)
 from repro_torch.core.objectives import Problem
-from repro_torch.data.sparse import bcsc_matvec
+from repro_torch.data.sparse import ScatterOrder, bcsc_matvec
 from repro_torch.device import exact_f32_matmul, resolve_device
-from repro_torch.kernels.batched import stacked_scatter_order
+from repro_torch.kernels.batched import (stacked_range_starts,
+                                         stacked_scatter_order)
 from repro_torch.kernels.ops import _block_stream
 from repro_torch.launch.slots import SlotBoard
 
@@ -114,11 +115,11 @@ def _write_slot(stacked: SlotArrays, x, z, x_snap, z_snap, slot: int,
     and refresh that slot's rollback snapshot — IN PLACE: the stacked
     tensors belong to the service, and an admission copies one slot's
     worth instead of rebuilding all S."""
-    for full, v in zip(stacked[:-1], sa[:-1]):
-        if full is not None:
-            full[slot].copy_(v)
-    if stacked.order is not None:
-        for full, v in zip(stacked.order, sa.order):
+    for full, v in zip(stacked, sa):
+        if isinstance(full, ScatterOrder):
+            for f, u in zip(full, v):
+                f[slot].copy_(u)
+        elif full is not None:
             full[slot].copy_(v)
     for full, v in ((x, x0), (z, z0), (x_snap, x0), (z_snap, z0)):
         full[slot].copy_(v)
@@ -169,9 +170,10 @@ class SolverService:
         if m.layout == "bcsc":
             rows = zero(S, m.nblk, m.tile, m.block, dtype=torch.int32)
             vals = zero(S, m.nblk, m.tile, m.block)
+            order = stacked_scatter_order(rows, vals)
             sa = SlotArrays(A=None, rows=rows, vals=vals, y=zero(S, m.n_pad),
-                            mask=None, lam=zero(S), beta=ones,
-                            order=stacked_scatter_order(rows, vals))
+                            mask=None, lam=zero(S), beta=ones, order=order,
+                            rstart=stacked_range_starts(rows, order, m.n_pad))
         else:
             sa = SlotArrays(A=zero(S, m.n_pad, m.d_pad), rows=None,
                             vals=None, y=zero(S, m.n_pad),

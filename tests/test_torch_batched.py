@@ -34,6 +34,7 @@ from repro.launch.slots import SlotBoard as JSlotBoard  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import batched as tcb  # noqa: E402
 from repro_torch.core.spec import SolverSpec  # noqa: E402
+from repro_torch.data import sparse as tsp  # noqa: E402
 from repro_torch.kernels import batched as tkb  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import shotgun_block as tsb  # noqa: E402
@@ -237,6 +238,54 @@ def test_stacked_scatter_order_is_per_slot():
         one = tss.scatter_order(st.rows[s], st.vals[s])
         assert all(torch.equal(a[s], b) for a, b in zip(od, one))
         assert all(torch.equal(a[s], b) for a, b in zip(st.order, one))
+
+
+def test_stacked_range_starts_are_per_slot():
+    """The stacked range-start tables equal each slot's own ``range_starts``
+    over its padded tiles (the auto tiles differ, so the slots are padded
+    to the canvas's tile; padding slots are left out of the table, so it
+    is also the unpadded design's), and ``stack_problems`` carries them;
+    3-D (shared) tiles give the design's own table."""
+    probs = [_to_port(p) for p in _sparse_problems("lasso")]
+    meta, st = tcb.stack_problems(probs)
+    assert len({p.A.tile for p in probs}) > 1
+    od = tkb.stacked_scatter_order(st.rows, st.vals)
+    rs = tkb.stacked_range_starts(st.rows, od, meta.n_pad)
+    nq1 = -(-meta.n_pad // tsp.RANGE_ROWS) + 1
+    assert rs.dtype == torch.int32 and rs.shape == (3, meta.nblk, nq1)
+    assert torch.equal(rs, st.rstart)
+    for s in range(3):
+        one = tss.scatter_order(st.rows[s], st.vals[s])
+        assert torch.equal(rs[s], tsp.range_starts(st.rows[s], one,
+                                                   meta.n_pad))
+        assert torch.equal(rs[s], probs[s].A.range_starts())
+        shared = tkb.stacked_range_starts(st.rows[s], one, meta.n_pad)
+        assert torch.equal(shared, rs[s])
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_batched_sparse_kernel_rejects_a_wrong_range_table(shared):
+    """#10's wrapper takes a (S, nblk, ·) table for stacked tiles and an
+    (nblk, ·) one for a shared design, on the operands' device, checked
+    before it dispatches."""
+    probs = [_to_port(p) for p in _sparse_problems("lasso")]
+    meta, st = tcb.stack_problems(probs)
+    rows, vals = (st.rows[0], st.vals[0]) if shared else (st.rows, st.vals)
+    args = (rows, vals, torch.zeros(3, meta.n_pad), torch.zeros(3, meta.d_pad),
+            torch.zeros(3, 2, 1, dtype=torch.int32), 0.1, 1.0, st.y, 1.0,
+            INF)
+    good, bad = ((st.rstart[0], st.rstart) if shared
+                 else (st.rstart, st.rstart[0]))
+    for table in (bad, good.long(), good[..., :-1].contiguous(),
+                  good.to("meta")):
+        with pytest.raises(ValueError, match="rstart"):
+            tkb.batched_fused_sparse_shotgun_rounds(
+                *args, shared_design=shared, rstart=table)
+    got = tkb.batched_fused_sparse_shotgun_rounds(*args, shared_design=shared,
+                                                  rstart=good)
+    want = tkb.batched_fused_sparse_shotgun_rounds(*args,
+                                                   shared_design=shared)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
 def test_batched_draw_blocks_follow_the_standalone_stream():

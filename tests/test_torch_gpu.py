@@ -462,14 +462,20 @@ def test_fused_sparse_invariants_on_card(cuda):
         S.rows, S.vals, z, xn, one, prob.lam, prob.beta, prob.y,
         loss="logistic")
     assert float(h) == 1.0 and bool(torch.isnan(zo[0]))
-    # the phase stamps: one per barrier, in order, outputs unchanged
-    stamps = torch.zeros(3 * idx.shape[0] + 4, dtype=torch.int64,
-                         device=cuda)
+    # the phase stamps: one per barrier (two a round), in order, then the
+    # launch's ns times, outputs unchanged; the slot past them stays
+    # unwritten
+    R = idx.shape[0]
+    stamps = torch.zeros(2 * R + 7, dtype=torch.int64, device=cuda)
     timed = tss.fused_sparse_shotgun_rounds(*args, loss="logistic",
                                             stamps=stamps)
     for u, v in zip(full, timed):
         assert torch.equal(u, v)
-    assert bool(torch.all(stamps[1:] >= stamps[:-1])) and int(stamps[0]) > 0
+    st = stamps[:2 * R + 4]
+    assert bool(torch.all(st[1:] >= st[:-1])) and int(st[0]) > 0
+    ns = stamps[2 * R + 4:2 * R + 6]
+    assert int(ns[1]) > int(ns[0]) > 0
+    assert int(stamps[-1]) == 0
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -729,13 +735,193 @@ def test_batched_sparse_matches_plain_and_unbatched_bitwise(cuda, loss,
             order=od if shared else tss.scatter_order(*slot))
 
     _check_batched(got, want, one, x, z, 1e-4)
-    # the phase stamps: one per barrier, in order, outputs unchanged
-    stamps = torch.zeros(3 * idx.shape[1] + 4, dtype=torch.int64,
-                         device=cuda)
+    # the phase stamps: one per barrier (two a round), in order, then the
+    # launch's ns times, outputs unchanged; the slot past them stays
+    # unwritten
+    R = idx.shape[1]
+    stamps = torch.zeros(2 * R + 7, dtype=torch.int64, device=cuda)
     timed = tkb.batched_fused_sparse_shotgun_rounds(
         *args, loss=loss, shared_design=shared, order=od, stamps=stamps)
     assert all(torch.equal(u, v) for u, v in zip(got, timed))
-    assert bool(torch.all(stamps[1:] >= stamps[:-1])) and int(stamps[0]) > 0
+    st = stamps[:2 * R + 4]
+    assert bool(torch.all(st[1:] >= st[:-1])) and int(st[0]) > 0
+    ns = stamps[2 * R + 4:2 * R + 6]
+    assert int(ns[1]) > int(ns[0]) > 0
+    assert int(stamps[-1]) == 0
+
+
+def _fused_sparse_call(kernel, probs, x, z, idx, loss, k_eff=None):
+    """(kernel, plain) outputs of #2 or #8 on probs[0], or of #10 on the
+    stacked probs (x, z, idx stacked; k_eff a number or (S,) tensor), each
+    with its cached layouts; #10 is also held slot by slot against #2."""
+    if kernel in ("#2", "#8"):
+        S = probs[0].A
+        args = (S.rows, S.vals, z, x, idx, probs[0].lam, probs[0].beta,
+                probs[0].y)
+        kw = dict(loss=loss, k_eff=k_eff, order=S.scatter_order(),
+                  rstart=S.range_starts())
+        if kernel == "#2":
+            return (tss.fused_sparse_shotgun_rounds(*args, **kw),
+                    tss.fused_sparse_shotgun_rounds_plain(*args, loss=loss,
+                                                          k_eff=k_eff))
+        return (tss.fused_sparse_shotgun_delta_rounds(*args, **kw),
+                tss.fused_sparse_shotgun_delta_rounds_plain(*args, loss=loss,
+                                                            k_eff=k_eff))
+    rows, vals, od = _stacked_tiles(probs, "f32")
+    n, nS = probs[0].A.n, len(probs)
+    rs = tkb.stacked_range_starts(rows, od, n)
+    y = torch.stack([p.y for p in probs])
+    k = torch.full((nS,), float(idx.shape[-1] if k_eff is None else k_eff),
+                   device=x.device)
+    lam = torch.stack([torch.as_tensor(p.lam, dtype=torch.float32,
+                                       device=x.device) for p in probs])
+    beta = torch.full((nS,), float(probs[0].beta), device=x.device)
+    guard = torch.full((nS,), float("inf"), device=x.device)
+    args = (rows, vals, z, x, idx, lam, beta, y, k, guard)
+    got = tkb.batched_fused_sparse_shotgun_rounds(*args, loss=loss, order=od,
+                                                  rstart=rs)
+    for s in range(nS):
+        one = tss.fused_sparse_shotgun_rounds(
+            rows[s], vals[s], z[s], x[s], idx[s], lam[s], beta[s], y[s],
+            loss=loss, k_eff=k[s], guard_f=guard[s],
+            order=tss.scatter_order(rows[s], vals[s]), rstart=rs[s])
+        assert all(torch.equal(_bits(a[s]), _bits(b))
+                   for a, b in zip(got, one)), s
+    return got, tkb.batched_fused_sparse_shotgun_rounds_plain(*args,
+                                                              loss=loss)
+
+
+def _bits(t):
+    """An f32 tensor's bit patterns (equal also where both hold one NaN)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _close_with_nan(got, want, tol):
+    """Outputs agree to ``tol`` and are NaN at the same places."""
+    for u, v in zip(got, want):
+        if u.dtype == torch.float32:
+            assert torch.equal(torch.isnan(u), torch.isnan(v))
+            torch.testing.assert_close(u, v, rtol=tol, atol=tol,
+                                       equal_nan=True)
+        else:
+            assert torch.all((u - v).abs() <= 1)
+
+
+@pytest.mark.parametrize("K", [33, 72])
+@pytest.mark.parametrize("kernel", ["#2", "#8", "#10"])
+def test_fused_sparse_K_above_the_chunk_matches_plain(cuda, kernel, K):
+    """K above the fused kernels' chunk of 32 drawn blocks (two and three
+    chunks of the row-range sums), with a duplicate draw and k_eff < K, on
+    94 column blocks."""
+    probs = [_sparse("logistic", cuda, d=12000, seed=s) for s in range(2)]
+    cols = [_sparse_inputs(p.A, K=K, seed=20 + s)
+            for s, p in enumerate(probs)]
+    for k_eff in (None, K - 5):
+        if kernel == "#10":
+            x, z, idx = (torch.stack(c) for c in zip(*cols))
+        else:
+            x, z, idx = cols[0]
+        got, want = _fused_sparse_call(kernel, probs, x, z, idx, "logistic",
+                                       k_eff)
+        _close_with_nan(got, want, 1e-4)
+        assert not any(bool(torch.isnan(t).any()) for t in got
+                       if t.dtype == torch.float32)
+
+
+@pytest.mark.parametrize("kernel", ["#2", "#8", "#10"])
+def test_fused_sparse_nonfinite_delta_on_a_padded_block(cuda, kernel):
+    """A NaN iterate in a column with a padding slot gives that column a
+    NaN δ, whose 0·δ reaches row 0 through the padding terms: z (or Δz) is
+    NaN at row 0 and at the column's rows, as in the plain version, and
+    health trips; #10's other slot is untouched."""
+    probs = [_sparse("logistic", cuda, seed=s) for s in range(2)]
+    cols = [list(_sparse_inputs(p.A, R=1, K=4, seed=30 + s))
+            for s, p in enumerate(probs)]
+    S = probs[0].A
+    b, c = map(int, torch.nonzero(S.scatter_order().zmask)[0])
+    x0, _, idx0 = cols[0]
+    x0[b * BLOCK + c] = float("nan")
+    idx0[0, 1] = b
+    if kernel == "#10":
+        x, z, idx = (torch.stack(t) for t in zip(*cols))
+    else:
+        x, z, idx = cols[0]
+    got, want = _fused_sparse_call(kernel, probs, x, z, idx, "logistic")
+    _close_with_nan(got, want, 1e-4)
+    out = got[1][0] if kernel == "#10" else got[1]
+    assert bool(torch.isnan(out[0]))
+    health = got[-1]
+    if kernel == "#10":
+        assert health.tolist() == [1.0, 0.0]
+        assert not bool(torch.isnan(got[1][1]).any())
+    else:
+        assert float(health) == 1.0
+
+
+@pytest.mark.parametrize("kernel", ["#2", "#8", "#10"])
+def test_fused_sparse_call_is_one_launch_and_no_other_device_op(cuda, kernel):
+    """With operands in the kernel's types and the cached layouts, a call
+    is one cooperative launch and no other device operation: no (K, n)
+    buffer or memset, and z, x and health are written by the launch itself.
+    Counted on the runtime calls that enqueue device work: in this test
+    process the profiler returned one device record for three back-to-back
+    cooperative launches (seen on the H100; a script alone gets three)."""
+    from torch.profiler import ProfilerActivity, profile
+    probs = [_sparse("lasso", cuda, seed=s) for s in range(2)]
+    cols = [_sparse_inputs(p.A, seed=40 + s) for s, p in enumerate(probs)]
+    S = probs[0].A
+    kw = dict(loss="lasso", order=S.scatter_order(), rstart=S.range_starts())
+    lam = torch.as_tensor(probs[0].lam, dtype=torch.float32, device=cuda)
+    if kernel == "#10":
+        x, z, idx = (torch.stack(t) for t in zip(*cols))
+        y = torch.stack([probs[0].y] * 2)
+        per = lambda v: torch.full((2,), v, device=cuda)  # noqa: E731
+        args = (S.rows, S.vals, z, x, idx, lam.expand(2).contiguous(),
+                per(1.0), y, per(3.0), per(float("inf")))
+        fn = lambda: tkb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
+            *args, shared_design=True, **kw)
+    else:
+        x, z, idx = cols[0]
+        args = (S.rows, S.vals, z, x, idx, lam, 1.0, probs[0].y)
+        wrapper = (tss.fused_sparse_shotgun_rounds if kernel == "#2"
+                   else tss.fused_sparse_shotgun_delta_rounds)
+        fn = lambda: wrapper(*args, **kw)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    enqueue = [e.name for e in prof.events()
+               if e.name.startswith(("cudaLaunch", "cudaMemcpy", "cudaMemset"))]
+    assert enqueue == ["cudaLaunchCooperativeKernel"] * 3, enqueue
+    ev = [e.name for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert ev and all("fused_sparse_kernel" in e for e in ev), ev
+
+
+def test_fused_sparse_wrappers_reject_a_wrong_rstart_on_card(cuda):
+    prob = _sparse("lasso", cuda)
+    S = prob.A
+    x, z, idx = _sparse_inputs(S)
+    rs = S.range_starts()
+    args = (S.rows, S.vals, z, x, idx, prob.lam, prob.beta, prob.y)
+    for bad in (rs[:, :-1].contiguous(), rs.long(), rs[None]):
+        for fn in (tss.fused_sparse_shotgun_rounds,
+                   tss.fused_sparse_shotgun_delta_rounds):
+            with pytest.raises(ValueError, match="rstart"):
+                fn(*args, order=S.scatter_order(), rstart=bad)
+    st = lambda t: torch.stack([t, t])  # noqa: E731
+    full = lambda v: torch.full((2,), float(v), device=cuda)  # noqa: E731
+    bargs = (S.rows, S.vals, st(z), st(x), st(idx), full(prob.lam),
+             full(prob.beta), st(prob.y), full(3), full(float("inf")))
+    for shared, bad in ((True, st(rs)), (False, rs)):
+        rows = S.rows if shared else st(S.rows)
+        vals = S.vals if shared else st(S.vals)
+        with pytest.raises(ValueError, match="rstart"):
+            tkb.batched_fused_sparse_shotgun_rounds(
+                rows, vals, *bargs[2:], shared_design=shared, rstart=bad)
 
 
 @pytest.mark.parametrize("kind", ["dense", "bcsc"])

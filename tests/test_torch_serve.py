@@ -177,6 +177,31 @@ def test_warm_cache_hit_skips_half_the_cold_rounds():
     assert 0.0 < svc.slot_occupancy <= 1.0
 
 
+def test_admission_writes_the_slots_range_table():
+    """Admitting a design into a slot writes that slot's range-start table
+    (the fused kernel's row ranges) with the design's own, also when the
+    slot held another design; the other slot keeps its table."""
+    from repro_torch.core import objectives as tobj
+    from repro_torch.data import synthetic as tsyn
+    probs = []
+    for seed, dens in ((0, 0.02), (1, 0.05)):
+        A, y, _ = tsyn.large_sparse(seed=seed, n=300, d=640, density=dens,
+                                    layout="bcsc")
+        probs.append(tobj.make_problem(A, y, 0.1, device="cpu"))
+    assert probs[0].A.tile != probs[1].A.tile
+    meta = batch_meta_of(probs[0])._replace(
+        tile=max(p.A.tile for p in probs))
+    svc = SolverService(meta, slots=2, device="cpu", **KW)
+    for rid, (slot, p) in enumerate(((0, probs[0]), (1, probs[1]),
+                                     (0, probs[1]))):
+        svc._admit(SolveRequest(rid=rid, problem_id=rid, prob=p, seed=rid),
+                   slot)
+        assert torch.equal(svc.stacked.rstart[slot], p.A.range_starts())
+    assert torch.equal(svc.stacked.rstart[1], probs[1].A.range_starts())
+    assert not torch.equal(probs[0].A.range_starts(),
+                           probs[1].A.range_starts())
+
+
 def test_mixed_loss_request_raises():
     reqs = _fresh_stream(requests=2)
     svc = SolverService(batch_meta_of(reqs[0].prob), slots=2,

@@ -365,6 +365,61 @@ def test_scatter_rejects_a_foreign_range_table():
                                         rstart=U.range_starts())
 
 
+@pytest.mark.parametrize("bad", ["columns", "dtype", "rank", "device"])
+@pytest.mark.parametrize("wrapper", ["rounds", "delta"])
+def test_fused_wrappers_reject_a_wrong_range_table(wrapper, bad):
+    """The fused wrappers check ``rstart``'s type, shape and device before
+    they dispatch: on CPU tensors (the plain version, which takes no table)
+    a wrong table raises as it would on the card, and the right one
+    passes."""
+    _, T = _boundary_bcsc(300)
+    rs = T.range_starts()
+    table = {"columns": rs[:, :-1].contiguous(), "dtype": rs.long(),
+             "rank": rs[None], "device": rs.to("meta")}[bad]
+    idx = torch.tensor([[0, 1, 2]], dtype=torch.int32)
+    args = (T.rows, T.vals, torch.zeros(300), torch.zeros(T.d_pad), idx,
+            0.1, 1.0, torch.zeros(300))
+    fn = (tss.fused_sparse_shotgun_rounds if wrapper == "rounds"
+          else tss.fused_sparse_shotgun_delta_rounds)
+    with pytest.raises(ValueError, match="rstart"):
+        fn(*args, order=T.scatter_order(), rstart=table)
+    want = fn(*args)
+    got = fn(*args, order=T.scatter_order(), rstart=rs)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+@pytest.mark.parametrize("numel,ok", [(None, True), (14, True), (15, True),
+                                      (13, False), ("int32", False)])
+def test_fused_sparse_stamps_are_two_a_round(numel, ok):
+    """The fused sparse kernels stamp 2R + 4 clocks (two barriers a round)
+    and two ns times: R = 4 needs 14 int64 elements."""
+    stamps = (None if numel is None else
+              torch.zeros(14, dtype=torch.int32) if numel == "int32" else
+              torch.zeros(numel, dtype=torch.int64))
+    if ok:
+        tss._check_stamps(stamps, 4, torch.device("cpu"))
+    else:
+        with pytest.raises(ValueError, match="stamps must be an int64"):
+            tss._check_stamps(stamps, 4, torch.device("cpu"))
+
+
+def test_fused_scalars_go_by_value_or_by_pointer():
+    """Numbers go to the kernel by value; tensors stay tensors (S values,
+    a single value serving every slot) and go by pointer."""
+    cpu = torch.device("cpu")
+    lam = torch.tensor(0.5)
+    ptrs, nums, keep = tss._scalar_args((lam, 2.0, 3, float("inf")), 1, cpu)
+    assert [bool(p) for p in ptrs] == [True, False, False, False]
+    assert ptrs[0] == keep[0].data_ptr() and float(keep[0][0]) == 0.5
+    assert list(nums)[1:3] == [2.0, 3.0] and np.isinf(nums[3])
+    ptrs, nums, keep = tss._scalar_args(
+        (torch.arange(3.0), 1.0, torch.tensor(2), 0.0), 3, cpu)
+    assert [bool(p) for p in ptrs] == [True, False, True, False]
+    assert keep[1].tolist() == [2.0, 2.0, 2.0] and keep[1].is_contiguous()
+    with pytest.raises(ValueError, match="scalar of shape"):
+        tss._scalar_args((torch.ones(2), 1.0, 1.0, 1.0), 3, cpu)
+
+
 def test_pad_feature_blocks_zero_tail():
     S = _gen("sparse_imaging", "bcsc")[0]
     T = _port_bcsc(S)
