@@ -21,7 +21,18 @@ port's main path — ``block_shotgun_solve`` — on two legs:
   serve   the batched kernels on stacked slots at the same widths (held
           bit for bit against the unbatched kernels per slot), then
           ``SolverService.serve`` on a dense Lasso stream, an S1 stream and
-          a dense stream at λ = 0.5·λ_max whose solves stop early.
+          a dense stream at λ = 0.5·λ_max whose solves stop early;
+  scalar  the paper's own solvers on those problems — scalar Shotgun,
+          guarded Shotgun and Shooting on S1, Shotgun and the Eq. 4 form
+          on the dense Lasso, Shotgun-CDN and Shooting-CDN on the logistic
+          problem (torch code, no kernel) — each held against the CPU on
+          the same draws and an S1 solve profiled for host syncs; then the
+          warm-started λ-path on S1 (``block_fused``, kernel #2) and on
+          the dense Lasso.
+
+The two-kernel pair #3/#4 is timed on three clocks (events, the
+profiler's counted records, events behind a spin) beside cuBLAS on a
+contiguous copy of the drawn blocks and on their strided views.
 
 One Lasso launch of ``fused_shotgun_rounds`` prints its per-phase
 breakdown (the clock of a block that runs no round end, at every barrier).
@@ -46,6 +57,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -87,6 +99,18 @@ SV_STACK, SV_SHARED, SV_ZETA, SV_S1, SV_S2 = 4, 8, 4, 4, 4
 SV_REQUESTS, SV_REPEAT, SV_SLOTS, SV_TOL = 12, 0.5, 4, 1e-4
 SV_DENSE_K, SV_DENSE_ROUNDS, SV_SPARSE_ROUNDS = 8, 64, 128
 SV_EARLY_LAM = 0.5                   # the early-stop stream's λ / λ_max
+# Scalar leg: rounds of the S1 Shotgun / guarded / Shooting solves, of the
+# dense Shotgun and Eq. 4 solves, of the CDN solves and its P; the path's
+# λ count and rounds per λ (S1 block_fused, dense Lasso shotgun); the
+# rounds held against the port on the CPU; the guarded run's P / P*.
+SC_S1_ROUNDS, SC_DENSE_ROUNDS, SC_CDN_ROUNDS, SC_CDN_P = 256, 128, 64, 8
+SC_PATH_LAMBDAS, SC_PATH_ROUNDS, SC_DENSE_PATH_ROUNDS = 10, 64, 32
+SC_CPU_ROUNDS, SC_GUARD_FACTOR = 16, 16
+# Runtime calls and operators that make the host wait on the card, or copy
+# from it: none may fall inside an unguarded scalar solve's rounds.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "aten::item",
+              "aten::_local_scalar_dense")
 
 
 class SmokeFailure(RuntimeError):
@@ -167,8 +191,12 @@ def device_busy(fn, kernels: tuple[str, ...] = ()):
         fn()
         torch.cuda.synchronize()
         time.sleep(0.005)
+    # a ``record_function`` range shows on the device timeline too, as an
+    # annotation spanning everything inside it: not device activity
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith("repro_torch.")]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, cur = 0.0, None
     for a, b in spans:
@@ -351,10 +379,11 @@ def main() -> int:
     sharded_kernels, sharded_json = sharded_leg(args, dense_data, sparse_data,
                                                 dense_json, sparse_json)
     serve_kernels, serve_json = serve_leg(args, dense_data, sparse_data)
+    scalar_json = scalar_leg(args, dense_data, sparse_data)
 
     # ---- report -----------------------------------------------------------
     print(json.dumps({**dense_json, **sparse_json, **sharded_json,
-                      **serve_json}))
+                      **serve_json, **scalar_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": dense_kernels + sparse_kernels
                       + sharded_kernels + serve_kernels}))
@@ -477,19 +506,67 @@ def dense_leg(args):
                 *fargs, loss=loss), max(2, iters // 4), warmup=1),
             bound=bound(R * blk_bytes + 4 * (4 * n + 2 * d) + 8 * R,
                         R * (4 + 3 * newton) * K * n * sb.BLOCK))
+        # the two-kernel pair against cuBLAS: on a contiguous (n, K·128)
+        # copy of the drawn blocks, gathered outside any timing (the
+        # library column), and as K calls on the strided block views the
+        # kernels read (no copy); timed, checked, never used by the port
+        i0 = idx[0].clone()
+        views = [A[:, b * sb.BLOCK:(b + 1) * sb.BLOCK] for b in i0.tolist()]
+        Ac = torch.cat(views, dim=1)
+        d_flat = dl.reshape(-1)
+        gather = lambda: sb.gather_block_matvec(A, r, i0)  # noqa: E731
+        scatter = lambda: sb.scatter_block_update(A, z0, i0, dl)  # noqa: E731
+        lib_mv = lambda: torch.mv(Ac.t(), r)  # noqa: E731
+        lib_addmv = lambda: torch.addmv(z0, Ac, d_flat)  # noqa: E731
+
+        def strided_mv():
+            return torch.stack([torch.mv(v.t(), r) for v in views])
+
+        def strided_addmv():
+            z = z0
+            for v, dk in zip(views, dl):
+                z = torch.addmv(z, v, dk)
+            return z
+
+        for what, got, want in (
+                ("cuBLAS mv on the copy", lib_mv().reshape(K, sb.BLOCK),
+                 gather()),
+                ("K cuBLAS mv on the strided blocks", strided_mv(), gather()),
+                ("cuBLAS addmv on the copy", lib_addmv(), scatter()),
+                ("K cuBLAS addmv on the strided blocks", strided_addmv(),
+                 scatter())):
+            err, rel = rel_err(got, want)
+            print(f"check yardstick [{loss} n={n} d={d} K={K}] {what} "
+                  f"against the kernel: max_abs_err {err:.3e} rel {rel:.3e}")
+            require(rel <= REL_TOL, f"yardstick {what}: rel err {rel:.3e}")
+        g_ms, mv_ms = paired_ms(gather, lib_mv, PAIR_ITERS)
+        s_ms, addmv_ms = paired_ms(scatter, lib_addmv, PAIR_ITERS)
         out["gather_block_matvec"] = dict(
-            ms=time_ms(lambda: sb.gather_block_matvec(A, r, idx[0]), iters),
+            ms=g_ms,
             plain_ms=time_ms(lambda: sb.gather_block_matvec_plain(
-                A, r, idx[0]), iters),
+                A, r, i0), iters),
+            library_ms=mv_ms,
             bound=bound(blk_bytes + 4 * n + 4 * K + 4 * K * sb.BLOCK,
                         2 * K * n * sb.BLOCK))
         out["scatter_block_update"] = dict(
-            ms=time_ms(lambda: sb.scatter_block_update(A, z0, idx[0], dl),
-                       iters),
+            ms=s_ms,
             plain_ms=time_ms(lambda: sb.scatter_block_update_plain(
-                A, z0, idx[0], dl), iters),
+                A, z0, i0, dl), iters),
+            library_ms=addmv_ms,
             bound=bound(blk_bytes + 8 * n + 4 * K + 4 * K * sb.BLOCK,
                         2 * K * n * sb.BLOCK))
+        # every device op of a call, its records counted; the same calls
+        # queued behind a spin; the yardsticks on the profiler's clock
+        for name, fn, lib, strided in (
+                ("gather_block_matvec", gather, lib_mv, strided_mv),
+                ("scatter_block_update", scatter, lib_addmv,
+                 strided_addmv)):
+            t = out[name]
+            t["device_ms"] = device_ms(fn, None, PAIR_ITERS)
+            t["queued_ms"] = queued_ms(fn, PAIR_ITERS)
+            t["library_device_ms"] = device_ms(lib, None, PAIR_ITERS)
+            t["strided_ms"] = time_ms(strided, iters)
+            t["strided_device_ms"] = device_ms(strided, None, iters)
         return out
 
     t_lasso = kernel_times(La, Ly, Lm, lasso, 8, "lasso", 20)
@@ -556,6 +633,27 @@ def dense_leg(args):
              dict(generator=torch.Generator(device=dev).manual_seed(1)))):
         print_busy(label, lambda: ops.block_shotgun_solve(prob, spec=spec_,
                                                           **kw))
+    # Who sets the pace of the two-kernel solve: its host ms/round beside
+    # #3 + #4's device ms/round and the device's idle share (a profiled
+    # rerun of the same solve).
+    two_spec = SolverSpec(loss="lasso", P=1024, rounds=32)
+    busy, span, n_ev, kms, kn = device_busy(
+        lambda: ops.block_shotgun_solve(lasso, spec=two_spec,
+                                        blk_idx=lasso_idx[:32]),
+        ("gather_partial_kernel", "gather_reduce_kernel", "scatter_kernel"))
+    require(n_ev > 0 and kn > 0,
+            "lasso two-kernel f32: the profiler saw no #3/#4 launch")
+    host = next(r["ms_per_round"] for r in runs
+                if r["label"] == "lasso two-kernel f32")
+    two_pace = dict(host_ms_per_round=host,
+                    kernels_device_ms_per_round=kms / two_spec.rounds,
+                    busy_ms_per_round=busy / two_spec.rounds,
+                    idle_share=1 - busy / span, kernel_records=kn)
+    print(f"pace lasso two-kernel f32: host {host:.4f} ms/round; #3 + #4 "
+          f"{kms / two_spec.rounds:.4f} ms/round of device time ({kn} "
+          f"records of {3 * two_spec.rounds} launches); device busy "
+          f"{busy / two_spec.rounds:.4f} ms/round; idle share "
+          f"{1 - busy / span:.3f}")
 
     # A small problem solved on the card and by the plain versions on the CPU.
     A, y, _ = syn.sparco(seed=args.seed, n=1000, d=700)
@@ -585,10 +683,15 @@ def dense_leg(args):
                      t_lasso["scatter_block_update"], lasso_shape),
     ]
     extra = {"zeta_kernel_times": {
-        k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
-                bound_by=v["bound"][1], device_ms=v.get("device_ms"))
+        k: {**{a: b for a, b in v.items() if a != "bound"},
+            "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
         for k, v in t_zeta.items()},
-        "dense_phases": phases, "dense_solves": runs}
+        "lasso_kernel_times": {
+        k: {**{a: b for a, b in v.items() if a != "bound"},
+            "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+        for k, v in t_lasso.items()},
+        "dense_phases": phases, "dense_solves": runs,
+        "dense_two_kernel_pace": two_pace}
     data = dict(lasso=lasso, zeta=zeta, La=La, Ly=Ly, Lm=Lm, Za=Za, Zy=Zy,
                 Zm=Zm, La16=La16, Za16=Za16, lasso_idx=lasso_idx)
     return kernels, extra, data
@@ -613,7 +716,12 @@ def print_times(groups):
                   + ("" if lib is None else f"; library {lib:.4f} ms")
                   + ("" if ldms is None else
                      f", device {ldms:.4f} ms (host enqueue "
-                     f"{lib - ldms:.4f} ms)"))
+                     f"{lib - ldms:.4f} ms)")
+                  + ("" if "strided_ms" not in v else
+                     f"; K library calls on the strided blocks "
+                     f"{v['strided_ms']:.4f} ms"
+                     + ("" if v["strided_device_ms"] is None else
+                        f", device {v['strided_device_ms']:.4f} ms")))
 
 
 def print_busy(label, fn):
@@ -772,7 +880,7 @@ def sparse_leg(args):
     del S
     torch.cuda.synchronize()
     print(f"data (sparse): {time.perf_counter() - t0:.1f} s")
-    K_of = {}
+    K_of, pstar_of = {}, {}
     for tag, prob, want_K in (("S1", s1, S1_P // B), ("S2", s2, S2_K)):
         A = prob.A
         t0 = time.perf_counter()
@@ -782,7 +890,7 @@ def sparse_leg(args):
         K = want_K
         if tag == "S1" and K * B >= pstar:
             K = max(1, (pstar - 1) // B)             # largest K under P*
-        K_of[tag] = K
+        K_of[tag], pstar_of[tag] = K, pstar
         nbytes = A.rows.numel() * 4 + A.vals.numel() * A.vals.element_size()
         print(f"problem {tag} ({prob.loss}): n {A.n} d {A.d} d_pad {A.d_pad} "
               f"nblk {A.nblk} tile {A.tile} nnz {int(A.nnz)} (density "
@@ -1045,7 +1153,7 @@ def sparse_leg(args):
         "s1_device_ms": {k: v["device_ms"] for k, v in t_s1.items()},
         "sparse_phases": ph, "sparse_solves": runs, "sparse_pace": pace}
     data = dict(s1=s1, s2=s2, s1_16=s1_16, s2_16=s2_16, K1=K1, K2=K2,
-                s1_idx=s1_idx)
+                s1_idx=s1_idx, pstar=pstar_of)
     return kernels, extra, data
 
 
@@ -1980,6 +2088,273 @@ def serve_leg(args, dd, sd):
         "dense_stream": dense_serve, "s1_stream": s1_serve,
         "early_stop_stream": early_serve}}
     return kernels, extra
+
+
+# ---------------------------------------------------------------------------
+# The scalar leg: the paper's own solvers
+# ---------------------------------------------------------------------------
+
+def on_cpu(prob):
+    """The same problem with its tensors on the CPU."""
+    return prob._replace(A=prob.A.to("cpu"), y=prob.y.cpu(),
+                         lam=prob.lam.cpu(),
+                         scales=None if prob.scales is None
+                         else prob.scales.cpu())
+
+
+def duplicate_draws(idx) -> int:
+    """Draws that repeat a coordinate already drawn in their round."""
+    s = idx.sort(dim=1).values
+    return int((s[:, 1:] == s[:, :-1]).sum())
+
+
+def host_syncs(fn, range_name: str) -> tuple[list[str], int, int]:
+    """Profile ``fn``: the names of the ``SYNC_CALLS`` events inside the
+    profiler range ``range_name``, how many such ranges there were, and
+    the device-to-host copies anywhere in the window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = [e.time_range for e in events
+              if e.name == range_name and e.device_type == cpu]
+    inside = [e.name for e in events
+              if e.device_type == cpu and e.name in SYNC_CALLS
+              and any(r.start <= e.time_range.start <= r.end
+                      for r in ranges)]
+    dtoh = sum(1 for e in events
+               if e.device_type != cpu and "DtoH" in e.name)
+    return inside, len(ranges), dtoh
+
+
+def scalar_leg(args, dd, sd):
+    """The scalar leg: Shotgun (Alg. 2) with and without its guard,
+    Shooting (Alg. 1) and the Eq. 4 form, Shotgun-CDN and Shooting-CDN,
+    and the warm-started λ-path, on the problems the earlier legs built.
+    Torch code on the card, no kernel of its own; the path's block_fused
+    sweeps launch #2.  Each solve prints its host ms/round and the device's
+    idle share; its first rounds are held against the port on the CPU on
+    the same draws."""
+    from repro_torch.core import cdn, path, shotgun, spectral
+    from repro_torch.core import objectives as obj
+    from repro_torch.core.batched import WarmStartCache
+    from repro_torch.core.health import STATUS_NAMES, STATUS_OK, \
+        STATUS_RECOVERED, GuardConfig
+    from repro_torch.core.spec import SolverSpec
+    from repro_torch.kernels import shotgun_sparse as ss
+
+    dev = torch.device(DEVICE)
+    t_leg = time.perf_counter()
+    lasso, zeta, s1 = dd["lasso"], dd["zeta"], sd["s1"]
+    g = torch.Generator(device=dev).manual_seed(args.seed + 40)
+    p1 = sd["pstar"]["S1"]
+    pd = spectral.p_star(lasso.A, torch.Generator(device=dev).manual_seed(
+        args.seed + 41))
+    print(f"scalar: P* S1 {p1}, dense lasso {pd}")
+    runs = []
+
+    def solve(label, fn, rounds, ok=(STATUS_OK,), strict=True):
+        """Run ``fn`` once on the host clock and once under the profiler;
+        print and check its trace (F lower at the end than after the first
+        round; for P = 1 no higher); return the result."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        idle = print_busy(label, fn)
+        f, nnz = res.trace.objective.cpu(), res.trace.nnz.cpu()
+        status = int(res.status)
+        print(f"solve {label}: {rounds} rounds in {sec * 1e3:.2f} ms "
+              f"({sec / rounds * 1e3:.4f} ms/round); status "
+              f"{STATUS_NAMES[status]}; F {float(f[0]):.7g} -> "
+              f"{float(f[-1]):.7g}; nnz {int(nnz[0])} -> {int(nnz[-1])}")
+        require(bool(torch.all(torch.isfinite(f))), f"{label}: non-finite F")
+        require(float(f[-1]) < float(f[0]) if strict
+                else float(f[-1]) <= float(f[0]),
+                f"{label}: F did not decrease")
+        require(status in ok, f"{label}: status {STATUS_NAMES[status]}")
+        runs.append(dict(label=label, rounds=rounds,
+                         ms_per_round=sec / rounds * 1e3, idle_share=idle,
+                         status=STATUS_NAMES[status]))
+        return res
+
+    def against_cpu(label, card_fn, cpu_fn):
+        """The first rounds on the card and on the CPU, same draws."""
+        a, b = card_fn(), cpu_fn()
+        rel = trace_rel(a.trace.objective, b.trace.objective)
+        dn = int((a.trace.nnz.cpu() - b.trace.nnz).abs().max())
+        print(f"check {label} card vs CPU ({SC_CPU_ROUNDS} rounds, same "
+              f"draws): F trace max rel {rel:.3e}; nnz max diff {dn}")
+        require(rel <= TRACE_RTOL, f"{label} card vs CPU rel {rel:.3e}")
+        require(dn <= NNZ_TOL, f"{label} card vs CPU nnz differs by {dn}")
+
+    # ---- Shotgun, guarded Shotgun and Shooting on S1 ----------------------
+    s1_idx = torch.randint(0, s1.d, (SC_S1_ROUNDS, p1), generator=g,
+                           device=dev)
+    dups = duplicate_draws(s1_idx)
+    require(dups > 0, "S1 draws: no duplicate coordinate in any round")
+    s1_spec = SolverSpec(loss="lasso", P=p1, rounds=SC_S1_ROUNDS)
+    run_s1 = lambda: shotgun.shotgun_solve(s1, spec=s1_spec,  # noqa: E731
+                                           idx=s1_idx)
+    a = solve(f"S1 shotgun P={p1}", run_s1, SC_S1_ROUNDS)
+    b = run_s1()
+    require(all(torch.equal(u, v) for u, v in (
+        (a.x, b.x), (a.z, b.z), (a.trace.objective, b.trace.objective))),
+        "S1 shotgun: repeat not bit-identical")
+    print(f"check S1 shotgun: repeat bit-identical ({dups} duplicate draws "
+          f"over {SC_S1_ROUNDS} rounds)")
+    # against the CPU: the unguarded solves only (a diverging trajectory
+    # amplifies the last-bit differences of another summation order)
+    s1_cpu = on_cpu(s1)
+    cpu_spec = SolverSpec(loss="lasso", P=p1, rounds=SC_CPU_ROUNDS)
+    c_idx = s1_idx[:SC_CPU_ROUNDS]
+    against_cpu("S1 shotgun", lambda: shotgun.shotgun_solve(
+        s1, spec=cpu_spec, idx=c_idx), lambda: shotgun.shotgun_solve(
+        s1_cpu, spec=cpu_spec, idx=c_idx.cpu()))
+    against_cpu("S1 shooting", lambda: shotgun.shooting_solve(
+        s1, rounds=SC_CPU_ROUNDS, idx=c_idx[:, :1]),
+        lambda: shotgun.shooting_solve(s1_cpu, rounds=SC_CPU_ROUNDS,
+                                       idx=c_idx[:, :1].cpu()))
+    del s1_cpu
+    inside, n_range, dtoh = host_syncs(
+        lambda: shotgun.shotgun_solve(
+            s1, torch.Generator(device=dev).manual_seed(args.seed + 42),
+            spec=s1_spec), shotgun.ROUNDS_RANGE)
+    print(f"check S1 shotgun: {len(inside)} host syncs inside the rounds "
+          f"({inside[:4]}), {dtoh} device-to-host copies in the solve")
+    require(n_range == 1 and not inside and not dtoh,
+            f"S1 shotgun: host syncs {inside}, {dtoh} copies, {n_range} "
+            "round ranges")
+    P_g = SC_GUARD_FACTOR * p1
+    guarded = solve(
+        f"S1 shotgun guarded P={P_g} ({SC_GUARD_FACTOR}*P*)",
+        lambda: shotgun.shotgun_solve(
+            s1, torch.Generator(device=dev).manual_seed(args.seed + 43),
+            spec=SolverSpec(loss="lasso", P=P_g, rounds=SC_S1_ROUNDS,
+                            guard=GuardConfig(p_min=p1))),
+        SC_S1_ROUNDS, ok=(STATUS_OK, STATUS_RECOVERED))
+    solve("S1 shooting", lambda: shotgun.shooting_solve(
+        s1, torch.Generator(device=dev).manual_seed(args.seed + 44),
+        rounds=SC_S1_ROUNDS), SC_S1_ROUNDS, strict=False)
+
+    # ---- Shotgun and the Eq. 4 form on the dense Lasso --------------------
+    d_idx = torch.randint(0, lasso.d, (SC_DENSE_ROUNDS, pd), generator=g,
+                          device=dev)
+    d_spec = SolverSpec(loss="lasso", P=pd, rounds=SC_DENSE_ROUNDS)
+    run_d = lambda: shotgun.shotgun_solve(lasso, spec=d_spec,  # noqa: E731
+                                          idx=d_idx)
+    a = solve(f"dense lasso shotgun P={pd}", run_d, SC_DENSE_ROUNDS)
+    b = run_d()
+    require(torch.equal(a.x, b.x) and torch.equal(a.z, b.z),
+            "dense shotgun: repeat not bit-identical")
+    print(f"check dense lasso shotgun: repeat bit-identical "
+          f"({duplicate_draws(d_idx)} duplicate draws)")
+    lasso_cpu = on_cpu(lasso)
+    cpu_spec = SolverSpec(loss="lasso", P=pd, rounds=SC_CPU_ROUNDS)
+    against_cpu("dense lasso shotgun", lambda: shotgun.shotgun_solve(
+        lasso, spec=cpu_spec, idx=d_idx[:SC_CPU_ROUNDS]),
+        lambda: shotgun.shotgun_solve(lasso_cpu, spec=cpu_spec,
+                                      idx=d_idx[:SC_CPU_ROUNDS].cpu()))
+    dup_idx = torch.randint(0, 2 * lasso.d, (SC_CPU_ROUNDS, pd), generator=g,
+                            device=dev)
+    kw = dict(P=pd, rounds=SC_CPU_ROUNDS)
+    against_cpu("dense lasso shotgun_dup", lambda: shotgun.shotgun_dup_solve(
+        obj.dup_from(lasso), idx=dup_idx, **kw),
+        lambda: shotgun.shotgun_dup_solve(obj.dup_from(lasso_cpu),
+                                          idx=dup_idx.cpu(), **kw))
+    del lasso_cpu
+    solve(f"dense lasso shotgun_dup P={pd}",
+          lambda: shotgun.shotgun_dup_solve(
+              obj.dup_from(lasso),
+              torch.Generator(device=dev).manual_seed(args.seed + 45), P=pd,
+              rounds=SC_DENSE_ROUNDS), SC_DENSE_ROUNDS)
+
+    # ---- Shotgun-CDN and Shooting-CDN on the zeta-shaped logistic ---------
+    solve(f"zeta shotgun_cdn P={SC_CDN_P} active set",
+          lambda: cdn.shotgun_cdn_solve(
+              zeta, torch.Generator(device=dev).manual_seed(args.seed + 46),
+              P=SC_CDN_P, rounds=SC_CDN_ROUNDS), SC_CDN_ROUNDS)
+    solve("zeta shooting_cdn active set", lambda: cdn.shooting_cdn_solve(
+        zeta, torch.Generator(device=dev).manual_seed(args.seed + 47),
+        rounds=SC_CDN_ROUNDS), SC_CDN_ROUNDS, strict=False)
+    z_idx = torch.randint(0, zeta.d, (SC_CPU_ROUNDS, SC_CDN_P), generator=g,
+                          device=dev)
+    zeta_cpu = on_cpu(zeta)
+    for P in (SC_CDN_P, 1):
+        kw = dict(P=P, rounds=SC_CPU_ROUNDS, active_set=False)
+        ii = z_idx[:, :P]
+        against_cpu(f"zeta shotgun_cdn P={P}", lambda: cdn.shotgun_cdn_solve(
+            zeta, idx=ii, **kw), lambda: cdn.shotgun_cdn_solve(
+            zeta_cpu, idx=ii.cpu(), **kw))
+    del zeta_cpu
+
+    # ---- the λ-path: S1 block_fused with the cache, dense shotgun ---------
+    K1 = sd["K1"]
+    cache = WarmStartCache()
+    pkw = dict(lam_target=float(s1.lam),
+               spec=SolverSpec(loss="lasso", P=K1 * 128,
+                               rounds=SC_PATH_ROUNDS),
+               num_lambdas=SC_PATH_LAMBDAS, solver="block_fused",
+               cache=cache, problem_id="S1")
+    sweeps = []
+    for sweep in range(2):
+        hits = cache.stats.hits_exact
+        torch.cuda.synchronize()
+        ss.reset_launches()
+        t0 = time.perf_counter()
+        res = path.solve_path(s1, torch.Generator(device=dev).manual_seed(
+            args.seed + 50 + sweep), **pkw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(ss.LAUNCHES)
+        rounds = int(res.rounds.sum())
+        print(f"path S1 block_fused sweep {sweep + 1}: {rounds} rounds "
+              f"({res.rounds.tolist()} per λ) in {sec * 1e3:.1f} ms; launches "
+              f"{counts}; objectives {res.objectives[0]:.7g} -> "
+              f"{res.objectives[-1]:.7g}; nnz {res.nnz.tolist()}")
+        require(counts["fused_sparse_shotgun_rounds"] == rounds // 8
+                and sum(counts.values()) == rounds // 8,
+                f"path sweep {sweep + 1}: launches {counts} != {rounds // 8}")
+        require(bool(np.all(np.isfinite(res.objectives)))
+                and res.nnz[-1] >= res.nnz[0],
+                f"path sweep {sweep + 1}: objectives {res.objectives}, nnz "
+                f"{res.nnz}")
+        sweeps.append(dict(rounds=res.rounds.tolist(), seconds=sec,
+                           launches=counts["fused_sparse_shotgun_rounds"],
+                           exact_hits=cache.stats.hits_exact - hits))
+    require(sweeps[1]["exact_hits"] == SC_PATH_LAMBDAS,
+            f"path sweep 2: {sweeps[1]['exact_hits']} exact cache hits of "
+            f"{SC_PATH_LAMBDAS}")
+    print(f"check path S1: sweep 2 hit the cache at all {SC_PATH_LAMBDAS} "
+          f"λ and took {sum(sweeps[1]['rounds'])} rounds against "
+          f"{sum(sweeps[0]['rounds'])}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dres = path.solve_path(
+        lasso, torch.Generator(device=dev).manual_seed(args.seed + 52),
+        lam_target=float(lasso.lam),
+        spec=SolverSpec(loss="lasso", P=pd, rounds=SC_DENSE_PATH_ROUNDS),
+        num_lambdas=SC_PATH_LAMBDAS)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    print(f"path dense lasso shotgun: {SC_PATH_LAMBDAS} λ x "
+          f"{SC_DENSE_PATH_ROUNDS} rounds in {sec * 1e3:.1f} ms; objectives "
+          f"{dres.objectives[0]:.7g} -> {dres.objectives[-1]:.7g}; nnz "
+          f"{dres.nnz.tolist()}")
+    require(bool(np.all(np.isfinite(dres.objectives)))
+            and dres.nnz[-1] >= dres.nnz[0], "dense path: objectives "
+            f"{dres.objectives}, nnz {dres.nnz}")
+    wall = time.perf_counter() - t_leg
+    print(f"scalar leg: {wall:.1f} s wall; guarded status "
+          f"{STATUS_NAMES[int(guarded.status)]}")
+    return {"scalar": dict(solves=runs, s1_path=sweeps,
+                           dense_path_seconds=sec, pstar_s1=p1,
+                           pstar_dense=pd, wall_s=wall)}
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.data.sparse import BlockedCSC
+from repro_torch.data.sparse import BlockedCSC, SparseCols
 from repro_torch.device import exact_f32_matmul, resolve_device
 
 LASSO = "lasso"
@@ -106,22 +106,84 @@ def unscale_x(x: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
 # Representation seam: dense tensors and BlockedCSC containers
 # ---------------------------------------------------------------------------
 
+def require_dense(A, what: str):
+    """Clear error for the solver families with no sparse path (the CDN
+    inner-Newton variants and the duplicated-feature form index raw
+    columns); returns A unchanged when dense."""
+    if isinstance(A, BlockedCSC):
+        raise TypeError(
+            f"{what} supports dense designs only, got BlockedCSC — use the "
+            "shotgun / block solver families for sparse A")
+    return A
+
+
+def _dense_product(M, v) -> torch.Tensor:
+    """M @ v in the promoted dtype of the two, as ``jnp`` promotes (a bf16
+    design times an f32 vector is an f32 product)."""
+    dt = torch.promote_types(M.dtype, v.dtype)
+    if M.is_cuda:
+        exact_f32_matmul()
+    return M.to(dt) @ v.to(dt)
+
+
 def matvec(A, x) -> torch.Tensor:
     """A @ x for dense or BlockedCSC A."""
     if isinstance(A, BlockedCSC):
         return A.matvec(x)
-    if A.is_cuda:
-        exact_f32_matmul()
-    return A @ x
+    return _dense_product(A, x)
 
 
 def rmatvec(A, r) -> torch.Tensor:
     """Aᵀ r for dense or BlockedCSC A."""
     if isinstance(A, BlockedCSC):
         return A.rmatvec(r)
-    if A.is_cuda:
-        exact_f32_matmul()
-    return A.T @ r
+    return _dense_product(A.T, r)
+
+
+def gather_cols(A, idx):
+    """The P columns ``idx``: a dense (n, P) tensor, or their nnz tiles
+    (``SparseCols``) for a BlockedCSC — O(n·P) against O(tile·P) bytes."""
+    if isinstance(A, BlockedCSC):
+        return A.gather_cols(idx)
+    return A[:, idx.long()]
+
+
+def cols_rmatvec(cols, r) -> torch.Tensor:
+    """(P,) coordinate gradients A_Pᵀ r from a ``gather_cols`` pack."""
+    if isinstance(cols, SparseCols):
+        rv = r.float()[cols.rows.long()]                     # (P, tile)
+        return torch.sum(cols.vals.float() * rv, dim=1)
+    return _dense_product(cols.T, r)
+
+
+def cols_matvec_add(cols, delta, z) -> torch.Tensor:
+    """z + A_P δ (the maintained-margin update) from a column pack.  The
+    sparse pack adds its (row, value·δ) pairs in a fixed order
+    (``index_add_fixed``), so a repeat gives the same bits on every
+    device."""
+    if isinstance(cols, SparseCols):
+        return index_add_fixed(
+            z, cols.rows.reshape(-1),
+            (cols.vals.float() * delta[:, None]).reshape(-1))
+    return z + _dense_product(cols, delta)
+
+
+def index_add_fixed(base, index, values) -> torch.Tensor:
+    """``base`` with ``values[k]`` added at ``index[k]`` (1-D; duplicate
+    indices accumulate, as ``jnp``'s ``.at[index].add``), in an order fixed
+    by the data alone: the pairs are sorted stably by index, each slot's
+    run is summed by ``torch.segment_reduce`` (segment j is the run of
+    index j, found by ``searchsorted``; an empty run sums to +0) and the
+    sums are added to ``base``.  O(n + m log m) for m pairs into n slots.
+    ``index_add_`` on a CUDA tensor adds with float atomics, in an order
+    that changes from run to run.  No value is read back to the host."""
+    n = base.shape[0]
+    s, perm = torch.sort(index.to(torch.int32), stable=True)
+    bounds = torch.arange(n + 1, dtype=torch.int32, device=s.device)
+    sums = torch.segment_reduce(values[perm], "sum",
+                                offsets=torch.searchsorted(s, bounds),
+                                unsafe=True)
+    return base + sums.to(base.dtype)
 
 
 def residual_like(z: torch.Tensor, y: torch.Tensor, loss: str) -> torch.Tensor:
@@ -149,6 +211,35 @@ def shooting_delta(x_j, g_j, lam, beta):
     return soft_threshold(x_j - g_j / beta, lam / beta) - x_j
 
 
+# ---------------------------------------------------------------------------
+# Objective values and gradients: every solver maintains the margin
+# z = A x (Sec. 4.1.1), so none of these recompute A x in a round
+# ---------------------------------------------------------------------------
+
+def data_loss_from_margin(z: torch.Tensor, y: torch.Tensor,
+                          loss: str) -> torch.Tensor:
+    if loss == LASSO:
+        r = z - y
+        return 0.5 * torch.dot(r, r)
+    # logistic: Σ log(1 + exp(−y z)), numerically stable
+    m = -y * z
+    return torch.sum(torch.logaddexp(torch.zeros_like(m), m))
+
+
+def objective_from_margin(z, x, prob: Problem) -> torch.Tensor:
+    return (data_loss_from_margin(z, prob.y, prob.loss)
+            + prob.lam * torch.sum(torch.abs(x)))
+
+
+def objective(x: torch.Tensor, prob: Problem) -> torch.Tensor:
+    return objective_from_margin(matvec(prob.A, x), x, prob)
+
+
+def coordinate_grad(A, r: torch.Tensor, j) -> torch.Tensor:
+    """(∇ of data loss)_j = A[:, j]ᵀ r."""
+    return torch.dot(A[:, j].to(r.dtype), r)
+
+
 def masked_data_loss(z: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                      loss: str) -> torch.Tensor:
     """Data loss restricted to real samples (``mask`` zeros out the rows
@@ -165,3 +256,48 @@ def lambda_max(A, y: torch.Tensor, loss: str) -> torch.Tensor:
     z0 = torch.zeros(A.shape[0], dtype=dtype, device=A.device)
     r0 = residual_like(z0, y, loss)
     return torch.max(torch.abs(rmatvec(A, r0)))
+
+
+# ---------------------------------------------------------------------------
+# Duplicated-feature positive-orthant form (Eq. 4), used by the
+# theory-faithful Alg. 2 solver and the theory tests
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DupProblem:
+    A: torch.Tensor   # original (n, d); Â = [A, −A] is never materialized
+    y: torch.Tensor
+    lam: torch.Tensor
+    loss: str
+
+    @property
+    def d2(self) -> int:
+        return 2 * self.A.shape[1]
+
+    @property
+    def beta(self) -> float:
+        return BETA[self.loss]
+
+
+def dup_from(prob: Problem) -> DupProblem:
+    require_dense(prob.A, "the duplicated-feature form (Eq. 4)")
+    return DupProblem(prob.A, prob.y, prob.lam, prob.loss)
+
+
+def dup_column(dp: DupProblem, j):
+    """Column j of Â = [A, −A] without materializing it; (column, sign)."""
+    d = dp.A.shape[1]
+    j = torch.as_tensor(j, device=dp.A.device)
+    sign = torch.where(j < d, 1.0, -1.0)
+    return sign * dp.A[:, j % d], sign
+
+
+def dup_objective(xhat: torch.Tensor, dp: DupProblem) -> torch.Tensor:
+    d = dp.A.shape[1]
+    z = matvec(dp.A, xhat[:d] - xhat[d:])
+    return data_loss_from_margin(z, dp.y, dp.loss) + dp.lam * torch.sum(xhat)
+
+
+def dup_to_signed(xhat: torch.Tensor) -> torch.Tensor:
+    d = xhat.shape[0] // 2
+    return xhat[:d] - xhat[d:]

@@ -47,6 +47,13 @@ def p_star(A, generator: torch.Generator | None = None, iters: int = 100,
     return int(math.ceil(A.shape[1] / max(rho, 1.0) - 0.01))
 
 
+def p_star_dup(A, generator: torch.Generator | None = None, iters: int = 100,
+               v0=None) -> int:
+    """Duplicated-feature bound of Thm 3.2: P < 2d/rho + 1."""
+    rho = float(spectral_radius(A, generator, iters, v0))
+    return int(math.ceil(2 * A.shape[1] / max(rho, 1.0)))
+
+
 def p_star_blocks(A, block: int = 128,
                   generator: torch.Generator | None = None, iters: int = 100,
                   v0=None) -> int:

@@ -284,6 +284,19 @@ class BlockedCSC:
         Cast after ``normalize_columns`` so the norms are taken in f32."""
         return dataclasses.replace(self, vals=self.vals.to(dtype))
 
+    def gather_cols(self, idx) -> "SparseCols":
+        """nnz tiles of columns ``idx`` (P,): rows/vals (P, tile)."""
+        idx = idx.long()
+        b, c = idx // self.block, idx % self.block
+        return SparseCols(rows=self.rows[b, :, c], vals=self.vals[b, :, c])
+
+
+class SparseCols(NamedTuple):
+    """A gathered pack of P sparse columns (the sparse counterpart of the
+    dense ``A[:, idx]`` (n, P) gather): ``rows``/``vals`` are (P, tile)."""
+    rows: torch.Tensor
+    vals: torch.Tensor
+
 
 # ---------------------------------------------------------------------------
 # Functional ops on the raw tiles: shapes come from the arrays

@@ -961,3 +961,136 @@ def test_served_stream_on_card_equals_sequential_queue(cuda, kind):
         assert a.status == b.status == "ok", rid
         assert a.rounds_used == b.rounds_used, rid
         assert torch.equal(a.x, b.x), rid
+
+
+# ---------------------------------------------------------------------------
+# The scalar family, CDN and the λ-path on the card (torch code, no kernel
+# of their own; the block_fused path launches the fused kernels)
+# ---------------------------------------------------------------------------
+
+def _scalar_problem(layout, loss, dev, n=600, d=1500, seed=3):
+    if layout == "bcsc":
+        return _sparse(loss, dev, n=n, d=d, seed=seed)
+    A, y, _ = (tsyn.sparco(seed=seed, n=n, d=d) if loss == "lasso"
+               else tsyn.logistic_data(seed=seed, n=n, d=d))
+    return tobj.make_problem(A, y, 0.3 if loss == "lasso" else 0.5,
+                             loss=loss, device=dev)
+
+
+def _on_cpu(prob):
+    return prob._replace(A=prob.A.to("cpu"), y=prob.y.cpu(),
+                         lam=prob.lam.cpu(),
+                         scales=None if prob.scales is None
+                         else prob.scales.cpu())
+
+
+def _assert_card_matches_cpu(a, b):
+    torch.testing.assert_close(a.trace.objective.cpu(), b.trace.objective,
+                               rtol=1e-4, atol=0.0)
+    assert int((a.trace.nnz.cpu() - b.trace.nnz).abs().max()) <= 2
+    torch.testing.assert_close(a.x.cpu(), b.x, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout,loss", [("dense", "lasso"),
+                                         ("dense", "logistic"),
+                                         ("bcsc", "lasso")])
+def test_scalar_shotgun_on_card_matches_cpu(cuda, layout, loss):
+    from repro_torch.core import shotgun as tshot
+    prob = _scalar_problem(layout, loss, cuda)
+    idx = torch.randint(0, prob.d, (40, 64),
+                        generator=torch.Generator().manual_seed(0))
+    spec = SolverSpec(loss=loss, P=64, rounds=40)
+    a = tshot.shotgun_solve(prob, spec=spec, idx=idx.to(cuda))
+    b = tshot.shotgun_solve(_on_cpu(prob), spec=spec, idx=idx)
+    _assert_card_matches_cpu(a, b)
+
+
+@pytest.mark.parametrize("layout", ["dense", "bcsc"])
+def test_scalar_shotgun_repeat_on_card_is_bit_identical(cuda, layout):
+    """Duplicate draws in every round, and (BlockedCSC) many drawn columns
+    on one row: the fixed-order scatter gives the same bits."""
+    from repro_torch.core import shotgun as tshot
+    prob = _scalar_problem(layout, "lasso", cuda, d=300)
+    idx = torch.randint(0, prob.d, (30, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    s = idx.sort(dim=1).values
+    assert bool((s[:, 1:] == s[:, :-1]).any(dim=1).all())
+    spec = SolverSpec(P=256, rounds=30)
+    a, b = (tshot.shotgun_solve(prob, spec=spec, idx=idx) for _ in range(2))
+    for u, v in ((a.x, b.x), (a.z, b.z), (a.trace.objective,
+                                          b.trace.objective)):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+    g = [torch.Generator(device=cuda).manual_seed(5) for _ in range(2)]
+    c, d = (tshot.shotgun_solve(prob, gg, spec=spec) for gg in g)
+    assert torch.equal(c.x.view(torch.int32), d.x.view(torch.int32))
+
+
+def test_cdn_on_card_matches_cpu(cuda):
+    from repro_torch.core import cdn as tcdn
+    prob = _scalar_problem("dense", "logistic", cuda, d=400)
+    idx = torch.randint(0, prob.d, (40, 8),
+                        generator=torch.Generator().manual_seed(2))
+    kw = dict(P=8, rounds=40, active_set=False)
+    a = tcdn.shotgun_cdn_solve(prob, idx=idx.to(cuda), **kw)
+    b = tcdn.shotgun_cdn_solve(_on_cpu(prob), idx=idx, **kw)
+    _assert_card_matches_cpu(a, b)
+    e = [tcdn.shotgun_cdn_solve(prob, torch.Generator(
+        device=cuda).manual_seed(3), P=8, rounds=40) for _ in range(2)]
+    assert torch.equal(e[0].x, e[1].x)
+
+
+@pytest.mark.parametrize("layout", ["dense", "bcsc"])
+def test_unguarded_scalar_rounds_make_no_host_sync(cuda, layout):
+    """Inside the rounds of an unguarded solve, counted on the runtime
+    calls and operators that wait on the card: none; and no copy from the
+    card anywhere in a solve whose draws come from a card generator."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import shotgun as tshot
+    prob = _scalar_problem(layout, "lasso", cuda)
+    spec = SolverSpec(P=64, rounds=20)
+
+    def fn():
+        return tshot.shotgun_solve(
+            prob, torch.Generator(device=cuda).manual_seed(0), spec=spec)
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    ev = prof.events()
+    ranges = [e.time_range for e in ev if e.name == tshot.ROUNDS_RANGE
+              and e.device_type == cpu]
+    assert len(ranges) == 1
+    r = ranges[0]
+    waits = [e.name for e in ev if e.device_type == cpu
+             and r.start <= e.time_range.start <= r.end
+             and (e.name.endswith("Synchronize") or e.name in (
+                 "cudaMemcpy", "aten::item", "aten::_local_scalar_dense"))]
+    assert waits == []
+    assert not [e.name for e in ev if "DtoH" in e.name]
+
+
+def test_block_fused_path_on_card_launches_and_hits_the_cache(cuda):
+    from repro_torch.core import path as tpath
+    from repro_torch.core.batched import WarmStartCache
+    prob = _sparse("lasso", cuda)
+    cache = WarmStartCache()
+    kw = dict(lam_target=float(prob.lam), spec=SolverSpec(P=BLOCK, rounds=32),
+              num_lambdas=4, solver="block_fused", cache=cache,
+              problem_id="p", validate_p=False)
+    sweeps = []
+    for seed in range(2):
+        tss.reset_launches()
+        res = tpath.solve_path(
+            prob, torch.Generator(device=cuda).manual_seed(seed), **kw)
+        launches = tss.LAUNCHES["fused_sparse_shotgun_rounds"]
+        assert launches == int(res.rounds.sum()) // 8 > 0
+        assert sum(tss.LAUNCHES.values()) == launches
+        sweeps.append(res)
+    assert cache.stats.hits_exact == 4
+    assert int(sweeps[1].rounds.sum()) <= int(sweeps[0].rounds.sum())
+    assert np.all(np.isfinite(sweeps[1].objectives))
