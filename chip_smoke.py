@@ -32,7 +32,9 @@ port's main path — ``block_shotgun_solve`` — on two legs:
 
 The two-kernel pair #3/#4 is timed on three clocks (events, the
 profiler's counted records, events behind a spin) beside cuBLAS on a
-contiguous copy of the drawn blocks and on their strided views.
+contiguous copy of the drawn blocks and on their strided views; each call
+must make one device record, and its device time is printed over
+cuBLAS's on the copy.
 
 One Lasso launch of ``fused_shotgun_rounds`` prints its per-phase
 breakdown (the clock of a block that runs no round end, at every barrier).
@@ -412,7 +414,7 @@ def dense_leg(args):
     from repro_torch.core.health import GuardConfig
     from repro_torch.core.spec import SolverSpec
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _compare, ops
     from repro_torch.kernels import shotgun_block as sb
 
     dev = torch.device(DEVICE)
@@ -555,18 +557,32 @@ def dense_leg(args):
             library_ms=addmv_ms,
             bound=bound(blk_bytes + 8 * n + 4 * K + 4 * K * sb.BLOCK,
                         2 * K * n * sb.BLOCK))
-        # every device op of a call, its records counted; the same calls
-        # queued behind a spin; the yardsticks on the profiler's clock
+        # every device op of a call, its records counted (one a call: the
+        # launch and nothing else); the same calls queued behind a spin;
+        # the yardsticks on the profiler's clock, and the kernel's device
+        # time over cuBLAS's on the copy
         for name, fn, lib, strided in (
                 ("gather_block_matvec", gather, lib_mv, strided_mv),
                 ("scatter_block_update", scatter, lib_addmv,
                  strided_addmv)):
             t = out[name]
+            recs = _compare.records_per_call(fn)
+            print(f"check {name} [{loss} n={n} d={d} K={K}]: {recs} device "
+                  f"record(s) a call")
+            require(recs == 1, f"{name} [{loss} n={n} d={d} K={K}]: {recs} "
+                    f"device records a call, not one")
             t["device_ms"] = device_ms(fn, None, PAIR_ITERS)
             t["queued_ms"] = queued_ms(fn, PAIR_ITERS)
             t["library_device_ms"] = device_ms(lib, None, PAIR_ITERS)
             t["strided_ms"] = time_ms(strided, iters)
             t["strided_device_ms"] = device_ms(strided, None, iters)
+            if t["device_ms"] and t["library_device_ms"]:
+                t["device_over_library"] = (t["device_ms"]
+                                            / t["library_device_ms"])
+                print(f"ratio {name} [{loss} n={n} d={d} K={K}]: device "
+                      f"{t['device_ms']:.4f} ms over cuBLAS on the copy "
+                      f"{t['library_device_ms']:.4f} ms = "
+                      f"{t['device_over_library']:.3f}")
         return out
 
     t_lasso = kernel_times(La, Ly, Lm, lasso, 8, "lasso", 20)
@@ -640,7 +656,7 @@ def dense_leg(args):
     busy, span, n_ev, kms, kn = device_busy(
         lambda: ops.block_shotgun_solve(lasso, spec=two_spec,
                                         blk_idx=lasso_idx[:32]),
-        ("gather_partial_kernel", "gather_reduce_kernel", "scatter_kernel"))
+        ("gather_chunk_kernel", "scatter_task_kernel"))
     require(n_ev > 0 and kn > 0,
             "lasso two-kernel f32: the profiler saw no #3/#4 launch")
     host = next(r["ms_per_round"] for r in runs
@@ -651,7 +667,7 @@ def dense_leg(args):
                     idle_share=1 - busy / span, kernel_records=kn)
     print(f"pace lasso two-kernel f32: host {host:.4f} ms/round; #3 + #4 "
           f"{kms / two_spec.rounds:.4f} ms/round of device time ({kn} "
-          f"records of {3 * two_spec.rounds} launches); device busy "
+          f"records of {2 * two_spec.rounds} launches); device busy "
           f"{busy / two_spec.rounds:.4f} ms/round; idle share "
           f"{1 - busy / span:.3f}")
 

@@ -17,44 +17,256 @@ using namespace sb;
 // ---------------------------------------------------------------------------
 // gather_block_matvec — replaces repro/kernels/shotgun_block.py::
 // gather_block_matvec (Pallas, grid (K, T) accumulating over sample tiles).
-// Bound: K·n·128·sizeof(A) bytes of A read once.  Design: one CUDA block per
-// (k, row tile), 128 threads per column set reading whole 512 B rows
-// (coalesced), eight loads in flight per thread; a (K, T, 128) partial,
-// then a second small pass reduces over T in fixed order.
+// Bound: K·n·128·sizeof(A) bytes of A read once; one FMA per element read,
+// so bytes bound it, not operations.  Design: ONE launch of K·C CTAs, one
+// wave on the card (C row chunks per drawn block, sized by the wrapper from
+// the resident CTA slots, kernels/shotgun_block.py::_gather_chunks).  Chunk
+// c of block k covers rows [8·⌊u·c/C⌋, 8·⌊u·(c+1)/C⌋) of the n = 8u rows,
+// so chunks differ by at most 8 rows and none is empty: m = the chunk's
+// rows / 8 rows per warp.  For f32 warp w takes rows w, w + 8, w + 16, ...
+// of the chunk, so the CTA's warps read consecutive rows; for bf16 warp w
+// takes the w-th eighth of the chunk, m contiguous rows (each the faster of
+// the two on the H100: PERF.md §6).  Lane l owns columns 4l..4l+3 (one
+// 16 B load a row for f32, 8 B for bf16; a warp reads whole rows) and
+// keeps GATHER_U rows' loads in flight (32 KB a CTA for f32), with r
+// through the read-only path (nothing rewrites it during the launch).
+// The eight warp sums are added in warp order through shared memory and
+// written as the chunk's 128 partials; the CTA then takes an integer
+// ticket for block k (after a fence), and the CTA that draws the last one
+// adds the C partials in chunk order (warp w a contiguous eighth of the
+// chunks, then the eight in warp order), writes g[k] and resets the
+// ticket to 0 for the next call.  No float atomics: the order of every sum
+// depends on (n, C) only, so repeats on a card are bit-identical.  The
+// tickets and partials are a workspace the wrapper keeps per (device,
+// stream), so two calls on two streams never share a ticket and a
+// stream's first call makes the only memset.  (A thread-block cluster
+// reducing through distributed shared memory needs no ticket, but holds
+// at most 16 CTAs of a block's chunks: too few to fill the card at K = 2.)
 // ---------------------------------------------------------------------------
+constexpr int GATHER_U = 8;        // rows in flight per warp
+
 template <typename TA>
 __global__ void __launch_bounds__(THREADS, 4)
-gather_partial_kernel(const TA* __restrict__ A, long long n, long long d,
-                      const float* r, const int* __restrict__ idx, int T,
-                      int rows, float* gpart) {
-  __shared__ float s[2][THREADS];
-  const int k = blockIdx.x / T, t = blockIdx.x - k * T;
-  gather_item<TA, false>(A, n, d, r, nullptr, idx[k], k, t, T, rows, gpart,
-                         nullptr, s);
-}
-
-__global__ void __launch_bounds__(THREADS, 4)
-gather_reduce_kernel(const float* gpart, int T, float* g) {
-  __shared__ float s[2][THREADS];
-  const int k = blockIdx.x >> 2, q = blockIdx.x & 3;
-  float gs, hs;
-  reduce_item<false>(gpart, nullptr, k, q, T, s, gs, hs);
-  if (threadIdx.x < 32) g[k * BLOCK + q * 32 + threadIdx.x] = gs;
+gather_chunk_kernel(const TA* __restrict__ A, long long n, long long d,
+                    const float* __restrict__ r, const int* __restrict__ idx,
+                    int C, float* part, unsigned* ticket, float* g) {
+  __shared__ float4 s[WARPS][32];
+  __shared__ bool last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = blockIdx.x / C, c = blockIdx.x - k * C;
+  const long long units = n / WARPS;
+  const long long u0 = units * c / C, u1 = units * (c + 1) / C;
+  const int m = (int)(u1 - u0);
+  constexpr bool SPREAD = sizeof(TA) == 4;   // f32: warps on consecutive rows
+  const long long step = SPREAD ? WARPS : 1;
+  const long long row0 = u0 * WARPS + (SPREAD ? warp : (long long)warp * m);
+  const TA* col = A + row0 * d + (long long)idx[k] * BLOCK + 4 * lane;
+  const float* rr = r + row0;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = 0; j < m; j += GATHER_U) {
+    float4 a[GATHER_U];
+    float rv[GATHER_U];
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u) {
+      if (j + u < m) {
+        a[u] = load4(col + (j + u) * step * d);
+        rv[u] = __ldg(rr + (j + u) * step);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u) {
+      if (j + u < m) {
+        acc.x = fmaf(a[u].x, rv[u], acc.x);
+        acc.y = fmaf(a[u].y, rv[u], acc.y);
+        acc.z = fmaf(a[u].z, rv[u], acc.z);
+        acc.w = fmaf(a[u].w, rv[u], acc.w);
+      }
+    }
+  }
+  s[warp][lane] = acc;
+  __syncthreads();
+  const float* sf = reinterpret_cast<const float*>(s);
+  const int t = threadIdx.x;
+  if (C == 1) {            // the whole block in one CTA: no partials
+    if (t < BLOCK) {
+      float v = sf[t];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) v += sf[w * BLOCK + t];
+      g[(long long)k * BLOCK + t] = v;
+    }
+    return;
+  }
+  if (t < BLOCK) {
+    float v = sf[t];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v += sf[w * BLOCK + t];
+    part[((long long)k * C + c) * BLOCK + t] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (t == 0) {
+    last = atomicAdd(ticket + k, 1u) == (unsigned)C - 1;
+    if (last) ticket[k] = 0u;   // every CTA of block k has drawn its ticket
+  }
+  __syncthreads();
+  if (!last) return;
+  const int per = (C + WARPS - 1) / WARPS;
+  const int c0 = min(warp * per, C), c1 = min(c0 + per, C);
+  const float* pk = part + (long long)k * C * BLOCK + 4 * lane;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q = c0; q < c1; q += GATHER_U) {
+    float4 v[GATHER_U];
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u)
+      if (q + u < c1) v[u] = ldcg4(pk + (long long)(q + u) * BLOCK);
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u) {
+      if (q + u < c1) {
+        sum.x += v[u].x;
+        sum.y += v[u].y;
+        sum.z += v[u].z;
+        sum.w += v[u].w;
+      }
+    }
+  }
+  s[warp][lane] = sum;
+  __syncthreads();
+  if (t < BLOCK) {
+    float v = sf[t];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v += sf[w * BLOCK + t];
+    g[(long long)k * BLOCK + t] = v;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // scatter_block_update — replaces repro/kernels/shotgun_block.py::
 // scatter_block_update (Pallas, grid (T, K) accumulating over blocks).
 // Bound: K·n·128·sizeof(A) bytes of A plus z read and written once.
-// Design: one warp per row (4 rows per warp, 32 per CUDA block), 16 B
-// vector loads, a fixed shuffle tree per row, no atomics.
+// Design: a persistent grid of the card's resident CTAs (one wave) whose
+// warps stride over tasks of ROWS_PER_WARP rows.  Lane l owns columns
+// 4l..4l+3 of every drawn block (16 B loads for f32, 8 B for bf16) and adds
+// the blocks in k order into its row sums; row_sum's shuffle tree adds the
+// lanes, and lane 0 writes z_out[i] = z_in[i] + Σ — per row the order of
+// the fused kernels' scatter_rows, so the bits do not depend on the grid.
+// Each CTA stages the draws and δ (rounded to A's type in the kernel, as
+// the TPU kernel feeds δ) in shared memory once, SCATTER_KS blocks at a
+// time (restaged per task group only when K > SCATTER_KS), and each warp
+// issues the A loads of two blocks for its rows before their FMAs.  No
+// atomics: each row has one owner.
 // ---------------------------------------------------------------------------
+constexpr int SCATTER_KS = 32;     // drawn blocks staged per pass
+constexpr int SCATTER_KU = 2;      // drawn blocks loaded ahead per warp
+
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 template <typename TA>
 __global__ void __launch_bounds__(THREADS, 4)
-scatter_kernel(const TA* __restrict__ A, long long d,
-               const int* __restrict__ idx, int K, const float* delta,
-               const float* z_in, float* z_out) {
-  scatter_tile<TA>(A, d, idx, K, delta, blockIdx.x, z_in, z_out);
+scatter_task_kernel(const TA* __restrict__ A, long long n, long long d,
+                    const int* __restrict__ idx, int K,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ z_in, float* __restrict__ z_out) {
+  __shared__ float4 s_dl[SCATTER_KS][32];
+  __shared__ long long s_col[SCATTER_KS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tasks = n / ROWS_PER_WARP;
+  const bool one_pass = K <= SCATTER_KS;
+  auto stage = [&](int k0, int kn) {
+    for (int p = threadIdx.x; p < kn * 32; p += THREADS) {
+      const int kk = p >> 5, l = p & 31;
+      const float4 v = __ldg(reinterpret_cast<const float4*>(
+          delta + (long long)(k0 + kk) * BLOCK + 4 * l));
+      s_dl[kk][l] = make_float4(round_to(v.x, A), round_to(v.y, A),
+                                round_to(v.z, A), round_to(v.w, A));
+    }
+    if (threadIdx.x < kn)
+      s_col[threadIdx.x] = (long long)idx[k0 + threadIdx.x] * BLOCK;
+  };
+  if (one_pass) {
+    stage(0, K);
+    __syncthreads();
+  }
+  for (long long base = (long long)blockIdx.x * WARPS; base < tasks;
+       base += (long long)gridDim.x * WARPS) {
+    const long long task = base + warp;
+    const bool live = task < tasks;
+    const long long i0 = task * ROWS_PER_WARP;
+    float zi = 0.f;
+    if (live && lane < ROWS_PER_WARP) zi = __ldg(z_in + i0 + lane);
+    const TA* rowp = A + i0 * d + 4 * lane;
+    float acc[ROWS_PER_WARP];
+#pragma unroll
+    for (int j = 0; j < ROWS_PER_WARP; ++j) acc[j] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += SCATTER_KS) {
+      const int kn = min(K - k0, SCATTER_KS);
+      if (!one_pass) {
+        __syncthreads();
+        stage(k0, kn);
+        __syncthreads();
+      }
+      if (!live) continue;
+      for (int k = 0; k < kn; k += SCATTER_KU) {
+        float4 a[SCATTER_KU][ROWS_PER_WARP];
+#pragma unroll
+        for (int u = 0; u < SCATTER_KU; ++u) {
+          if (k + u < kn) {
+            const long long co = s_col[k + u];
+#pragma unroll
+            for (int j = 0; j < ROWS_PER_WARP; ++j)
+              a[u][j] = load4(rowp + j * d + co);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < SCATTER_KU; ++u) {
+          if (k + u < kn) {
+            const float4 dl = s_dl[k + u][lane];
+#pragma unroll
+            for (int j = 0; j < ROWS_PER_WARP; ++j) {
+              acc[j] = fmaf(a[u][j].x, dl.x, acc[j]);
+              acc[j] = fmaf(a[u][j].y, dl.y, acc[j]);
+              acc[j] = fmaf(a[u][j].z, dl.z, acc[j]);
+              acc[j] = fmaf(a[u][j].w, dl.w, acc[j]);
+            }
+          }
+        }
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int j = 0; j < ROWS_PER_WARP; ++j) {
+      const float v = row_sum(acc[j]);
+      const float zj = __shfl_sync(0xffffffffu, zi, j);
+      if (lane == 0) z_out[i0 + j] = zj + v;
+    }
+  }
+}
+
+// Resident CTAs of `kern` on the current device (SMs × CTAs per SM);
+// negative CUDA error on failure.
+static int resident_ctas(const void* kern) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, 0);
+  if (e != cudaSuccess) return -(int)e;
+  return sms * per_sm;
+}
+
+static const void* pair_kernel(int which, int a_bf16) {
+  if (which == 0)
+    return a_bf16
+        ? reinterpret_cast<const void*>(&gather_chunk_kernel<__nv_bfloat16>)
+        : reinterpret_cast<const void*>(&gather_chunk_kernel<float>);
+  if (which == 1)
+    return a_bf16
+        ? reinterpret_cast<const void*>(&scatter_task_kernel<__nv_bfloat16>)
+        : reinterpret_cast<const void*>(&scatter_task_kernel<float>);
+  return nullptr;
 }
 
 // ---------------------------------------------------------------------------
@@ -504,34 +716,48 @@ static int launch_fused(const void* kern, FusedArgs a, void* stream) {
 
 extern "C" {
 
+// Resident CTAs on the current device of the gather (which = 0) or the
+// scatter (1) for this A type: the wrapper sizes their grids from it (and
+// asks once per device); negative CUDA error on failure.
+int sb_pair_slots(int which, int a_bf16) {
+  const void* kern = pair_kernel(which, a_bf16);
+  if (!kern) return -(int)cudaErrorInvalidValue;
+  return resident_ctas(kern);
+}
+
+// C row chunks per drawn block (1 <= C <= n / 8); part: (K, C, 128) f32
+// scratch; ticket: (K,) zeros, left zeroed by the launch.
 int sb_gather_block_matvec(const void* A, int a_bf16, const float* r,
-                           const int* idx, float* gpart, float* g,
-                           long long n, long long d, int K, int rows, int T,
+                           const int* idx, float* part, unsigned* ticket,
+                           float* g, long long n, long long d, int K, int C,
                            void* stream) {
+  if (K < 1 || C < 1 || C > n / WARPS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)K * (unsigned)C;
   if (a_bf16)
-    gather_partial_kernel<__nv_bfloat16><<<K * T, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(A), n, d, r, idx, T, rows, gpart);
+    gather_chunk_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(A), n, d, r, idx, C, part, ticket,
+        g);
   else
-    gather_partial_kernel<float><<<K * T, THREADS, 0, s>>>(
-        static_cast<const float*>(A), n, d, r, idx, T, rows, gpart);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  gather_reduce_kernel<<<K * (BLOCK / 32), THREADS, 0, s>>>(gpart, T, g);
+    gather_chunk_kernel<float><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(A), n, d, r, idx, C, part, ticket, g);
   return (int)cudaGetLastError();
 }
 
+// delta: (K, 128) f32, rounded to A's type by the kernel; grid: CTAs.
 int sb_scatter_block_update(const void* A, int a_bf16, const float* z_in,
                             const int* idx, const float* delta, float* z_out,
-                            long long n, long long d, int K, void* stream) {
+                            long long n, long long d, int K, int grid,
+                            void* stream) {
+  if (K < 1 || grid < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned tiles = (unsigned)(n / SCATTER_ROWS);
   if (a_bf16)
-    scatter_kernel<__nv_bfloat16><<<tiles, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(A), d, idx, K, delta, z_in, z_out);
+    scatter_task_kernel<__nv_bfloat16><<<(unsigned)grid, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(A), n, d, idx, K, delta, z_in,
+        z_out);
   else
-    scatter_kernel<float><<<tiles, THREADS, 0, s>>>(
-        static_cast<const float*>(A), d, idx, K, delta, z_in, z_out);
+    scatter_task_kernel<float><<<(unsigned)grid, THREADS, 0, s>>>(
+        static_cast<const float*>(A), n, d, idx, K, delta, z_in, z_out);
   return (int)cudaGetLastError();
 }
 

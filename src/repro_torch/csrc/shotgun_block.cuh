@@ -193,22 +193,4 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// The whole tile: lane 0 writes z_out[i] = z_in[i] + Σ_k A[i, blk_k] δ_k.
-template <typename TA>
-__device__ __forceinline__ void scatter_tile(
-    const TA* __restrict__ A, long long d, const int* __restrict__ idx, int K,
-    const float* delta, long long tile, const float* z_in, float* z_out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long i0 = tile * SCATTER_ROWS + warp * ROWS_PER_WARP;
-  float acc[ROWS_PER_WARP];
-#pragma unroll
-  for (int j = 0; j < ROWS_PER_WARP; ++j) acc[j] = 0.f;
-  scatter_rows<TA>(A, d, idx, 0, K, delta, i0, acc);
-#pragma unroll
-  for (int j = 0; j < ROWS_PER_WARP; ++j) {
-    const float v = row_sum(acc[j]);
-    if (lane == 0) z_out[i0 + j] = ldcg(z_in + i0 + j) + v;
-  }
-}
-
 }  // namespace sb

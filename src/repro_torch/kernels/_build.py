@@ -36,8 +36,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "sb_gather_block_matvec": [_P, _I, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
-    "sb_scatter_block_update": [_P, _I, _P, _P, _P, _P, _L, _L, _I, _P],
+    "sb_pair_slots": [_I, _I],
+    "sb_gather_block_matvec": [_P, _I] + [_P] * 5 + [_L, _L, _I, _I, _P],
+    "sb_scatter_block_update": [_P, _I] + [_P] * 4 + [_L, _L, _I, _I, _P],
     "sb_fused_shotgun_rounds": [_P, _I, _I] + [_P] * 15
                                + [_L, _L, _I, _I, _I, _I, _P, _P],
     "sb_fused_shotgun_delta_rounds": [_P, _I, _I] + [_P] * 14

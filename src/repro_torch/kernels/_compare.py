@@ -97,6 +97,13 @@ def _device_records(fn, calls: int, kernels: tuple[str, ...]) -> list[float]:
             and (not kernels or any(k in e.name for k in kernels))]
 
 
+def records_per_call(fn) -> int:
+    """Device records (kernels, memsets, copies) of one call of ``fn``,
+    after a warm-up call."""
+    fn()
+    return len(_device_records(fn, 1, ()))
+
+
 def device_ms(fn, iters: int, kernels: tuple[str, ...] = (),
               per_call: int | None = None, tries: int = 3) -> float | None:
     """Device time per call from the profiler's records of ``iters`` calls

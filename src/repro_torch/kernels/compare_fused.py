@@ -7,15 +7,10 @@ old.  Dense: ``fused_shotgun_rounds`` (#1), ``fused_shotgun_delta_rounds``
 
     PYTHONPATH=src python -m repro_torch.kernels.compare_fused OLD_CSRC [--seed N]
 
-OLD_CSRC is a ``csrc/`` with the C interface of the fused entries before
-the BlockedCSC round lost its (K, n) buffer: the dense entries as they are
-now, and the sparse ones (``sp_fused_shotgun_rounds``,
-``sp_fused_shotgun_delta_rounds``, ``sp_batched_fused_shotgun_rounds``)
-taking a (K, n) scatter buffer, padding terms and a (4,) scalar vector, and
-no range-start table.  It is built with ``_build``'s flags into a
-temporary directory; the dense old calls run this package's wrappers on the
-old library, the sparse old calls (``old_sparse``, ``old_batched_sparse``)
-allocate what the old wrappers allocated.
+OLD_CSRC is a ``csrc/`` whose six fused entries have this package's C
+interface.  It is built with ``_build``'s flags into a temporary
+directory, and every old call runs this package's wrapper on the old
+library.
 
 Shapes are ``chip_smoke.py``'s, drawn on the card from ``--seed``, R = 8:
 
@@ -47,9 +42,7 @@ summary; exits 1 when any output differs in a bit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import math
 import pathlib
 import sys
 import tempfile
@@ -63,112 +56,16 @@ from repro_torch.kernels import shotgun_sparse as ss
 from repro_torch.kernels._compare import (bits_equal, build_old, device_ms,
                                           library, queued_ms, turns)
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LASSO = dict(n=16384, d=32768, K=8)
 ZETA = dict(n=500_000, d=2000, K=2)
 S1 = dict(n=19_996, d=1_355_191, density=3.36e-4, K=32)
 S2 = dict(n=20_242, d=47_236, density=0.0016, K=8)
 R = 8
 DENSE, SPARSE = ("fused_rounds_kernel",), ("fused_sparse_kernel",)
-_OLD_ARGTYPES = {
-    **{name: _build._ARGTYPES[name] for name in (
-        "sb_fused_shotgun_rounds", "sb_fused_shotgun_delta_rounds",
-        "sb_batched_fused_shotgun_rounds")},
-    "sp_fused_shotgun_rounds": [_P, _P, _I, _I] + [_P] * 20
-                               + [_L, _L, _I, _I, _I, _P],
-    "sp_fused_shotgun_delta_rounds": [_P, _P, _I, _I] + [_P] * 16
-                                     + [_L, _L, _I, _I, _I, _P],
-    "sp_batched_fused_shotgun_rounds": [_P, _P, _I, _I, _L] + [_P] * 20
-                                       + [_L, _L, _I, _I, _I, _I, _P],
-}
-
-
-def _p(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def old_sparse(lib, rows, vals, z, x, idx, lam, beta, y, loss, k_eff=None,
-               guard_f=None, *, order, delta=False):
-    """#2 (or, with ``delta``, #8) through the old entry, with the old
-    wrapper's allocations."""
-    ls = ss.resolve_loss(loss)
-    nblk, tile = rows.shape[0], rows.shape[1]
-    R, K = idx.shape
-    n, d_pad, dev = z.shape[0], nblk * 128, vals.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    scal = sb._scalars(lam, beta, K if k_eff is None else k_eff,
-                       math.inf if guard_f is None else guard_f, dev)
-    yv, ix = y.float().contiguous(), idx.to(torch.int32).contiguous()
-    head = (_p(rows), _p(vals), int(vals.dtype == torch.bfloat16),
-            sb._loss_code(ls), _p(order.order), _p(order.count),
-            _p(order.zmask), _p(yv), _p(ix), _p(scal))
-    x_out = x.float().clone()
-    r, dlt = torch.empty(n, **f32), torch.empty((K, 128), **f32)
-    w = torch.empty(n if ls.newton else 1, **f32)
-    buf, padterm = torch.empty(K * n, **f32), torch.empty(K, **f32)
-    health = torch.zeros((), **f32)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if delta:
-        z0 = z.float().contiguous()
-        view, dz = torch.empty(n, **f32), torch.empty(n, **f32)
-        rc = lib.sp_fused_shotgun_delta_rounds(
-            *head, _p(z0), _p(view), _p(dz), _p(x_out), _p(r), _p(w),
-            _p(buf), _p(padterm), _p(dlt), _p(health), n, d_pad, R, K, tile,
-            stream)
-        out = (x_out, dz, health)
-    else:
-        z_out = z.float().clone()
-        n_xc = -(-d_pad // 4096)
-        lpart = torch.empty(-(-n // 256), **f32)
-        xl1 = torch.empty(n_xc, **f32)
-        xnz = torch.empty(n_xc, dtype=torch.int32, device=dev)
-        f = torch.empty(R, **f32)
-        nnz = torch.empty(R, dtype=torch.int32, device=dev)
-        rc = lib.sp_fused_shotgun_rounds(
-            *head, _p(z_out), _p(x_out), _p(r), _p(w), _p(buf), _p(padterm),
-            _p(dlt), _p(lpart), _p(xl1), _p(xnz), _p(f), _p(nnz),
-            _p(health), None, n, d_pad, R, K, tile, stream)
-        out = (x_out, z_out, f, nnz, health)
-    if rc:
-        raise RuntimeError(f"old fused sparse entry: CUDA error {rc}")
-    return out
-
-
-def old_batched_sparse(lib, rows, vals, z, x, idx, lam, beta, y, k_eff,
-                       guard_f, *, loss, shared_design, order):
-    """#10 through the old entry, with the old wrapper's allocations."""
-    ls = ss.resolve_loss(loss)
-    S, n = z.shape
-    nblk, tile = rows.shape[-3], rows.shape[-2]
-    R, K = idx.shape[1:]
-    d_pad, dev = nblk * 128, vals.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    n_xc = -(-d_pad // 4096)
-    scal = kb._slot_scalars(lam, beta, k_eff, guard_f, S, dev)
-    z_out, x_out = z.float().clone(), x.float().clone()
-    # every buffer held by a name until the launch is enqueued
-    work = [torch.empty((S, n), **f32),
-            torch.empty((S, n) if ls.newton else (1,), **f32),
-            torch.empty((S, K, n), **f32), torch.empty((S, K), **f32),
-            torch.empty((S, K, 128), **f32),
-            torch.empty((S, -(-n // 256)), **f32),
-            torch.empty((S, n_xc), **f32),
-            torch.empty((S, n_xc), dtype=torch.int32, device=dev)]
-    f = torch.empty((S, R), **f32)
-    nnz = torch.empty((S, R), dtype=torch.int32, device=dev)
-    health = torch.zeros(S, **f32)
-    yv, ix = y.float().contiguous(), idx.to(torch.int32).contiguous()
-    rc = lib.sp_batched_fused_shotgun_rounds(
-        _p(rows), _p(vals), int(vals.dtype == torch.bfloat16),
-        sb._loss_code(ls), 0 if shared_design else nblk * tile * 128,
-        _p(order.order), _p(order.count), _p(order.zmask), _p(yv), _p(ix),
-        _p(scal), _p(z_out), _p(x_out), *map(_p, work), _p(f), _p(nnz),
-        _p(health), None, n, d_pad, S, R, K, tile,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc:
-        raise RuntimeError(f"old sp_batched_fused_shotgun_rounds: CUDA "
-                           f"error {rc}")
-    return x_out, z_out, f, nnz, health
+_OLD_ARGTYPES = {name: _build._ARGTYPES[name] for name in (
+    "sb_fused_shotgun_rounds", "sb_fused_shotgun_delta_rounds",
+    "sb_batched_fused_shotgun_rounds", "sp_fused_shotgun_rounds",
+    "sp_fused_shotgun_delta_rounds", "sp_batched_fused_shotgun_rounds")}
 
 
 def on(lib, fn):
@@ -362,12 +259,12 @@ def main(argv=None) -> int:
         od, rs = A.scatter_order(), A.range_starts()
         fa = (A.rows, A.vals, A.matvec(x0), x0, idx, prob.lam, prob.beta,
               prob.y)
-        record("#2 " + case, ss.fused_sparse_shotgun_rounds(
-            *fa, loss=loss, k_eff=k_eff, order=od, rstart=rs),
-            old_sparse(old, *fa, loss, k_eff, order=od))
-        record("#8 " + case, ss.fused_sparse_shotgun_delta_rounds(
-            *fa, loss=loss, k_eff=k_eff, order=od, rstart=rs),
-            old_sparse(old, *fa, loss, k_eff, order=od, delta=True))
+        rounds = lambda: ss.fused_sparse_shotgun_rounds(  # noqa: E731
+            *fa, loss=loss, k_eff=k_eff, order=od, rstart=rs)
+        record("#2 " + case, rounds(), on(old, rounds)())
+        delta = lambda: ss.fused_sparse_shotgun_delta_rounds(  # noqa: E731
+            *fa, loss=loss, k_eff=k_eff, order=od, rstart=rs)
+        record("#8 " + case, delta(), on(old, delta)())
 
     def start(A):
         x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
@@ -392,16 +289,13 @@ def main(argv=None) -> int:
                       torch.zeros(A.d_pad, device=dev),
                       _draws(g, K, A.nblk, dup=False), prob.lam, prob.beta,
                       prob.y)
-                timed(f"#2 {tag} f32 {loss} R={R}",
-                      lambda: old_sparse(old, *fa, loss, order=od),
-                      lambda: ss.fused_sparse_shotgun_rounds(
-                          *fa, loss=loss, order=od, rstart=rs),
+                fn = lambda: ss.fused_sparse_shotgun_rounds(  # noqa: E731
+                    *fa, loss=loss, order=od, rstart=rs)
+                timed(f"#2 {tag} f32 {loss} R={R}", on(old, fn), fn,
                       args.iters, SPARSE)
-                timed(f"#8 {tag} f32 {loss} R={R}",
-                      lambda: old_sparse(old, *fa, loss, order=od,
-                                         delta=True),
-                      lambda: ss.fused_sparse_shotgun_delta_rounds(
-                          *fa, loss=loss, order=od, rstart=rs),
+                fn = lambda: ss.fused_sparse_shotgun_delta_rounds(  # noqa
+                    *fa, loss=loss, order=od, rstart=rs)
+                timed(f"#8 {tag} f32 {loss} R={R}", on(old, fn), fn,
                       args.iters, SPARSE)
 
     # S2 with K above the kernel's chunk of drawn blocks, cut to an odd
@@ -448,10 +342,10 @@ def main(argv=None) -> int:
         y = prob.y.expand(S, -1).contiguous()
         fa = (rows, vals, z0, x0, idx, ladder(prob.lam, S),
               full(S, prob.beta), y, k_eff, full(S, inf))
-        kw = dict(loss=loss, shared_design=shared, order=od)
-        record(f"#10 {tag} K={K} R={R}",
-               kb.batched_fused_sparse_shotgun_rounds(*fa, **kw, rstart=rs),
-               old_batched_sparse(old, *fa, **kw))
+        kw = dict(loss=loss, shared_design=shared, order=od, rstart=rs)
+        fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
+            *fa, **kw)
+        record(f"#10 {tag} K={K} R={R}", fn(), on(old, fn)())
         if "frozen" in tag:
             continue
         fa = (rows, vals, torch.zeros(S, A.n, device=dev),
@@ -460,11 +354,9 @@ def main(argv=None) -> int:
                            for _ in range(S)]),
               ladder(prob.lam, S), full(S, prob.beta), y, full(S, K),
               full(S, inf))
-        timed(f"#10 {tag} R={R}",
-              lambda: old_batched_sparse(old, *fa, **kw),
-              lambda: kb.batched_fused_sparse_shotgun_rounds(*fa, **kw,
-                                                             rstart=rs),
-              args.iters, SPARSE)
+        fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
+            *fa, **kw)
+        timed(f"#10 {tag} R={R}", on(old, fn), fn, args.iters, SPARSE)
     print(json.dumps({"compare_fused": summary, "times": times,
                       "ok": not failed}))
     return 1 if failed else 0

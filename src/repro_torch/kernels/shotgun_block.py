@@ -14,7 +14,10 @@ Each wrapper keeps the JAX signature and return tuple, minus the TPU-only
 ``stamps`` (a per-phase clock).  A wrapper given CPU tensors runs its plain
 version (``*_plain``, same module, same dataflow); given CUDA tensors it
 launches the kernel or raises — it never falls back.  ``LAUNCHES`` counts
-kernel launches per wrapper.
+kernel launches per wrapper.  The two-kernel pair (and the BlockedCSC
+pair in ``shotgun_sparse``) launch through a lean path: the library kept
+in a module global, the raw stream, integer pointers, no device switch
+and no copy of an operand already in the kernel's type.
 
 The block width stays BLOCK = 128 and padded shapes stay multiples of
 TILE_N = 512 samples (``ops.pad_problem``), so block indices and padded
@@ -40,9 +43,10 @@ LOGISTIC = "logistic"
 LAUNCHES = {"fused_shotgun_rounds": 0, "gather_block_matvec": 0,
             "scatter_block_update": 0, "fused_shotgun_delta_rounds": 0}
 
-_GATHER_ROW_UNIT = 256    # gather row tiles are multiples of this
+_GATHER_ROW_UNIT = 256    # fused gather row tiles are multiples of this
 _GATHER_MAX_TILES = 256   # ... chosen so that T = ceil(n / rows) <= this
 _SCATTER_ROWS = 32        # rows per scatter tile (one loss partial each)
+_CHUNK_UNIT = 8           # gather_block_matvec: chunk rows are multiples
 
 
 def reset_launches() -> None:
@@ -169,8 +173,9 @@ def _scalars(lam, beta, k_eff, guard_f, device) -> torch.Tensor:
 
 
 def _gather_rows(n: int) -> int:
-    """Rows per gather tile: a multiple of 256 with at most 256 tiles, so
-    the fixed-order reduction over tiles stays short at any n."""
+    """Rows per gather tile of the fused kernels: a multiple of 256 with at
+    most 256 tiles, so the fixed-order reduction over tiles stays short at
+    any n."""
     return _GATHER_ROW_UNIT * max(1, math.ceil(n / (_GATHER_ROW_UNIT
                                                     * _GATHER_MAX_TILES)))
 
@@ -202,6 +207,22 @@ def _require_contiguous(A: torch.Tensor) -> None:
         raise ValueError("the CUDA kernels take a row-major contiguous A")
 
 
+def _gather_chunks(n: int, K: int, slots: int) -> int:
+    """Row chunks C per drawn block of ``gather_block_matvec``'s launch of
+    K·C CTAs: as many as fill the card's ``slots`` resident CTAs in one
+    wave, at least one, and at most n / 8 (so no chunk is empty)."""
+    return max(1, min(n // _CHUNK_UNIT, slots // K))
+
+
+def _chunk_rows(n: int, C: int, c: int) -> tuple[int, int]:
+    """Rows [start, stop) of chunk c of C (the kernel's rule): the n / 8
+    units of 8 rows split as evenly as integers allow, so chunks differ
+    by at most 8 rows."""
+    units = n // _CHUNK_UNIT
+    return (_CHUNK_UNIT * (units * c // C),
+            _CHUNK_UNIT * (units * (c + 1) // C))
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -218,6 +239,84 @@ def _check_rc(rc: int, what: str) -> None:
 
 def _contig(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The two-kernel pairs' lean launch path: the library and the raw-stream
+# getter kept in module globals, no device switch, no copy of an operand
+# that is already contiguous and of the kernel's type, ints for pointers.
+# ---------------------------------------------------------------------------
+
+_LIB = None          # the loaded kernel library, after the first launch
+# device index -> PyTorch's current stream (int)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda dev: torch.cuda.current_stream(dev).cuda_stream)
+_SLOTS: dict = {}    # (device, kernel, bf16) -> resident CTAs of the kernel
+_WORK: dict = {}     # (device, stream) -> gather tickets and partials
+
+
+def _lib():
+    """The kernel library, built at first use and kept."""
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import _build
+        _LIB = _build.load()
+    return _LIB
+
+
+def _launch_device(t: torch.Tensor, *others: torch.Tensor) -> int:
+    """The CUDA device index to launch on when ``t`` and ``others`` lie on
+    one CUDA device, which must be the current one (the launch goes there
+    with no device switch); -1 when all lie on the CPU (the plain version);
+    raises for anything else."""
+    dev = t.get_device()
+    for o in others:
+        if o.get_device() != dev:
+            dev = -1
+            break
+    if dev < 0:
+        _on_cuda(t, *others)            # raises unless all are on the CPU
+        return -1
+    cur = torch.cuda.current_device()
+    if dev != cur:
+        raise ValueError(f"operands are on cuda:{dev} but the current device "
+                         f"is cuda:{cur}; call torch.cuda.set_device({dev}) "
+                         "first")
+    return dev
+
+
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` itself when contiguous and of ``dtype``, else such a copy."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+def _pair_slots(lib, dev: int, which: int, bf16: bool) -> int:
+    """Resident CTAs of the gather (``which`` 0) or the scatter (1) on
+    device ``dev``, asked of ``lib`` once."""
+    key = (dev, which, bf16)
+    slots = _SLOTS.get(key)
+    if slots is None:
+        slots = lib.sb_pair_slots(which, bf16)
+        if slots <= 0:
+            raise RuntimeError(f"sb_pair_slots: CUDA error {-slots} "
+                               f"({torch.cuda.get_device_name()})")
+        _SLOTS[key] = slots
+    return slots
+
+
+def _gather_work(dev: int, stream: int, K: int, n_part: int, device):
+    """The gather's tickets (>= K int32, zero between calls: the launch's
+    last CTA per block resets its own) and partials (>= n_part f32) for
+    this device and stream, made anew when too small.  One workspace a
+    stream, so two calls in flight on two streams never share a ticket."""
+    work = _WORK.get((dev, stream))
+    if work is None or work[0].numel() < K or work[1].numel() < n_part:
+        work = (torch.zeros(K, dtype=torch.int32, device=device),
+                torch.empty(n_part, dtype=torch.float32, device=device))
+        _WORK[(dev, stream)] = work
+    return work
 
 
 def _take_blocks(A: torch.Tensor, blk_idx: torch.Tensor) -> torch.Tensor:
@@ -238,24 +337,26 @@ def gather_block_matvec_plain(A, r, blk_idx):
 
 
 def gather_block_matvec(A, r, blk_idx):
-    """g (K, 128) f32 = per-selected-block column gradients A_Bᵀ r."""
+    """g (K, 128) f32 = per-selected-block column gradients A_Bᵀ r.  On the
+    card a call is one launch and, with f32 r and int32 blk_idx and once
+    the stream's workspace exists, no other device operation."""
     n, d = _check_design(A)
     K = blk_idx.shape[0]
-    if not _on_cuda(A, r, blk_idx):
+    dev = _launch_device(A, r, blk_idx)
+    if dev < 0:
         return gather_block_matvec_plain(A, r, blk_idx)
     _require_contiguous(A)
-    from repro_torch.kernels import _build
-    lib = _build.load()
-    rows = _gather_rows(n)
-    T = math.ceil(n / rows)
-    r = _contig(r, torch.float32)
-    idx = _contig(blk_idx, torch.int32)
-    part = torch.empty((K, T, BLOCK), dtype=torch.float32, device=A.device)
+    lib = _lib()
+    bf16 = A.dtype == torch.bfloat16
+    C = _gather_chunks(n, K, _pair_slots(lib, dev, 0, bf16))
+    stream = _RAW_STREAM(dev)
+    ticket, part = _gather_work(dev, stream, K, K * C * BLOCK, A.device)
+    rv = _as(r, torch.float32)
+    idx = _as(blk_idx, torch.int32)
     g = torch.empty((K, BLOCK), dtype=torch.float32, device=A.device)
-    with torch.cuda.device(A.device):
-        rc = lib.sb_gather_block_matvec(
-            _ptr(A), int(A.dtype == torch.bfloat16), _ptr(r), _ptr(idx),
-            _ptr(part), _ptr(g), n, d, K, rows, T, _stream(A.device))
+    rc = lib.sb_gather_block_matvec(
+        A.data_ptr(), bf16, rv.data_ptr(), idx.data_ptr(), part.data_ptr(),
+        ticket.data_ptr(), g.data_ptr(), n, d, K, C, stream)
     _check_rc(rc, "gather_block_matvec")
     LAUNCHES["gather_block_matvec"] += 1
     return g
@@ -276,25 +377,32 @@ def scatter_block_update_plain(A, z, blk_idx, delta):
 
 def scatter_block_update(A, z, blk_idx, delta):
     """z_new = z + Σ_k A[:, blk_k] δ_k — f32 accumulation, z.dtype out.
-    δ is rounded to A's dtype first, as the TPU kernel feeds it."""
+    δ is rounded to A's dtype first, as the TPU kernel feeds it (on the
+    card, by the kernel).  On the card a call is one launch and, with f32
+    z and δ and int32 blk_idx, no other device operation."""
     n, d = _check_design(A)
     K = blk_idx.shape[0]
-    if not _on_cuda(A, z, blk_idx, delta):
+    dev = _launch_device(A, z, blk_idx, delta)
+    if dev < 0:
         return scatter_block_update_plain(A, z, blk_idx, delta)
     _require_contiguous(A)
-    from repro_torch.kernels import _build
-    lib = _build.load()
-    z_in = _contig(z, torch.float32)
-    idx = _contig(blk_idx, torch.int32)
-    dlt = delta.to(A.dtype).to(torch.float32).contiguous()
+    lib = _lib()
+    bf16 = A.dtype == torch.bfloat16
+    grid = min(_pair_slots(lib, dev, 1, bf16), n // _SCATTER_ROWS)
+    z_in = _as(z, torch.float32)
+    idx = _as(blk_idx, torch.int32)
+    # a wider δ is rounded to A's type once here, as the plain version does
+    dlt = _as(delta if delta.dtype == torch.float32 else delta.to(A.dtype),
+              torch.float32)
+    if dlt.data_ptr() % 16:                  # the kernel reads δ in float4s
+        dlt = dlt.clone()
     z_out = torch.empty(n, dtype=torch.float32, device=A.device)
-    with torch.cuda.device(A.device):
-        rc = lib.sb_scatter_block_update(
-            _ptr(A), int(A.dtype == torch.bfloat16), _ptr(z_in), _ptr(idx),
-            _ptr(dlt), _ptr(z_out), n, d, K, _stream(A.device))
+    rc = lib.sb_scatter_block_update(
+        A.data_ptr(), bf16, z_in.data_ptr(), idx.data_ptr(), dlt.data_ptr(),
+        z_out.data_ptr(), n, d, K, grid, _RAW_STREAM(dev))
     _check_rc(rc, "scatter_block_update")
     LAUNCHES["scatter_block_update"] += 1
-    return z_out.to(z.dtype)
+    return z_out if z.dtype == torch.float32 else z_out.to(z.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -32,11 +32,12 @@ import torch
 
 from repro_torch.data.sparse import (BLOCK, RANGE_ROWS, ScatterOrder,
                                      range_starts, scatter_order)
-from repro_torch.kernels.shotgun_block import (LASSO, Loss, _check_rc,
-                                               _contig, _loss_code, _on_cuda,
-                                               _ptr, _scalars,
-                                               _soft_threshold, _stream,
-                                               resolve_loss)
+from repro_torch.kernels.shotgun_block import (LASSO, _RAW_STREAM, Loss, _as,
+                                               _check_rc, _contig,
+                                               _launch_device, _lib,
+                                               _loss_code, _on_cuda, _ptr,
+                                               _scalars, _soft_threshold,
+                                               _stream, resolve_loss)
 
 # Kernel launches per wrapper (``reset_launches`` zeroes them).
 LAUNCHES = {"fused_sparse_shotgun_rounds": 0,
@@ -157,56 +158,6 @@ def _scatter_plain(rows_k, vals_k, z, delta):
     for k in range(K):
         out = out + buf[k]
     return out
-
-
-# ---------------------------------------------------------------------------
-# The two-kernel pair's lean launch path: the library and the raw-stream
-# getter kept in module globals, no device switch, no copy of an operand
-# that is already contiguous and of the kernel's type, ints for pointers.
-# ---------------------------------------------------------------------------
-
-_LIB = None          # the loaded kernel library, after the first launch
-_RAW_STREAM = None   # device index -> PyTorch's current stream (int)
-
-
-def _lib():
-    """The kernel library, built at first use and kept."""
-    global _LIB, _RAW_STREAM
-    if _LIB is None:
-        from repro_torch.kernels import _build
-        lib = _build.load()
-        _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
-            or (lambda dev: torch.cuda.current_stream(dev).cuda_stream)
-        _LIB = lib
-    return _LIB
-
-
-def _launch_device(vals: torch.Tensor, *others: torch.Tensor) -> int:
-    """The CUDA device index to launch on when ``vals`` and ``others`` lie
-    on one CUDA device, which must be the current one (the launch goes
-    there with no device switch); -1 when all lie on the CPU (the plain
-    version); raises for anything else."""
-    dev = vals.get_device()
-    for t in others:
-        if t.get_device() != dev:
-            dev = -1
-            break
-    if dev < 0:
-        _on_cuda(vals, *others)         # raises unless all are on the CPU
-        return -1
-    cur = torch.cuda.current_device()
-    if dev != cur:
-        raise ValueError(f"operands are on cuda:{dev} but the current device "
-                         f"is cuda:{cur}; call torch.cuda.set_device({dev}) "
-                         "first")
-    return dev
-
-
-def _as(t: torch.Tensor, dtype) -> torch.Tensor:
-    """``t`` itself when contiguous and of ``dtype``, else such a copy."""
-    if t.dtype == dtype and t.is_contiguous():
-        return t
-    return t.to(dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -317,3 +317,81 @@ def test_fused_stamps_are_checked(stamps, ok):
     else:
         with pytest.raises(ValueError, match="stamps must be an int64"):
             tsb._check_stamps(stamps, 4, torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# The two-kernel pair's launch rule, its plain versions at K = 1 and with
+# many duplicate draws, and its CPU route (#3, #4)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("slots", [528, 132])
+@pytest.mark.parametrize("K", [1, 2, 8, 72])
+def test_gather_chunks_cover_every_row_once(K, slots):
+    """For every TILE_N-padded n up to zeta's 500,224 (and n = 256): the
+    C chunks of ``gather_block_matvec``'s launch tile [0, n) in order, none
+    empty, each a multiple of 8 rows, sizes within 8 rows of each other,
+    and K·C fits the card's resident slots (or C = 1)."""
+    for n in (256, *range(512, 500_225, 512)):
+        C = tsb._gather_chunks(n, K, slots)
+        assert 1 <= C <= n // 8
+        assert K * C <= slots or C == 1
+        lo, hi = tsb._chunk_rows(n, C, np.arange(C))
+        assert lo[0] == 0 and hi[-1] == n
+        assert np.array_equal(hi[:-1], lo[1:])
+        assert np.all(hi > lo) and np.all(lo % 8 == 0) and np.all(hi % 8 == 0)
+        assert (hi - lo).max() - (hi - lo).min() <= 8
+    assert tsb._gather_chunks(500_224, 2, 528) == 264       # one whole wave
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("K", [1, 72])
+def test_pair_plain_matches_jax_at_one_draw_and_many_duplicates(K, store):
+    """K = 1, and K = 72 draws from 8 blocks (every block drawn many times,
+    duplicates accumulating in k order), against the Pallas kernels in
+    interpret mode; bf16 A with δ given in f32 (both sides round it)."""
+    rng = np.random.default_rng(20 + K)
+    A = rng.standard_normal((512, 8 * BLOCK)).astype(np.float32)
+    r = rng.standard_normal(512).astype(np.float32)
+    z = rng.standard_normal(512).astype(np.float32)
+    delta = (rng.standard_normal((K, BLOCK)) * 0.1).astype(np.float32)
+    idx = rng.integers(0, 8, K).astype(np.int32)
+    if K > 1:
+        idx[-1] = idx[0]
+    jA = jnp.asarray(A.astype(ml_dtypes.bfloat16) if store == "bf16" else A)
+    tA = _t(A, torch.bfloat16 if store == "bf16" else torch.float32)
+    want_g = jsb.gather_block_matvec(jA, jnp.asarray(r), jnp.asarray(idx),
+                                     interpret=True)
+    want_z = jsb.scatter_block_update(jA, jnp.asarray(z), jnp.asarray(idx),
+                                      jnp.asarray(delta), interpret=True)
+    got_g = tsb.gather_block_matvec(tA, _t(r), torch.tensor(idx))
+    got_z = tsb.scatter_block_update(tA, _t(z), torch.tensor(idx),
+                                     _t(delta))
+    assert got_g.shape == (K, BLOCK) and got_z.shape == (512,)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got_z.numpy(), np.asarray(want_z),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_pair_wrappers_take_the_plain_version_on_cpu(monkeypatch):
+    """CPU operands go to the plain versions without loading the kernels
+    or counting a launch; a CPU design with an operand elsewhere raises."""
+    def no_library():
+        raise AssertionError("the CPU route loaded the kernel library")
+
+    monkeypatch.setattr(tsb, "_lib", no_library)
+    before = dict(tsb.LAUNCHES)
+    rng = np.random.default_rng(7)
+    A = _t(rng.standard_normal((512, 2 * BLOCK)))
+    r = _t(rng.standard_normal(512))
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32)
+    delta = _t(rng.standard_normal((3, BLOCK)))
+    assert torch.equal(tsb.gather_block_matvec(A, r, idx),
+                       tsb.gather_block_matvec_plain(A, r, idx))
+    assert torch.equal(tsb.scatter_block_update(A, r, idx, delta),
+                       tsb.scatter_block_update_plain(A, r, idx, delta))
+    assert tsb.LAUNCHES == before
+    with pytest.raises(ValueError, match="one CUDA device or all on"):
+        tsb.gather_block_matvec(A, r.to("meta"), idx)
+    with pytest.raises(ValueError, match="one CUDA device or all on"):
+        tsb.scatter_block_update(A, r, idx, delta.to("meta"))
