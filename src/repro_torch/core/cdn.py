@@ -64,12 +64,11 @@ def armijo_step(f0, decrease, f_t):
     alphas = 0.5 ** torch.arange(f_t.shape[0], dtype=torch.float32,
                                  device=f_t.device)
     level = f0 + ARMIJO_SIGMA * alphas * decrease
-    stop = ~(f_t > level)
-    stop[-1] = True
-    j = torch.argmax(stop.to(torch.int32))
-    accept = f_t[j] <= level[j]
-    return (torch.where(accept, alphas[j], 0.0),
-            torch.where(accept, f_t[j], f0))
+    j = obj.first_stop(f_t > level)
+    f_j = obj.take(f_t, j)
+    accept = f_j <= obj.take(level, j)
+    return (torch.where(accept, obj.take(alphas, j), 0.0),
+            torch.where(accept, f_j, f0))
 
 
 def _categorical(generator, logits, P: int) -> torch.Tensor:

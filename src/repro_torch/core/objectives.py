@@ -140,6 +140,24 @@ def rmatvec(A, r) -> torch.Tensor:
     return _dense_product(A.T, r)
 
 
+def take(v: torch.Tensor, j: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``v``'s slice at the 0-dim device index ``j`` along ``dim``, with no
+    host sync: ``v[j]`` with a tensor index reads ``j`` back to the host
+    (``aten::item``), which on the card waits for every queued kernel."""
+    return v.index_select(dim, j.reshape(1)).squeeze(dim)
+
+
+def first_stop(cont: torch.Tensor) -> torch.Tensor:
+    """Where a ``while_loop`` over trials j = 0, 1, … stops, given
+    ``cont[j]``, its condition at trial j: the first j at which the
+    condition is false (a NaN comparison is false), else the last trial.
+    A 0-dim int64 device index, found with no host sync (``stop[-1] =
+    True`` would copy the value from the host and wait for the card)."""
+    stop = ~cont
+    stop[-1:].fill_(True)
+    return torch.argmax(stop.to(torch.int32))
+
+
 def gather_cols(A, idx):
     """The P columns ``idx``: a dense (n, P) tensor, or their nnz tiles
     (``SparseCols``) for a BlockedCSC — O(n·P) against O(tile·P) bytes."""
@@ -224,6 +242,16 @@ def data_loss_from_margin(z: torch.Tensor, y: torch.Tensor,
     # logistic: Σ log(1 + exp(−y z)), numerically stable
     m = -y * z
     return torch.sum(torch.logaddexp(torch.zeros_like(m), m))
+
+
+def data_loss_cols(Z: torch.Tensor, y: torch.Tensor, loss: str) -> torch.Tensor:
+    """``data_loss_from_margin`` of every column of the (n, J) margins
+    ``Z``: (J,)."""
+    if loss == LASSO:
+        r = Z - y[:, None]
+        return 0.5 * torch.sum(r * r, dim=0)
+    m = -y[:, None] * Z
+    return torch.sum(torch.logaddexp(torch.zeros_like(m), m), dim=0)
 
 
 def objective_from_margin(z, x, prob: Problem) -> torch.Tensor:

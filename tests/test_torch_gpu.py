@@ -1219,3 +1219,132 @@ def test_dense_pair_wrappers_raise_off_the_current_device(cuda):
         tsb.gather_block_matvec(A, r, idx)
     with pytest.raises(ValueError, match="current device"):
         tsb.scatter_block_update(A, r, idx, delta)
+
+
+# ---------------------------------------------------------------------------
+# The baselines (``repro_torch.core.baselines``) on the card
+# ---------------------------------------------------------------------------
+
+BASELINES = ["fista", "sparsa", "l1_ls", "sgd", "smidas"]
+
+
+def _baseline_problem(name, dev):
+    loss = "logistic" if name in ("sgd", "smidas") else "lasso"
+    return _scalar_problem("dense", loss, dev, n=400, d=700)
+
+
+def _baseline(name, prob, L=None, idx=None, generator=None):
+    """The first iterations of baseline ``name``: the same L / draws on
+    every device when given.  SpaRSA's nonmonotone BB steps and SMIDAS's
+    link (|θ|^(q−1) with q − 1 ≈ 0.08 lifts a rounding difference in a
+    tiny θ_j to a visible one in x_j) amplify the card's and the CPU's
+    rounding differences to rel 1e-3 within 40 iterations and 200 steps,
+    so they are held over 20 iterations and 100 steps (F every 20)."""
+    from repro_torch.core import baselines as tbl
+    if name == "fista":
+        return tbl.fista_solve(prob, 40, L=L)
+    if name == "sparsa":
+        return tbl.sparsa_solve(prob, 20)
+    if name == "l1_ls":
+        return tbl.l1_ls_solve(prob, outer=3)
+    if name == "sgd":
+        return tbl.sgd_solve(prob, generator, 0.5, 500, idx=idx)
+    return tbl.smidas_solve(prob, generator, 0.005, 100, 20,
+                            idx=None if idx is None else idx[:100])
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_on_card_matches_cpu(cuda, name):
+    """F traces rtol 1e-4 and x atol 1e-5 of max(1, ‖x‖∞) (SMIDAS: its
+    iterate θ; L1_LS, whose CG early stop and line search may branch on
+    rounding: the last F, rtol 1e-3), on the same L and the same draws."""
+    from repro_torch.core.baselines import common
+    prob = _baseline_problem(name, cuda)
+    cpu = _on_cpu(prob)
+    L = common.lipschitz(cpu)
+    idx = torch.randint(0, prob.n, (500,),
+                        generator=torch.Generator().manual_seed(4))
+    a = _baseline(name, prob, L=L, idx=idx)
+    b = _baseline(name, cpu, L=L, idx=idx)
+    if name == "l1_ls":
+        torch.testing.assert_close(a.objective[-1].cpu(), b.objective[-1],
+                                   rtol=1e-3, atol=0.0)
+        return
+    torch.testing.assert_close(a.objective.cpu(), b.objective, rtol=1e-4,
+                               atol=0.0)
+    xa, xb = a.x.cpu(), b.x
+    if name == "smidas":
+        # x = f⁻¹(θ) lifts a rounding-level difference in a tiny θ_j (the
+        # truncation's cancellation) to a visible one in x_j (|θ_j|^(q−1),
+        # q − 1 ≈ 0.08): hold SMIDAS's iterate θ = f(x), the p-norm link
+        from repro_torch.core.baselines import smidas
+        q = float(smidas.link_q(prob.d, "cpu"))
+        p = q / (q - 1.0)
+
+        def link(x):
+            x = x.double()
+            return (torch.sign(x) * x.abs() ** (p - 1.0)
+                    / torch.linalg.vector_norm(x, p) ** (p - 2.0))
+
+        xa, xb = link(xa), link(xb)
+    torch.testing.assert_close(
+        xa, xb, rtol=0.0, atol=1e-5 * max(1.0, float(xb.abs().max())))
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_repeat_on_card_is_bit_identical(cuda, name):
+    prob = _baseline_problem(name, cuda)
+    a, b = (_baseline(name, prob, generator=torch.Generator(
+        device=cuda).manual_seed(6)) for _ in range(2))
+    assert torch.equal(a.x.view(torch.int32), b.x.view(torch.int32))
+    assert torch.equal(a.objective.view(torch.int32),
+                       b.objective.view(torch.int32))
+
+
+def _host_waits(fn, range_name):
+    """The runtime calls and operators that wait on the card inside the
+    profiler range ``range_name`` of one call of ``fn``, the number of
+    such ranges, and the device-to-host copies anywhere in it (counted on
+    the host's records: in this process the profiler has returned fewer
+    device records than launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    ev = prof.events()
+    ranges = [e.time_range for e in ev if e.name == range_name
+              and e.device_type == cpu]
+    waits = [e.name for e in ev if e.device_type == cpu
+             and any(r.start <= e.time_range.start <= r.end for r in ranges)
+             and (e.name.endswith("Synchronize") or e.name in (
+                 "cudaMemcpy", "aten::item", "aten::_local_scalar_dense"))]
+    return waits, len(ranges), [e.name for e in ev if "DtoH" in e.name]
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_iterations_make_no_host_sync(cuda, name):
+    """Inside a baseline's iterations (SGD and SMIDAS: every chunk), no
+    call waits on the card, and no copy from the card anywhere in a solve
+    whose L and draws come from the card."""
+    from repro_torch.core.baselines import common
+    prob = _baseline_problem(name, cuda)
+    waits, n_ranges, dtoh = _host_waits(lambda: _baseline(
+        name, prob, generator=torch.Generator(device=cuda).manual_seed(7)),
+        common.ITERS_RANGE)
+    assert (waits, n_ranges, dtoh) == ([], 1, [])
+
+
+def test_cdn_rounds_make_no_host_sync(cuda):
+    """The batched Armijo step picks its trial on the device
+    (``objectives.take``), with the active set's draws from the card."""
+    from repro_torch.core import cdn as tcdn
+    from repro_torch.core import shotgun as tshot
+    prob = _scalar_problem("dense", "logistic", cuda, d=400)
+    waits, n_ranges, dtoh = _host_waits(lambda: tcdn.shotgun_cdn_solve(
+        prob, torch.Generator(device=cuda).manual_seed(8), P=8, rounds=20),
+        tshot.ROUNDS_RANGE)
+    assert (waits, n_ranges, dtoh) == ([], 1, [])
