@@ -7,6 +7,13 @@ Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version at the paper's widths, then drives the
 port's main path — ``block_shotgun_solve`` — on two legs:
 
+  lint    first, every rule of ``python -m repro_torch.analyze`` over this
+          checkout (each compiled instantiation's registers, spills and
+          shared memory from the build's report; host syncs, cache entries
+          and library reloads on repeated calls; process groups on one
+          NCCL rank), held to the port's allowlist, then the
+          fault-injection smoke ``repro_torch.dist.faults`` on one NCCL
+          rank;
   dense   a Sparco-style Lasso (n = 16384, d = 32768, fused and two-kernel
           rounds, f32 and bf16 A) and a zeta-shaped logistic regression
           with per-block Newton and the divergence guard (n = 500,000,
@@ -128,12 +135,10 @@ BL_SGD_RATE_STRIDE, BL_SGD_STEPS, BL_PSGD_K = 4, 2000, 8
 BL_SMIDAS_STEPS, BL_SMIDAS_ETA = 1000, 0.005
 BL_CPU_ITERS, BL_CPU_STEPS, BL_PROFILE_ITERS = 3, 200, 10
 BL_SMALL_N, BL_SMALL_D, BL_CERT = 1024, 2048, 1e-4
-# Runtime calls and operators that make the host wait on the card, or copy
-# from it: none may fall inside an unguarded scalar solve's rounds or a
-# baseline's iterations.
-SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-              "cudaEventSynchronize", "cudaMemcpy", "aten::item",
-              "aten::_local_scalar_dense")
+# Host syncs (none may fall inside an unguarded scalar solve's rounds or a
+# baseline's iterations) are counted from the lint's one list,
+# ``repro_torch.analyze.trace_checks.SYNC_CALLS`` and any ``*Synchronize``
+# record (``is_sync``), by its ``syncs_of``.
 
 
 class SmokeFailure(RuntimeError):
@@ -407,6 +412,7 @@ def main() -> int:
                 print(f"{prefix} grid: {'bf16' if a16 else 'f32'} {name}: "
                       f"{blocks} blocks x 256 threads")
 
+    lint_json = lint_leg()
     dense_kernels, dense_json, dense_data = dense_leg(args)
     sparse_kernels, sparse_json, sparse_data = sparse_leg(args)
     sharded_kernels, sharded_json = sharded_leg(args, dense_data, sparse_data,
@@ -416,8 +422,9 @@ def main() -> int:
     baselines_json = baselines_leg(args, dense_data, scalar_data)
 
     # ---- report -----------------------------------------------------------
-    print(json.dumps({**dense_json, **sparse_json, **sharded_json,
-                      **serve_json, **scalar_json, **baselines_json}))
+    print(json.dumps({**lint_json, **dense_json, **sparse_json,
+                      **sharded_json, **serve_json, **scalar_json,
+                      **baselines_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": dense_kernels + sparse_kernels
                       + sharded_kernels + serve_kernels}))
@@ -425,6 +432,73 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def lint_leg() -> dict:
+    """The lint leg, after the build: every compiled instantiation's
+    registers, spills and static shared memory from the build's saved
+    report, then ``python -m repro_torch.analyze --all`` over this checkout
+    with the port's allowlist (SL101 reads that report and compiles nothing
+    again; SL102 and SL103 probe the card), then the fault-injection smoke
+    ``python -m repro_torch.dist.faults`` on one NCCL rank.  Both run in
+    child processes: SL102 opens many profiler windows, after which this
+    process's profiler returned no device records to the dense leg.
+    Raises on any finding not on the allowlist, on any stale allowlist
+    entry and on a smoke that misses 0.5% of F* or whose faults were not
+    met and repaired (its fault-free twin's F, its no-retry twin's guard
+    trip)."""
+    import os
+    import re
+
+    from repro_torch.analyze import trace_checks
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    usage = trace_checks.parse_ptxas(_build.build_info["ptxas"])
+    kernels = {n: u for n, u in usage.items() if u.registers >= 0}
+    require(kernels, "lint: the build's report lists no kernel")
+    for name, u in sorted(kernels.items()):
+        print(f"lint instantiation {name}: {u.registers} registers, "
+              f"{u.spill_stores} B spill stores, {u.spill_loads} B spill "
+              f"loads, {u.smem} B static shared memory")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def child(module, *argv):
+        out = subprocess.run([sys.executable, "-m", module, *argv], env=env,
+                             capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in (out.stdout + out.stderr).splitlines()
+                 if not ln.startswith("USDT")]
+        return out.returncode, lines
+
+    rc, lines = child("repro_torch.analyze", "--all")
+    for ln in lines:
+        if "SL" in ln or ln.startswith(("note:", "repro_torch lint:")):
+            print(f"lint: {ln}")
+    summary = [ln for ln in lines if ln.startswith("repro_torch lint:")]
+    require(rc == 0 and summary, f"lint: exit {rc}: {lines[-20:]}")
+    counts = re.search(r"(\d+) finding\(s\), (\d+) allowlisted, (\d+) stale",
+                       summary[0])
+    t1 = time.perf_counter()
+    rc, lines = child("repro_torch.dist.faults")
+    for ln in lines:
+        print(f"fault smoke: {ln}")
+    smoke = [re.search(r"ranks=(\d+) F\*=(\S+) F=(\S+) gap=(\S+)% "
+                       r"status=(\w+)", ln) for ln in lines]
+    smoke = [m for m in smoke if m]
+    require(rc == 0 and smoke, f"fault smoke: exit {rc}: {lines[-20:]}")
+    t2 = time.perf_counter()
+    print(f"lint leg: {t2 - t0:.1f} s (rules {t1 - t0:.1f} s, fault smoke "
+          f"{t2 - t1:.1f} s, each in a child process)")
+    ranks, fstar, f, gap, status = smoke[0].groups()
+    return {"lint": dict(instantiations=len(kernels),
+                         spilling=sum(1 for u in kernels.values()
+                                      if u.spill_stores or u.spill_loads),
+                         findings=int(counts.group(1)),
+                         vetted=int(counts.group(2)),
+                         stale=int(counts.group(3)), seconds=t1 - t0),
+            "fault_smoke": dict(ranks=int(ranks), fstar=float(fstar),
+                                f=float(f), gap_pct=float(gap),
+                                status=status, seconds=t2 - t1)}
 
 
 def kernel_entry(name, source, replaces, launches, t, shape):
@@ -2158,24 +2232,11 @@ def duplicate_draws(idx) -> int:
 
 
 def host_syncs(fn, range_name: str) -> tuple[list[str], int, int]:
-    """Profile ``fn``: the names of the ``SYNC_CALLS`` events inside the
-    profiler range ``range_name``, how many such ranges there were, and
-    the device-to-host copies anywhere in the window."""
+    """Profile ``fn``: the names of the host-sync events (``is_sync``)
+    inside the profiler range ``range_name``, how many such ranges there
+    were, and the device-to-host copies anywhere in the window."""
+    from repro_torch.analyze.trace_checks import syncs_of
     return syncs_of(profiled_events(fn), range_name)
-
-
-def syncs_of(events, range_name: str) -> tuple[list[str], int, int]:
-    """``host_syncs``'s three results from a profiler window's events."""
-    cpu = torch.autograd.DeviceType.CPU
-    ranges = [e.time_range for e in events
-              if e.name == range_name and e.device_type == cpu]
-    inside = [e.name for e in events
-              if e.device_type == cpu and e.name in SYNC_CALLS
-              and any(r.start <= e.time_range.start <= r.end
-                      for r in ranges)]
-    dtoh = sum(1 for e in events
-               if e.device_type != cpu and "DtoH" in e.name)
-    return inside, len(ranges), dtoh
 
 
 def scalar_leg(args, dd, sd):
@@ -2441,6 +2502,7 @@ def profile_iters(label: str, fn):
     """One profiler window over ``fn``: print the device's idle share and
     the host syncs inside the baselines' ``ITERS_RANGE``; require none,
     one such range and no copy from the card; return the idle share."""
+    from repro_torch.analyze.trace_checks import syncs_of
     from repro_torch.core.baselines.common import ITERS_RANGE
     events = profiled_events(fn)
     busy, span, n_ev, *_ = busy_of(events)

@@ -18,9 +18,18 @@ The fault coins of attempt r of merge m on rank ``me`` come from a
 ``torch.Generator`` seeded with ``stream_seed(seed, m, r, me)``, where the
 driver salts ``seed`` off the solve's own (``_FAULT_SALT``): the solve's
 block draws are bit-identical with and without faults.
+
+``python -m repro_torch.dist.faults`` is the fault-injection smoke: a
+guarded sharded solve under drop and corrupt faults must still reach 0.5%
+of F*, end where its fault-free twin ends, and trip the guard when its
+retries are taken away.  It runs on the card on one NCCL rank, or with ``--device cpu
+--ranks N`` on N gloo ranks spawned on the CPU.
 """
 from __future__ import annotations
 
+import argparse
+import math
+import sys
 from typing import NamedTuple
 
 import torch
@@ -96,3 +105,119 @@ def faulty_psum(dz: torch.Tensor, seed: int, me: int, plan: FaultPlan,
     out = torch.where(ok_any, out, torch.nan_to_num(g_r, nan=0.0, posinf=0.0,
                                                     neginf=0.0))
     return out, (~ok_any).float()
+
+
+# Coordinates a round over all ranks.  The reference's smoke runs P_local =
+# 8 on its CI mesh of 8 devices: the port keeps that P (near this problem's
+# P* = 59) on any number of ranks that divides it, where P_local = 8 on one
+# rank is another solve, 25% above F* after 800 rounds.
+SMOKE_P = 64
+# A dropped merge whose Δz sums to within the checksum's tolerance (a late,
+# near-zero merge) passes unseen, so the faulted solve may end a hair off
+# its fault-free twin.
+SMOKE_RTOL = 1e-4
+
+
+def _smoke(device: str = "cuda") -> dict:
+    """The fault-injection smoke on the current process group (every rank
+    calls it): a guarded sharded solve under drop and corrupt Δz faults
+    must still reach 0.5% of F*.  Two twins of that solve, on the same
+    draws, show that the faults were met and repaired: the fault-free solve
+    ends at the same F (within ``SMOKE_RTOL``), and the same plan with no
+    retries trips the guard.  Prints the result on rank 0; raises unless
+    all three hold and F is finite."""
+    import torch.distributed as dist
+
+    from repro_torch.core import objectives as obj
+    from repro_torch.core.baselines import f_star
+    from repro_torch.core.health import STATUS_NAMES, GuardConfig
+    from repro_torch.core.sharded import shotgun_sharded_solve
+    from repro_torch.core.spec import SolverSpec
+    from repro_torch.data import synthetic as syn
+
+    A, y, _ = syn.sparco(seed=0, n=128, d=512)
+    prob = obj.make_problem(A, y, lam=1.0, device=device)
+    fstar = f_star(prob, iters=2000)
+    plan = FaultPlan(drop_prob=0.05, corrupt_prob=0.02, max_retries=3)
+    world = dist.get_world_size()
+    if SMOKE_P % world:
+        raise ValueError(f"{world} ranks do not divide P = {SMOKE_P}")
+    spec = SolverSpec(P=SMOKE_P // world, rounds=800,
+                      guard=GuardConfig(factor=10.0, p_min=4))
+
+    def solve(faults):
+        res = shotgun_sharded_solve(prob, spec=spec, engine="scalar", seed=1,
+                                    trace_every=4, faults=faults)
+        return float(res.trace.objective[-1]), STATUS_NAMES[int(res.status)]
+
+    f_end, status = solve(plan)
+    f_clean, _ = solve(None)
+    _, bare = solve(plan._replace(max_retries=0))
+    gap = (f_end - fstar) / abs(fstar)
+    out = dict(ranks=world, fstar=fstar, f=f_end, gap=gap, status=status,
+               f_clean=f_clean, no_retry_status=bare)
+    if dist.get_rank() == 0:
+        print(f"ranks={out['ranks']} F*={fstar:.4f} F={f_end:.4f} "
+              f"gap={gap:.2%} status={status}")
+        print(f"fault-free F={f_clean:.4f}; no retries: status={bare}")
+    if not math.isfinite(f_end):
+        raise RuntimeError("faulted solve produced a non-finite objective")
+    if gap > 0.005:
+        raise RuntimeError(f"faulted solve gap {gap:.2%} > 0.5%")
+    if abs(f_end - f_clean) > SMOKE_RTOL * abs(f_clean):
+        raise RuntimeError(f"faulted F {f_end} is not the fault-free "
+                           f"{f_clean} within rtol {SMOKE_RTOL}: the "
+                           "retries did not repair the merges")
+    if bare == "ok":
+        raise RuntimeError("with no retries the fault plan never tripped "
+                           "the guard: no fault reached a merge")
+    if dist.get_rank() == 0:
+        print("fault-injection smoke PASS")
+    return out
+
+
+def _smoke_rank(rank: int, world: int, store: str) -> None:
+    """One spawned gloo rank of the CPU smoke."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.ranks import join_group
+    join_group(rank, world, store)
+    try:
+        _smoke("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.dist.faults",
+        description="fault-injection smoke: a guarded sharded solve under "
+                    "drop and corrupt faults reaches 0.5% of F*")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda: one NCCL rank on the card (default); cpu: "
+                         "--ranks gloo ranks")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="gloo ranks on the CPU (one rank on the card)")
+    args = ap.parse_args(argv)
+    from repro_torch.dist import ranks
+    if args.ranks < 1 or (args.device == "cuda" and args.ranks != 1):
+        ap.error("--ranks must be >= 1, and 1 with --device cuda")
+    if args.device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            print("torch.cuda.is_available() is False: run with --device "
+                  "cpu for gloo ranks on the CPU", file=sys.stderr)
+            return 2
+        with ranks.one_rank("nccl"):
+            _smoke("cuda")
+    elif args.ranks == 1:
+        with ranks.one_rank("gloo"):
+            _smoke("cpu")
+    else:
+        print(ranks.spawn("repro_torch.dist.faults:_smoke_rank",
+                          args.ranks)[0], end="")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,8 @@ root (listed in ``.gitignore``), from the sources in the checkout only, and
 caches the loaded library.  Each source compiles in its own ``nvcc``, all
 started together, and one more ``nvcc`` links the objects.  The library's
 name carries a hash of the sources and flags, so an edited source is
-rebuilt.  A missing ``nvcc`` or
+rebuilt; the compiler's report (``-Xptxas -v``) is kept beside it under the
+same hash (``report_path``).  A missing ``nvcc`` or
 a failed build raises: there is no fallback to the plain versions.
 """
 from __future__ import annotations
@@ -29,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 # Filled by load(): seconds spent in nvcc (0.0 when the library was
-# already built) and the compiler's stderr (the -Xptxas -v report).
+# already built) and the compiler's output (the -Xptxas -v report, read
+# back from ``report_path`` when the library was already built).
 build_info = {"seconds": None, "ptxas": ""}
 
 _P = ctypes.c_void_p
@@ -87,11 +89,17 @@ def _run_all(cmds) -> list[tuple[list[str], int, str]]:
     return [(c, p.wait(), p.stdout.read()) for c, p in procs]
 
 
+def report_path(lib: pathlib.Path) -> pathlib.Path:
+    """The compilers' report kept beside the library ``lib``: the same
+    name and digest, ``.ptxas.txt`` in place of ``.so``."""
+    return lib.with_suffix(".ptxas.txt")
+
+
 def compile_library(csrc: pathlib.Path, target: pathlib.Path) -> str:
     """Compile the sources of ``csrc`` with this module's flags (one nvcc
     per source, all started together) and link them into ``target``
-    (written atomically); return the compilers' output (the -Xptxas -v
-    report); raise when a step fails."""
+    (written atomically, after its ``report_path``); return the compilers'
+    output (the -Xptxas -v report); raise when a step fails."""
     tag = f"{target.stem}.{os.getpid()}"
     nvcc = _nvcc()
     objs = [target.parent / f"{pathlib.Path(s).stem}-{tag}.o"
@@ -107,9 +115,14 @@ def compile_library(csrc: pathlib.Path, target: pathlib.Path) -> str:
     for cmd, rc, out in results:
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
-    # atomic rename: a concurrent build never sees half a file
+    report = "".join(out for _, _, out in results)
+    # atomic renames, the report first: a concurrent build never sees half
+    # a file, nor a library without its report
+    tmp_report = report_path(target).with_suffix(f".{os.getpid()}.tmp")
+    tmp_report.write_text(report)
+    os.replace(tmp_report, report_path(target))
     os.replace(tmp, target)
-    return "".join(out for _, _, out in results)
+    return report
 
 
 def build() -> pathlib.Path:
@@ -117,8 +130,9 @@ def build() -> pathlib.Path:
     return the library's path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"librepro_torch-{_digest()}.so"
-    if target.exists():
+    if target.exists() and report_path(target).exists():
         build_info["seconds"] = 0.0
+        build_info["ptxas"] = report_path(target).read_text()
         return target
     t0 = time.perf_counter()
     build_info["ptxas"] = compile_library(CSRC, target)

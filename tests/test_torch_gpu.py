@@ -376,8 +376,11 @@ def test_sparse_gather_split_matches_plain_and_repeats_bitwise(cuda, tile,
 
 
 def test_sparse_scatter_is_one_launch_and_no_other_device_op(cuda):
-    """The profiler sees one kernel and nothing else per scatter call (no
-    memset, copy or allocation kernel); the gather likewise."""
+    """Each scatter call enqueues one kernel launch and nothing else (no
+    memset, copy or second kernel); the gather likewise.  Counted on the
+    runtime calls that enqueue device work, seen by the profiler on the
+    host: in the pytest process the profiler has returned fewer device
+    records than launches, so the records only name the kernel."""
     from torch.profiler import ProfilerActivity, profile
     S = _padded_sparse(cuda, "f32")
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -394,13 +397,17 @@ def test_sparse_scatter_is_one_launch_and_no_other_device_op(cuda):
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
+        enqueue = [e.name for e in prof.events() if e.name.startswith(
+            ("cudaLaunch", "cudaMemcpy", "cudaMemset"))]
+        assert enqueue == ["cudaLaunchKernel"] * 3, (name, enqueue)
         ev = [e.name for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(ev) == 3 and all(name in e for e in ev), ev
+        assert len(ev) <= 3 and all(name in e for e in ev), ev
 
 
 def test_sparse_two_kernel_wrappers_raise_off_the_current_device(cuda):
@@ -1308,6 +1315,8 @@ def _host_waits(fn, range_name):
     the host's records: in this process the profiler has returned fewer
     device records than launches)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analyze.trace_checks import is_sync
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1320,8 +1329,7 @@ def _host_waits(fn, range_name):
               and e.device_type == cpu]
     waits = [e.name for e in ev if e.device_type == cpu
              and any(r.start <= e.time_range.start <= r.end for r in ranges)
-             and (e.name.endswith("Synchronize") or e.name in (
-                 "cudaMemcpy", "aten::item", "aten::_local_scalar_dense"))]
+             and is_sync(e.name)]
     return waits, len(ranges), [e.name for e in ev if "DtoH" in e.name]
 
 
@@ -1348,3 +1356,33 @@ def test_cdn_rounds_make_no_host_sync(cuda):
         prob, torch.Generator(device=cuda).manual_seed(8), P=8, rounds=20),
         tshot.ROUNDS_RANGE)
     assert (waits, n_ranges, dtoh) == ([], 1, [])
+
+
+def test_lint_resource_budget_of_the_build(cuda):
+    """SL101 over the library built from this checkout: every compiled
+    instantiation's spills and shared memory, from the build's own report,
+    give no finding outside the port's allowlist and leave no SL101 entry
+    of it stale."""
+    import pathlib
+
+    from repro_torch.analyze import render_report, runner
+    from repro_torch.analyze.trace_checks import parse_ptxas
+    from repro_torch.kernels import _build
+    report = runner.run_checkers(pathlib.Path(__file__).resolve().parents[1],
+                                 rules=["SL101"])
+    assert report.ok, render_report(report.findings)
+    assert report.unused_allows == []
+    assert any(u.registers > 0
+               for u in parse_ptxas(_build.build_info["ptxas"]).values())
+
+
+def test_lint_repeat_calls_leave_the_caches_alone_on_the_card(cuda):
+    """SL102 on the card: each registry solver and baseline called twice
+    at a tiny size adds no entry to the wrappers' per-device caches, loads
+    the library once, syncs nowhere inside its rounds and repeats bit for
+    bit; the two-kernel pair's caches were exercised."""
+    from repro_torch.analyze import render_report
+    from repro_torch.analyze.trace_checks import check_repeat, repeat_targets
+    findings = check_repeat(None, targets=repeat_targets(cuda))
+    assert findings == [], render_report(findings)
+    assert tsb._SLOTS and tsb._WORK

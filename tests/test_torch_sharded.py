@@ -28,10 +28,6 @@ algebras (f32 sums of the same terms in another order), x and z rtol/atol
 1e-4; against the fused block solve F rtol 2e-5 (tests/test_sharded_engines
 .py:40), x and z 1e-4; faults with enough retries and checkpoint resumes bit
 for bit; a bf16 wire's final F within 1% of f32's."""
-import os
-import pathlib
-import subprocess
-import sys
 import types
 
 import numpy as np
@@ -53,9 +49,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import sharded as tsh  # noqa: E402
 from repro_torch.core.health import GuardConfig, SolverFailure  # noqa: E402
 from repro_torch.core.spec import SolverSpec  # noqa: E402
+from repro_torch.dist import ranks  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
 BLOCK = 128
 LAM = 0.5
 GEN = dict(seed=0, n=500, d=1000, density=0.01)
@@ -430,24 +426,8 @@ dist.destroy_process_group()
 
 def _spawn(world, tmp, payload):
     np.savez(tmp / "in.npz", **payload)
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "OMP_NUM_THREADS": "1"}
-    env.pop("JAX_PLATFORMS", None)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(r), str(world),
-         str(tmp / "store"), str(tmp / "in.npz"), str(tmp)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for p, o in zip(procs, outs):
-        assert p.returncode == 0, o[-4000:]
+    ranks.spawn_code(WORKER, world, str(tmp / "in.npz"), str(tmp),
+                     timeout_s=240)
     return dict(np.load(tmp / "result.npz"))
 
 
