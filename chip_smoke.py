@@ -42,7 +42,16 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           beside its byte bound with its idle share and gap to F*,
           profiled for host syncs inside its iterations, repeated bit for
           bit and held against the CPU; and the paper's metric, rounds to
-          0.5% of F*, for the dense fused block and scalar Shotgun solves.
+          0.5% of F*, for the dense fused block and scalar Shotgun solves;
+  lm      last, in a child process (``--leg lm`` runs it alone): the LM
+          serving path ``repro_torch.launch.serve`` on Qwen3-4B (torch
+          code, no kernel of its own) — its published widths cut to 2
+          layers held against the port on the CPU in f32 and bf16, then
+          the server at full width and depth (36 layers, 8 slots of 2048
+          positions, 16 prompts of 512 tokens, 64 new tokens each) twice
+          with equal tokens and once under a 16-step round deadline, its
+          prefill and decode step timed beside their bounds, with the host
+          syncs and the device idle share of a decode step.
 
 The two-kernel pair #3/#4 is timed on three clocks (events, the
 profiler's counted records, events behind a spin) beside cuBLAS on a
@@ -135,6 +144,20 @@ BL_SGD_RATE_STRIDE, BL_SGD_STEPS, BL_PSGD_K = 4, 2000, 8
 BL_SMIDAS_STEPS, BL_SMIDAS_ETA = 1000, 0.005
 BL_CPU_ITERS, BL_CPU_STEPS, BL_PROFILE_ITERS = 3, 200, 10
 BL_SMALL_N, BL_SMALL_D, BL_CERT = 1024, 2048, 1e-4
+# LM leg (Qwen3-4B): the 2-layer full-width check against the CPU (2 rows,
+# a LM_PROMPT-token prefill, LM_DECODE per-slot decode steps; logits to
+# LM_F32_TOL / LM_BF16_TOL of their largest magnitude — the bf16 tolerance is
+# the reference's own decode test's); then the server: slots, positions a
+# slot, prompt tokens, new tokens, requests, and the deadline stream's round
+# deadline and evictions allowed.
+LM_ARCH, LM_SMOKE = "qwen3-4b", False
+LM_CPU_LAYERS, LM_PROMPT, LM_DECODE = 2, 16, 4
+LM_F32_TOL, LM_BF16_TOL = 1e-4, 2e-2
+LM_SLOTS, LM_MAX_LEN, LM_PROMPT_LEN = 8, 2048, 512
+LM_MAX_NEW, LM_REQUESTS = 64, 16
+LM_DEADLINE, LM_MAX_EVICTIONS = 16, 4
+BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores (data sheet)
+LM_STEP_RANGE = "chip_smoke.lm_step"  # a whole ``Engine.step``, profiled
 # Host syncs (none may fall inside an unguarded scalar solve's rounds or a
 # baseline's iterations) are counted from the lint's one list,
 # ``repro_torch.analyze.trace_checks.SYNC_CALLS`` and any ``*Synchronize``
@@ -359,6 +382,8 @@ def queued_ms(fn, iters: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--leg", choices=["lm"], default=None,
+                    help="run only this leg (no build) and print its JSON")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -369,6 +394,9 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if args.leg == "lm":
+        print(json.dumps(lm_leg(args)))
+        return 0
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -420,11 +448,13 @@ def main() -> int:
     serve_kernels, serve_json = serve_leg(args, dense_data, sparse_data)
     scalar_json, scalar_data = scalar_leg(args, dense_data, sparse_data)
     baselines_json = baselines_leg(args, dense_data, scalar_data)
+    del dense_data, sparse_data, scalar_data
+    lm_json = lm_leg_child(args)
 
     # ---- report -----------------------------------------------------------
     print(json.dumps({**lint_json, **dense_json, **sparse_json,
                       **sharded_json, **serve_json, **scalar_json,
-                      **baselines_json}))
+                      **baselines_json, **lm_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": dense_kernels + sparse_kernels
                       + sharded_kernels + serve_kernels}))
@@ -2750,6 +2780,252 @@ def baselines_leg(args, dd, sc):
     print(f"baselines leg: {wall:.1f} s wall")
     return {"baselines": dict(solves=runs, fstar=fstar, paper_metric=metric,
                               iht_s=s_iht, sgd_rate=rate, wall_s=wall)}
+
+
+
+def lm_leg_child(args) -> dict:
+    """The LM leg in a child process (``chip_smoke.py --leg lm``): it holds
+    ≈ 12 GB of its own on the card, apart from what the earlier legs' process
+    keeps cached.  Echoes the child's lines, raises if it failed, returns
+    its JSON."""
+    script = str(pathlib.Path(__file__).resolve())
+    out = subprocess.run([sys.executable, script, "--leg", "lm",
+                          "--seed", str(args.seed)],
+                         capture_output=True, text=True, timeout=900)
+    lines = out.stdout.splitlines()
+    for ln in lines[:-1]:
+        print(f"lm: {ln}")
+    require(out.returncode == 0 and lines,
+            f"lm leg: exit {out.returncode}: {out.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def lm_logits(cfg, params, toks, dev):
+    """Logits of a ``LM_PROMPT``-token prefill of ``toks`` and of
+    ``LM_DECODE`` per-slot decode steps on the tokens after it (rows at
+    positions P + t and P + t - 3), as one float32 CPU tensor."""
+    from repro_torch.models import model as M
+    toks = torch.as_tensor(toks, dtype=torch.int64, device=dev)
+    b, P = toks.shape[0], LM_PROMPT
+    logits, cache = M.forward(cfg, params, {"tokens": toks[:, :P]},
+                              make_cache_len=P + LM_DECODE)
+    outs = [logits]
+    for t in range(LM_DECODE):
+        pos = torch.tensor([[P + t], [P + t - 3]], device=dev)[:b]
+        lg, cache = M.decode_step(cfg, params, toks[:, P + t:P + t + 1],
+                                  cache, pos)
+        outs.append(lg)
+    return torch.cat(outs, 1).float().cpu()
+
+
+def product_weights(params) -> list:
+    """The weights a forward reads through products: the head and every
+    layer's w* leaves (the embedding is a gather of B rows)."""
+    return [params["head"]] + [t for blk in params["blocks"]
+                               for part in ("attn", "mlp")
+                               for name, t in blk[part].items()
+                               if name.startswith("w")]
+
+
+def lm_bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lm_leg(args) -> dict:
+    """The LM leg: ``repro_torch.launch.serve`` on Qwen3-4B.
+
+    1. Its published widths cut to ``LM_CPU_LAYERS`` layers, drawn on the
+       card and copied to the host: prefill and decode logits on the card
+       against the port's CPU run on the same weights and tokens, in f32
+       (TF32 off) to ``LM_F32_TOL`` and in bf16 to ``LM_BF16_TOL``.
+    2. ``serve`` at full width and depth, on weights built once (bf16,
+       leaf by leaf): the stream, its repeat (equal tokens required), and
+       the stream under a round deadline (equal streams counted); the ages
+       of an engine's slots and a refill free of the previous occupant's
+       state; one decode step of full slots profiled for host syncs (none
+       inside ``DECODE_RANGE``) and the device's idle share.  Prefill and
+       decode times (the repeat's, on the host clock: each ends in a host
+       read) beside their bounds."""
+    import dataclasses
+
+    from repro_torch.analyze.trace_checks import syncs_of
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve as S
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    t_leg = time.perf_counter()
+    dev = torch.device(DEVICE)
+    card = dev.type == "cuda"
+    smi = nvidia_smi_line() if card else "cpu"
+    mod = ARCHS[LM_ARCH]
+    full = mod.smoke_config() if LM_SMOKE else mod.CONFIG
+
+    # ---- 1. the full width, cut to 2 layers, against the CPU ------------
+    cut = dataclasses.replace(full, num_layers=LM_CPU_LAYERS)
+    params = M.init(cut, torch.Generator(dev).manual_seed(args.seed))
+    host = M.to_device(params, "cpu")
+    toks = np.random.default_rng(args.seed).integers(
+        1, cut.vocab_size, (2, LM_PROMPT + LM_DECODE))
+    checks = {}
+    for tag, dtype, tol in (("f32", torch.float32, LM_F32_TOL),
+                            ("bf16", torch.bfloat16, LM_BF16_TOL)):
+        cfg = dataclasses.replace(cut, compute_dtype=dtype, cache_dtype=dtype)
+        t0 = time.perf_counter()
+        got = lm_logits(cfg, M.cast_weights(params, dtype), toks, dev)
+        t1 = time.perf_counter()
+        want = lm_logits(cfg, M.cast_weights(host, dtype), toks, "cpu")
+        t2 = time.perf_counter()
+        err = float((got - want).abs().max() / want.abs().max())
+        same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        print(f"check {LM_ARCH} full width, {LM_CPU_LAYERS} layers, {tag}: "
+              f"prefill {LM_PROMPT} + {LM_DECODE} per-slot decode steps, "
+              f"2 rows, card vs CPU: max |diff| / max |logit| {err:.3e} "
+              f"(tol {tol:g}), argmax equal at {same:.4f} of positions "
+              f"(card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s)")
+        require(math.isfinite(err) and err <= tol,
+                f"lm {tag} card vs CPU: {err:.3e} > {tol:g}")
+        checks[tag] = dict(rel_err=err, argmax_equal=same)
+    del params, host
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # ---- 2. the server at full width and depth --------------------------
+    t0 = time.perf_counter()
+    weights = M.init(full, torch.Generator(dev).manual_seed(args.seed),
+                     weight_dtype=full.compute_dtype)
+    if card:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    wbytes = sum(t.numel() * t.element_size() for t in M.leaves(weights))
+    products = product_weights(weights)
+    mparams = sum(t.numel() for t in products)
+    mbytes = sum(t.numel() * t.element_size() for t in products)
+    kv_bytes = (full.num_layers * LM_SLOTS * LM_MAX_LEN * full.num_kv_heads
+                * full.head_dim * 2 * torch.finfo(full.cache_dtype).bits // 8)
+    route = ("bmm(out_dtype=float32)" if card and L._bmm_out_dtype()
+             else "float32 copies")
+    print(f"attention logits from bf16 operands: {route}")
+    print(f"{LM_ARCH}: {full.num_layers} layers built in {build_s:.3f} s, "
+          f"{wbytes} weight bytes ({mbytes} in products), KV cache "
+          f"{kv_bytes} bytes ({LM_SLOTS} slots x {LM_MAX_LEN})")
+    kw = dict(requests=LM_REQUESTS, batch=LM_SLOTS, max_new=LM_MAX_NEW,
+              prompt_len=LM_PROMPT_LEN, max_len=LM_MAX_LEN, seed=args.seed,
+              smoke=LM_SMOKE, quiet=True, params=weights, device=dev)
+    runs = {}
+    for label, extra in (("first", {}), ("repeat", {}),
+                         ("deadline", dict(max_rounds=LM_DEADLINE,
+                                           max_evictions=LM_MAX_EVICTIONS))):
+        st = {}
+        reqs = S.serve(LM_ARCH, stats=st, **kw, **extra)
+        rids = sorted(r.rid for r in reqs)
+        require(rids == list(range(LM_REQUESTS)),
+                f"lm {label}: rids finished {rids}")
+        for r in reqs:
+            require(r.done and 1 <= len(r.out) <= LM_MAX_NEW
+                    and all(0 <= x < full.padded_vocab for x in r.out),
+                    f"lm {label}: request {r.rid} gave {len(r.out)} tokens "
+                    f"{r.out[:8]}")
+        runs[label] = ({r.rid: r.out for r in reqs}, st,
+                       sum(r.evictions for r in reqs))
+        print(f"serve {label}: {len(reqs)} requests, {st['tokens']} tokens, "
+              f"{st['decode_steps']} decode steps, {st['prefills']} "
+              f"prefills, evictions {runs[label][2]}, {st['wall_s']:.3f} s "
+              f"({st['tokens'] / st['wall_s']:.1f} tokens/s) [{smi}]")
+    require(runs["repeat"][0] == runs["first"][0],
+            "lm: the repeated stream's tokens differ from the first's")
+    require(runs["deadline"][2] > 0, "lm: the deadline evicted nothing")
+    agree = sum(runs["deadline"][0][i] == runs["first"][0][i]
+                for i in range(LM_REQUESTS))
+    print(f"serve deadline vs first: {agree} of {LM_REQUESTS} token streams "
+          "equal (re-prefill is another computation; not required in bf16)")
+
+    eng = S.Engine(full, batch=LM_SLOTS, max_len=LM_MAX_LEN, params=weights,
+                   device=dev)
+    rng = np.random.default_rng(args.seed + 1)
+    prompts = [rng.integers(1, full.vocab_size, LM_PROMPT_LEN, dtype=np.int32)
+               for _ in range(LM_SLOTS + 1)]
+    eng.admit(S.Request(0, prompts[0], LM_MAX_NEW), 0)
+    for expect in (1, 2, 3):
+        eng.step()
+        require(eng.age[0] == expect and eng.age[1] == 0,
+                f"lm ages after {expect} steps: {eng.age}")
+    late = S.Request(1, prompts[1], 6)
+    eng.admit(late, 0)
+    require(eng.age[0] == 0, f"lm: refilled slot's age {eng.age[0]}")
+    while not late.done:
+        eng.step()
+    fresh = S.Engine(full, batch=LM_SLOTS, max_len=LM_MAX_LEN,
+                     params=weights, device=dev)
+    alone = S.Request(1, prompts[1], 6)
+    fresh.admit(alone, 0)
+    while not alone.done:
+        fresh.step()
+    require(late.out == alone.out, f"lm: refill into a used slot gave "
+            f"{late.out}, a fresh engine {alone.out}")
+    del fresh
+    print("serve engine: ages count decode steps and reset on refill; a "
+          "refill into a used slot gives the fresh engine's tokens")
+    for i in range(LM_SLOTS):
+        eng.admit(S.Request(10 + i, prompts[i], 10 ** 6), i)
+    eng.step()
+
+    def one_step():
+        with torch.profiler.record_function(LM_STEP_RANGE):
+            eng.step()
+
+    events = profiled_events(one_step)
+    inside, ranges, dtoh = syncs_of(events, S.DECODE_RANGE)
+    step_syncs, _, _ = syncs_of(events, LM_STEP_RANGE)
+    busy, span, n_dev, _, _ = busy_of(events)
+    idle = 1.0 - busy / span if span else float("nan")
+    require(ranges == 1 and not inside,
+            f"lm: host syncs inside the decode range: {inside}")
+    require(len(step_syncs) <= 1, f"lm: host syncs in a step: {step_syncs}")
+    print(f"serve decode step profiled: {len(step_syncs)} host syncs in "
+          f"the step ({step_syncs}), {len(inside)} inside "
+          f"{S.DECODE_RANGE}, {dtoh} device-to-host copies, {n_dev} device "
+          f"records, device busy {busy:.3f} ms of a {span:.3f} ms span "
+          f"(idle share {idle:.4f}) [{smi}]")
+    del eng
+
+    rep = runs["repeat"][1]
+    prefill_ms = rep["prefill_s"] / rep["prefills"] * 1e3
+    decode_ms = rep["step_s"] / rep["steps"] * 1e3
+    layers, H, dh = full.num_layers, full.num_heads, full.head_dim
+    plen = LM_PROMPT_LEN
+    pre_flops = 2 * mparams * plen + 4 * layers * H * plen * LM_MAX_LEN * dh
+    dec_flops = 2 * mparams * LM_SLOTS + 4 * layers * H * LM_SLOTS * \
+        LM_MAX_LEN * dh
+    pre_bound, pre_by = lm_bound(mbytes, pre_flops)
+    dec_bound, dec_by = lm_bound(mbytes + kv_bytes, dec_flops)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if card else float("nan")
+    print(f"serve prefill of a {plen}-token prompt: {prefill_ms:.3f} ms mean "
+          f"of {rep['prefills']} (bound {pre_bound:.3f} ms by {pre_by}: "
+          f"{pre_flops / 1e12:.3f} TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s; {pre_bound / prefill_ms:.3f} of bound) [{smi}]")
+    print(f"serve decode step ({LM_SLOTS} slots, S_max {LM_MAX_LEN}): "
+          f"{decode_ms:.3f} ms mean of {rep['steps']} (bound "
+          f"{dec_bound:.3f} ms by {dec_by}: {mbytes + kv_bytes} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {dec_bound / decode_ms:.3f} "
+          f"of bound); {rep['tokens'] / rep['wall_s']:.1f} tokens/s; peak "
+          f"device memory {peak:.2f} GiB [{smi}]")
+    wall = time.perf_counter() - t_leg
+    print(f"lm leg: {wall:.1f} s wall")
+    return {"lm": dict(
+        arch=LM_ARCH, layers=full.num_layers, cpu_check=checks,
+        build_s=build_s, weight_bytes=wbytes, product_weight_bytes=mbytes,
+        kv_bytes=kv_bytes, prefill_ms=prefill_ms, prefill_bound_ms=pre_bound,
+        decode_ms=decode_ms, decode_bound_ms=dec_bound,
+        tokens_per_s=rep["tokens"] / rep["wall_s"],
+        decode_steps=rep["decode_steps"], host_syncs_per_step=len(step_syncs),
+        syncs_in_decode_range=len(inside), decode_busy_ms=busy,
+        decode_span_ms=span, idle_share=idle, peak_gib=peak,
+        deadline_streams_equal=agree, evictions=runs["deadline"][2],
+        wall_s=wall)}
 
 
 if __name__ == "__main__":

@@ -82,3 +82,90 @@ def slot_arrays_from_numpy(meta_tuple, stacked_numpy, *, device="cuda"):
         lam=tensor(lam, np.float32), beta=tensor(beta, np.float32),
         order=order, rstart=None if rows is None else stacked_range_starts(
             rows, order, meta.n_pad))
+
+
+def _lm_leaf_paths(tree, prefix=""):
+    """(path, tensor) of every leaf of a port parameter (sub)tree, paths
+    ``/``-joined in the reference's spelling."""
+    for k in sorted(tree):
+        v, path = tree[k], f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from _lm_leaf_paths(v, path + "/")
+        else:
+            yield path, v
+
+
+def _lm_layout(cfg):
+    """{reference path: (port leaves it maps to, stacked shape)} for
+    ``cfg``: a ``blocks/l{i}/…`` path carries the group axis and maps to
+    layers i, i + P, i + 2P, … of the port's list (P = pattern length)."""
+    from repro_torch.models import model as M
+    meta = M.init(cfg, device="meta")
+    top = {k: v for k, v in meta.items() if k != "blocks"}
+    layout = {path: ([(None, path)], tuple(t.shape))
+              for path, t in _lm_leaf_paths(top)}
+    P = len(cfg.pattern)
+    for i in range(P):
+        for sub, t in _lm_leaf_paths(meta["blocks"][i]):
+            layers = range(i, cfg.num_layers, P)
+            layout[f"blocks/l{i}/{sub}"] = (
+                [(layer, sub) for layer in layers],
+                (len(layers),) + tuple(t.shape))
+    return layout
+
+
+def _put(tree, path, value):
+    *dirs, leaf = path.split("/")
+    for d in dirs:
+        tree = tree.setdefault(d, {})
+    tree[leaf] = value
+
+
+def _get(tree, path):
+    for d in path.split("/"):
+        tree = tree[d]
+    return tree
+
+
+def lm_params_from_numpy(cfg, flat, *, device="cuda"):
+    """The port's LM parameters (``models.model``) from the reference's
+    parameter tree as a flat dict of ``/``-joined paths (``embed``,
+    ``final_norm/scale``, ``blocks/l0/attn/wq`` with the leading group
+    axis, …) to numpy arrays, so that both packages compute with the same
+    weights.  bf16 arrays stay bf16, everything else becomes float32.
+    Raises ``ValueError`` on a missing or unknown path or a wrong shape."""
+    dev = resolve_device(device)
+    layout = _lm_layout(cfg)
+    missing = sorted(set(layout) - set(flat))
+    unknown = sorted(set(flat) - set(layout))
+    if missing or unknown:
+        raise ValueError(f"{cfg.name}: parameter paths missing {missing}, "
+                         f"unknown {unknown}")
+    params: dict = {"blocks": [{} for _ in range(cfg.num_layers)]}
+    for path, (dests, shape) in layout.items():
+        arr = np.asarray(flat[path])
+        if arr.shape != shape:
+            raise ValueError(f"{cfg.name}: {path} has shape {arr.shape}, "
+                             f"expected {shape}")
+        bf16 = arr.dtype.name == "bfloat16"
+        t = torch.from_numpy(np.array(arr, np.float32)).to(dev)
+        t = t.to(torch.bfloat16) if bf16 else t
+        for group, (layer, sub) in enumerate(dests):
+            if layer is None:
+                _put(params, sub, t)
+            else:
+                _put(params["blocks"][layer], sub, t[group])
+    return params
+
+
+def lm_params_to_numpy(cfg, params):
+    """Inverse of ``lm_params_from_numpy``: the reference's flat
+    ``/``-joined paths to numpy arrays (float32; bf16 leaves as float32
+    arrays of their values), the blocks stacked over groups."""
+    flat = {}
+    for path, (dests, _) in _lm_layout(cfg).items():
+        ts = [(_get(params, sub) if layer is None
+               else _get(params["blocks"][layer], sub)) for layer, sub in dests]
+        arrs = [t.detach().float().cpu().numpy() for t in ts]
+        flat[path] = arrs[0] if dests[0][0] is None else np.stack(arrs)
+    return flat

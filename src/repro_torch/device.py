@@ -21,3 +21,14 @@ def exact_f32_matmul() -> None:
     to.  Called by every function that runs ``torch.matmul``/``einsum`` on
     a CUDA tensor."""
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def exact_lm_matmul() -> None:
+    """The LM path's products on the card as the reference computes them:
+    float32 in full float32 (``exact_f32_matmul``) and bf16 products
+    reduced in float32 — PyTorch lets cuBLAS reduce bf16 split-K partial
+    sums in bf16 unless told otherwise.  Called by the LM entry points
+    (``models.model.forward``/``decode_step``) on CUDA tensors; the solver
+    paths leave the bf16 flag as it is."""
+    exact_f32_matmul()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -1,0 +1,189 @@
+"""GQA attention (port of the GQA half of ``repro.models.attention``): QKV
+bias, qk-norm, M-RoPE and cross attention.  MLA waits for its own slice.
+
+KV-cache layout: k/v of shape (B, S_max, Hkv, Dh), as in the reference, held
+as views of head-major (B, Hkv, S_max, Dh) buffers so that attention reads
+each (slot, kv head) as one contiguous (S_max, Dh) block.  The cache is
+written in place: prefill (scalar ``pos``) writes rows ``pos : pos + S``,
+per-slot decode (vector ``pos``) writes one row per slot, with the values
+the reference's functional updates give.
+
+``sdpa`` groups the query heads of each KV head instead of repeating k and
+v (``repeat_kv`` stays for callers that want the repeated layout); logits
+are float32, masked with ``NEG_INF`` (not -inf), the float32 softmax is
+rounded to the compute dtype before the PV product, which accumulates in
+float32 — so no fused attention kernel stands in for it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import layers as L
+
+NEG_INF = -1e9
+
+
+def repeat_kv(x, n_rep):
+    """(B, S, Hkv, Dh) -> (B, S, Hkv * n_rep, Dh)"""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def sdpa(q, k, v, causal, q_offset=0, kv_len=None):
+    """q: (B, Sq, H, Dh), k/v: (B, Sk, Hk, Dh) with Hk dividing H (query
+    head j·H/Hk + r reads kv head j, as after ``repeat_kv``).  fp32
+    softmax.
+
+    ``q_offset``: absolute position of q[0] (decode: pos).  ``kv_len``:
+    (B,) number of valid kv entries (masks the cache tail).
+    """
+    b, sq, h, dh = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    rep = h // hk
+    scale = 1.0 / math.sqrt(dh)
+    # (B, Hk, rep·Sq, Dh) queries against (B, Hk, Sk, Dh) keys
+    qg = q.reshape(b, sq, hk, rep, dh).permute(0, 2, 3, 1, 4).reshape(
+        b * hk, rep * sq, dh)
+    kt = k.transpose(1, 2).reshape(b * hk, sk, dh)
+    vt = v.transpose(1, 2).reshape(b * hk, sk, dh)
+    logits = L.matmul_f32(qg, kt.transpose(1, 2)).mul_(scale).view(
+        b, h, sq, sk)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(sk, device=q.device)
+        logits.masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
+    if kv_len is not None:
+        valid = torch.arange(sk, device=q.device)[None, :] < kv_len[:, None]
+        logits.masked_fill_(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.bmm(probs.view(b * hk, rep * sq, sk), vt)
+    return out.view(b, hk, rep, sq, dh).permute(0, 3, 1, 2, 4).reshape(
+        b, sq, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+def gqa_init(cfg, *, generator=None, device=None, dtype=torch.float32):
+    """``dtype``: the dtype the matmul weights are held in (drawn in
+    float32, then cast); biases and qk-norm scales stay float32."""
+    d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    p = {
+        "wq": L.dense_init((d, h * dh), **kw),
+        "wk": L.dense_init((d, hkv * dh), **kw),
+        "wv": L.dense_init((d, hkv * dh), **kw),
+        "wo": L.dense_init((h * dh, d), **kw),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
+            p[name] = torch.zeros(n, dtype=torch.float32, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(dh, device=device)
+        p["k_norm"] = L.rmsnorm_init(dh, device=device)
+    return p
+
+
+def _project_qkv(p, x, xc, cfg, dtype):
+    """xc = key/value source (cross-attention uses encoder output)."""
+    b, s, _ = x.shape
+    sk = xc.shape[1]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = L.matmul(x, p["wq"], dtype)
+    k = L.matmul(xc, p["wk"], dtype)
+    v = L.matmul(xc, p["wv"], dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, sk, hkv, dh)
+    v = v.reshape(b, sk, hkv, dh)
+    if cfg.qk_norm:
+        q = L.rmsnorm(p["q_norm"], q)
+        k = L.rmsnorm(p["k_norm"], k)
+    return q, k, v
+
+
+def _write_slots(buf, new, pvec):
+    """Per-slot decode write: row ``pvec[i]`` of slot i gets ``new[i, 0]``;
+    a position outside [0, S_max) writes nothing (the reference's
+    ``where(arange(S_max) == pos, new, cache)``)."""
+    smax = buf.shape[1]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    inside = (pvec >= 0) & (pvec < smax)
+    at = pvec.clamp(0, smax - 1)
+    vals = torch.where(inside[:, None, None], new[:, 0].to(buf.dtype),
+                       buf[rows, at])
+    buf[rows, at] = vals
+
+
+def gqa_rope(cfg, positions, positions3=None):
+    """The (cos, sin) pair ``gqa_apply`` rotates q and k by: M-RoPE when
+    the config has it and ``positions3`` is given, else RoPE."""
+    if cfg.mrope and positions3 is not None:
+        return L.mrope_cos_sin(positions3, cfg.head_dim, cfg.mrope_sections,
+                               cfg.rope_theta)
+    return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def gqa_apply(p, x, cfg, positions, dtype, *, causal=True, cache=None,
+              pos=None, xc=None, positions3=None, use_rope=True, rope=None):
+    """Returns (out, cache).  cache = dict(k, v) of (B, S_max, Hkv, Dh),
+    updated in place and returned.
+
+    Modes: full-sequence (cache=None); prefill / scalar decode (cache + int
+    ``pos``: rows pos : pos + S written, causal mask offset by pos over all
+    of S_max); per-slot decode (cache + (B,) or (B, 1) tensor ``pos``, one
+    query token per slot, mask kv_len = pos + 1 instead of the causal
+    one); cross-attn (xc = encoder states, use_rope=False, causal=False).
+    ``rope``: ``gqa_rope(cfg, positions, positions3)`` if the caller has it
+    (a model computes it once for all its layers).
+    """
+    b, s, _ = x.shape
+    h, dh = cfg.num_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, x if xc is None else xc, cfg, dtype)
+    if use_rope:
+        cos, sin = gqa_rope(cfg, positions, positions3) if rope is None \
+            else rope
+        q = L.rotate(q, cos, sin)
+        k = L.rotate(k, cos, sin)
+
+    kv_len = None
+    q_offset = 0 if pos is None else pos
+    if cache is not None and xc is None:
+        if torch.is_tensor(pos) and pos.dim() > 0:
+            pvec = pos.reshape(b)
+            _write_slots(cache["k"], k, pvec)
+            _write_slots(cache["v"], v, pvec)
+            kv_len = pvec + 1
+            causal = False
+            q_offset = 0
+        else:
+            # dynamic_update_slice: the start is clamped so the rows fit
+            smax = cache["k"].shape[1]
+            at = min(max(int(pos), 0), smax - s)
+            cache["k"][:, at:at + s] = k.to(cache["k"].dtype)
+            cache["v"][:, at:at + s] = v.to(cache["v"].dtype)
+            q_offset = int(pos)
+        # scalar path: causal mask with q_offset=pos hides both the future
+        # inside this chunk and the unwritten cache tail (kpos > pos + s - 1)
+        k, v = cache["k"], cache["v"]
+    out = sdpa(q, k.to(dtype), v.to(dtype), causal=causal, q_offset=q_offset,
+               kv_len=kv_len)
+    out = L.matmul(out.reshape(b, s, h * dh), p["wo"], dtype)
+    return out, (cache if xc is None else None)
+
+
+def gqa_cache_init(cfg, batch, s_max, dtype=torch.bfloat16, *, device=None):
+    """Zero k and v, (B, S_max, Hkv, Dh) views of head-major buffers."""
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    return {name: torch.zeros(batch, hkv, s_max, dh, dtype=dtype,
+                              device=device).transpose(1, 2)
+            for name in ("k", "v")}

@@ -1,0 +1,322 @@
+"""The decoder model over a ``ModelConfig`` (port of ``repro.models.model``,
+the ``attn`` + ``mlp``/``none`` layers):
+
+    init(cfg, generator)                          -> params
+    forward(cfg, params, batch)                   -> logits   (train/prefill)
+    decode_step(cfg, params, tok, cache, pos)     -> logits, cache (serving)
+
+Parameters are a dict like the reference's tree, with the decoder blocks as
+a list of per-layer dicts (layer ``g·len(pattern) + i`` is the reference's
+``blocks/l{i}`` at group g; ``convert.lm_params_from_numpy`` maps one to
+the other) and the layers run one after another in Python.  The cache is
+``{"blocks": [{"kv": {"k", "v"}} per layer], "enc_out": None}``, updated in
+place.
+
+Not ported yet (ROADMAP Queue 1 #13): MLA (MiniCPM3), MoE (Granite,
+Phi-3.5), Mamba-2 and the Jamba hybrid, and the encoder (Whisper) —
+``init``, ``forward`` and ``decode_step`` raise ``NotImplementedError`` for
+a config that needs one.  ``sharding.py``'s ``shard_btd``/``shard_btv``
+activation constraints do nothing without a mesh, and this port runs on one
+card, so they are left out; ``sharding.py`` waits for the multi-card slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.device import exact_lm_matmul
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = "attn"        # attn | mamba
+    ffn: str = "mlp"           # mlp | moe | none
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    # block flavor
+    pattern: tuple = (LayerSpec(),)
+    activation: str = "silu"
+    gated: bool = True
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    norm: str = "rmsnorm"
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    # attention kind
+    attn_kind: str = "gqa"     # gqa | mla
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # MoE
+    num_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    moe_capacity_factor: float = 1.25
+    # Mamba
+    mamba_expand: int = 2
+    mamba_head_dim: int = 64
+    ssm_state: int = 128
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+    frontend: str = "none"     # none | audio_stub | vision_stub
+    # multimodal rope (qwen2-vl)
+    mrope: bool = False
+    mrope_sections: tuple = (16, 24, 24)
+    # numerics / training
+    compute_dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    optimizer: str = "adamw"   # adamw | adafactor
+    remat: bool = True
+    unroll_scan: bool = False  # measurement mode of the reference's scans
+    # serving
+    cache_dtype: Any = torch.bfloat16
+
+    @property
+    def num_groups(self) -> int:
+        if self.num_layers % len(self.pattern):
+            raise ValueError(
+                f"{self.name}: num_layers={self.num_layers} is not a "
+                f"multiple of the layer pattern length {len(self.pattern)}")
+        return self.num_layers // len(self.pattern)
+
+    @property
+    def padded_vocab(self) -> int:
+        return ((self.vocab_size + 127) // 128) * 128
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def param_count(self) -> int:
+        """Exact parameter count from shapes: ``init`` on the meta device,
+        which allocates nothing."""
+        return sum(t.numel() for t in leaves(init(self, device="meta")))
+
+
+def uniform_pattern(mixer="attn", ffn="mlp"):
+    return (LayerSpec(mixer=mixer, ffn=ffn),)
+
+
+def jamba_pattern():
+    """Jamba: attention at layer i%8==4 (1:7), MoE every 2nd layer."""
+    return tuple(
+        LayerSpec(mixer="attn" if i % 8 == 4 else "mamba",
+                  ffn="moe" if i % 2 == 1 else "mlp")
+        for i in range(8))
+
+
+def leaves(tree):
+    """The tensors of a parameter or cache tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in leaves(x)]
+    return [] if tree is None else [tree]
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config that needs a layer this
+    port does not have yet (ROADMAP Queue 1 #13)."""
+    missing = []
+    if cfg.attn_kind == "mla":
+        missing.append("MLA attention (MiniCPM3)")
+    if any(s.ffn == "moe" for s in cfg.pattern):
+        missing.append("MoE (Granite, Phi-3.5, Jamba)")
+    if any(s.mixer == "mamba" for s in cfg.pattern):
+        missing.append("the Mamba-2 mixer (Mamba2, Jamba)")
+    if cfg.is_encdec:
+        missing.append("the encoder (Whisper)")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet "
+            "(ROADMAP Queue 1 #13)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, generator=None, *, device=None,
+         weight_dtype=torch.float32):
+    """Parameters drawn from ``generator`` (on ``device``, by default the
+    generator's).  Every matmul weight (and the embedding) is drawn in
+    float32 and cast to ``weight_dtype`` at once, leaf by leaf, so a bf16
+    model never holds more than one float32 leaf; norm scales and biases
+    stay float32.  ``device="meta"`` gives the shapes only."""
+    check_ported(cfg)
+    if device is None:
+        device = generator.device if generator is not None else "cpu"
+    kw = dict(generator=generator, device=device, dtype=weight_dtype)
+    V, d = cfg.padded_vocab, cfg.d_model
+    params: dict = {
+        "embed": L.dense_init((V, d), scale=0.02, **kw),
+        "final_norm": L.norm_init(cfg.norm, d, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = L.dense_init((d, V), **kw)
+    blocks = []
+    for layer in range(cfg.num_layers):
+        spec = cfg.pattern[layer % len(cfg.pattern)]
+        p = {"pre_norm": L.norm_init(cfg.norm, d, device=device),
+             "attn": attn.gqa_init(cfg, **kw)}
+        if spec.ffn != "none":
+            p["post_norm"] = L.norm_init(cfg.norm, d, device=device)
+            p["mlp"] = L.mlp_init(d, cfg.d_ff, cfg.gated, **kw)
+        blocks.append(p)
+    params["blocks"] = blocks
+    return params
+
+
+# Leaves that stay float32 in a model held in the compute dtype: norm
+# scales and biases, and the QKV biases (added in the compute dtype).
+F32_LEAVES = ("scale", "bias", "bq", "bk", "bv")
+
+
+def _map(tree, fn, name=""):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn, name) for v in tree]
+    return fn(name, tree)
+
+
+def cast_weights(params, dtype):
+    """The same tree with every matmul weight and the embedding as its
+    ``dtype`` copy (the ``F32_LEAVES`` unchanged): the copy the reference
+    casts to at every use."""
+    return _map(params, lambda name, t: t if name in F32_LEAVES
+                else t.to(dtype))
+
+
+def to_device(tree, device):
+    """The parameter tree with every tensor on ``device``."""
+    return _map(tree, lambda _, t: t.to(device))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _apply_layer(cfg, spec: LayerSpec, p, h, positions, dtype, *,
+                 causal=True, cache=None, pos=None, positions3=None,
+                 rope=None):
+    """One decoder layer.  Returns (h, new_cache)."""
+    new_cache = {}
+    x = L.norm_apply(cfg.norm, p["pre_norm"], h)
+    out, kv = attn.gqa_apply(p["attn"], x, cfg, positions, dtype,
+                             causal=causal,
+                             cache=None if cache is None else cache.get("kv"),
+                             pos=pos, positions3=positions3, rope=rope)
+    if kv is not None:
+        new_cache["kv"] = kv
+    h = h + out
+    if spec.ffn != "none":
+        x = L.norm_apply(cfg.norm, p["post_norm"], h)
+        h = h + L.mlp_apply(p["mlp"], x, cfg.activation, dtype)
+    return h, new_cache
+
+
+def _head(cfg, params, h, dtype):
+    h = L.norm_apply(cfg.norm, params["final_norm"], h)
+    head = params.get("head")
+    if head is None:
+        head = params["embed"].T
+    return L.matmul(h, head, dtype), h
+
+
+def _spec(cfg, layer):
+    return cfg.pattern[layer % len(cfg.pattern)]
+
+
+def forward(cfg: ModelConfig, params, batch, *, make_cache_len: int = 0,
+            return_hidden: bool = False):
+    """Full-sequence forward.  batch keys: tokens (B,S) [, positions3
+    (B,3,S)].  If make_cache_len > 0, also build and return the KV cache
+    sized to that length (prefill).  Returns (logits, cache|None); with
+    return_hidden=True returns (logits, hidden) where hidden is the
+    final-norm output (B, S, D)."""
+    check_ported(cfg)
+    dtype = cfg.compute_dtype
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = tokens.device
+    if dev.type == "cuda":
+        exact_lm_matmul()
+    h = params["embed"][tokens].to(dtype)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    positions3 = batch.get("positions3")
+    rope = attn.gqa_rope(cfg, positions, positions3)
+    prefill = make_cache_len > 0
+    caches = []
+    for layer, p in enumerate(params["blocks"]):
+        cache_in = pos = None
+        if prefill:
+            cache_in = {"kv": attn.gqa_cache_init(
+                cfg, b, make_cache_len, cfg.cache_dtype, device=dev)}
+            pos = 0
+        h, c = _apply_layer(cfg, _spec(cfg, layer), p, h, positions, dtype,
+                            cache=cache_in, pos=pos, positions3=positions3,
+                            rope=rope)
+        caches.append(c)
+    logits, h = _head(cfg, params, h, dtype)
+    if return_hidden:
+        return logits, h
+    if prefill:
+        return logits, {"blocks": caches, "enc_out": None}
+    return logits, None
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device=None):
+    """Zero KV cache for ``batch`` slots of ``s_max`` positions."""
+    check_ported(cfg)
+    return {"blocks": [{"kv": attn.gqa_cache_init(cfg, batch, s_max,
+                                                  cfg.cache_dtype,
+                                                  device=device)}
+                       for _ in range(cfg.num_layers)],
+            "enc_out": None}
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
+                positions3=None):
+    """One decode step.  tokens: (B, 1) integer; pos: an int (or 0-d
+    tensor) for every row, or a (B,) / (B, 1) tensor of per-slot
+    positions.  The cache is updated in place.
+
+    Returns (logits (B, 1, V), cache).
+    """
+    check_ported(cfg)
+    dtype = cfg.compute_dtype
+    b = tokens.shape[0]
+    dev = tokens.device
+    if dev.type == "cuda":
+        exact_lm_matmul()
+    h = params["embed"][tokens].to(dtype)
+    if torch.is_tensor(pos) and pos.dim() > 0:
+        positions = pos.reshape(b, 1)
+    else:
+        pos = int(pos)
+        positions = torch.full((b, 1), pos, device=dev)
+    rope = attn.gqa_rope(cfg, positions, positions3)
+    for layer, p in enumerate(params["blocks"]):
+        h, _ = _apply_layer(cfg, _spec(cfg, layer), p, h, positions, dtype,
+                            cache=cache["blocks"][layer], pos=pos,
+                            positions3=positions3, rope=rope)
+    logits, _ = _head(cfg, params, h, dtype)
+    return logits, cache

@@ -870,9 +870,11 @@ def test_fused_sparse_call_is_one_launch_and_no_other_device_op(cuda, kernel):
     """With operands in the kernel's types and the cached layouts, a call
     is one cooperative launch and no other device operation: no (K, n)
     buffer or memset, and z, x and health are written by the launch itself.
-    Counted on the runtime calls that enqueue device work: in this test
-    process the profiler returned one device record for three back-to-back
-    cooperative launches (seen on the H100; a script alone gets three)."""
+    Counted on the runtime calls that enqueue device work; the device
+    records are read only for the kernel's name: in this test process the
+    profiler has returned one, and no, device record for three
+    back-to-back cooperative launches (seen on the H100; a script alone
+    gets three)."""
     from torch.profiler import ProfilerActivity, profile
     probs = [_sparse("lasso", cuda, seed=s) for s in range(2)]
     cols = [_sparse_inputs(p.A, seed=40 + s) for s, p in enumerate(probs)]
@@ -905,7 +907,7 @@ def test_fused_sparse_call_is_one_launch_and_no_other_device_op(cuda, kernel):
     assert enqueue == ["cudaLaunchCooperativeKernel"] * 3, enqueue
     ev = [e.name for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert ev and all("fused_sparse_kernel" in e for e in ev), ev
+    assert len(ev) <= 3 and all("fused_sparse_kernel" in e for e in ev), ev
 
 
 def test_fused_sparse_wrappers_reject_a_wrong_rstart_on_card(cuda):
@@ -1386,3 +1388,110 @@ def test_lint_repeat_calls_leave_the_caches_alone_on_the_card(cuda):
     findings = check_repeat(None, targets=repeat_targets(cuda))
     assert findings == [], render_report(findings)
     assert tsb._SLOTS and tsb._WORK
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path (repro_torch.launch.serve, repro_torch.models)
+# ---------------------------------------------------------------------------
+
+def _lm_smoke():
+    from repro_torch.configs import ARCHS
+    return ARCHS["qwen3-4b"].smoke_config()
+
+
+def test_lm_serve_on_card_matches_cpu_with_and_without_eviction(cuda):
+    """Smoke-size qwen3-4b at f32 on the same weights: the card serves the
+    CPU's token streams token for token, and a stream evicted every three
+    steps (re-prefilled into the next free slot) serves them too."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as TM
+    params = TM.init(_lm_smoke(), torch.Generator().manual_seed(1))
+    kw = dict(requests=5, batch=2, max_new=8, prompt_len=5, max_len=48,
+              quiet=True, seed=1, max_evictions=10)
+
+    def streams(device, **extra):
+        reqs = serve("qwen3-4b", params=TM.to_device(params, device),
+                     device=device, **kw, **extra)
+        return {r.rid: r.out for r in reqs}, [r.evictions for r in reqs]
+
+    cpu, _ = streams("cpu")
+    card, _ = streams(cuda)
+    evicted, evictions = streams(cuda, max_rounds=3)
+    assert card == cpu
+    assert any(evictions) and evicted == cpu
+
+
+def test_lm_refill_no_warm_state_leak_on_card(cuda):
+    """A request admitted into a slot heavy with another's KV generates
+    what it generates in a fresh engine."""
+    from repro_torch.launch.serve import Engine, Request
+    cfg = _lm_smoke()
+    rng = np.random.default_rng(4)
+    prompt_a = rng.integers(1, cfg.vocab_size, 12, dtype=np.int32)
+    prompt_b = rng.integers(1, cfg.vocab_size, 4, dtype=np.int32)
+
+    def run_b(engine):
+        rb = Request(9, prompt_b.copy(), 6)
+        engine.admit(rb, 0)
+        while not rb.done:
+            engine.step()
+        return rb.out
+
+    warm = Engine(cfg, batch=2, max_len=32, seed=0, device=cuda)
+    warm.admit(Request(0, prompt_a, 8), 0)
+    for _ in range(4):
+        warm.step()
+    assert run_b(warm) == run_b(Engine(cfg, batch=2, max_len=32, seed=0,
+                                       device=cuda))
+
+
+def test_lm_full_width_bf16_forward_matches_f32(cuda):
+    """Qwen3-4B at its published widths, cut to 2 layers: the bf16 forward
+    (weights as their bf16 copies) within 2e-2 of the f32 forward's
+    largest logit."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"].CONFIG, num_layers=2)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                              cache_dtype=torch.float32)
+    g = torch.Generator(cuda).manual_seed(0)
+    params = TM.init(cfg, g)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                         device=cuda)
+    want, _ = TM.forward(f32, params, {"tokens": toks})
+    got, _ = TM.forward(cfg, TM.cast_weights(params, torch.bfloat16),
+                        {"tokens": toks})
+    assert got.dtype == torch.bfloat16
+    err = float((got.float() - want).abs().max() / want.abs().max())
+    assert err <= 2e-2, err
+
+
+def test_lm_path_reduces_bf16_products_in_f32(cuda, monkeypatch):
+    """cuBLAS's reduced-precision bf16 reduction is off at every product of
+    the LM path, even when the process had it on."""
+    import dataclasses
+
+    from repro_torch.launch.serve import Engine, Request
+    from repro_torch.models import layers as TL
+    seen, real = [], TL.matmul
+
+    def spy(x, w, dtype):
+        seen.append(
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+        return real(x, w, dtype)
+
+    monkeypatch.setattr(TL, "matmul", spy)
+    cfg = dataclasses.replace(_lm_smoke(), compute_dtype=torch.bfloat16,
+                              cache_dtype=torch.bfloat16)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        eng = Engine(cfg, batch=2, max_len=32, device=cuda)
+        eng.admit(Request(0, np.arange(1, 6, dtype=np.int32), 4), 0)
+        eng.step()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    assert seen and not any(seen)
