@@ -43,15 +43,24 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           profiled for host syncs inside its iterations, repeated bit for
           bit and held against the CPU; and the paper's metric, rounds to
           0.5% of F*, for the dense fused block and scalar Shotgun solves;
-  lm      last, in a child process (``--leg lm`` runs it alone): the LM
-          serving path ``repro_torch.launch.serve`` on Qwen3-4B (torch
-          code, no kernel of its own) — its published widths cut to 2
+  lm      last, each model in a child process (``--leg lm`` runs
+          Qwen3-4B's alone, ``--leg lm --arch A`` another family's): the
+          LM serving path ``repro_torch.launch.serve`` (torch code, no
+          kernel of its own) on Qwen3-4B — its published widths cut to 2
           layers held against the port on the CPU in f32 and bf16, then
           the server at full width and depth (36 layers, 8 slots of 2048
           positions, 16 prompts of 512 tokens, 64 new tokens each) twice
           with equal tokens and once under a 16-step round deadline, its
           prefill and decode step timed beside their bounds, with the host
-          syncs and the device idle share of a decode step.
+          syncs and the device idle share of a decode step; then MiniCPM3-4B
+          (MLA, 62 layers, with a deadline stream), Granite-MoE-1B (24
+          layers, 1024-token prompts so that prefill takes the MoE capacity
+          path) and Mamba2-2.7B (64 layers) served the same way (cut to 2
+          layers against the CPU; bf16 MoE logits on the CPU's expert
+          picks, whose flips are counted), Whisper-large-v3's encoder
+          (1500 stub frames) and 32 decode steps at 32 + 32 layers, and
+          Phi-3.5-MoE and Jamba against the CPU at the smoke size (Jamba's
+          bf16 layer by layer from the CPU's inputs).
 
 The two-kernel pair #3/#4 is timed on three clocks (events, the
 profiler's counted records, events behind a spin) beside cuBLAS on a
@@ -144,20 +153,39 @@ BL_SGD_RATE_STRIDE, BL_SGD_STEPS, BL_PSGD_K = 4, 2000, 8
 BL_SMIDAS_STEPS, BL_SMIDAS_ETA = 1000, 0.005
 BL_CPU_ITERS, BL_CPU_STEPS, BL_PROFILE_ITERS = 3, 200, 10
 BL_SMALL_N, BL_SMALL_D, BL_CERT = 1024, 2048, 1e-4
-# LM leg (Qwen3-4B): the 2-layer full-width check against the CPU (2 rows,
+# LM leg: each model's full widths cut to 2 layers against the CPU (2 rows,
 # a LM_PROMPT-token prefill, LM_DECODE per-slot decode steps; logits to
 # LM_F32_TOL / LM_BF16_TOL of their largest magnitude — the bf16 tolerance is
 # the reference's own decode test's); then the server: slots, positions a
-# slot, prompt tokens, new tokens, requests, and the deadline stream's round
-# deadline and evictions allowed.
+# slot, new tokens, requests, and the deadline stream's evictions allowed.
 LM_ARCH, LM_SMOKE = "qwen3-4b", False
 LM_CPU_LAYERS, LM_PROMPT, LM_DECODE = 2, 16, 4
 LM_F32_TOL, LM_BF16_TOL = 1e-4, 2e-2
-LM_SLOTS, LM_MAX_LEN, LM_PROMPT_LEN = 8, 2048, 512
+LM_SLOTS, LM_MAX_LEN = 8, 2048
 LM_MAX_NEW, LM_REQUESTS = 64, 16
 LM_DEADLINE, LM_MAX_EVICTIONS = 16, 4
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores (data sheet)
 LM_STEP_RANGE = "chip_smoke.lm_step"  # a whole ``Engine.step``, profiled
+# The LM models, each in its own child (``--leg lm --arch A``), in this
+# order.  Served at full width and depth with their prompt tokens and round
+# deadline (None: no deadline stream — a re-prefilled context of prompt +
+# generated tokens trips the reference's own errors, Mamba-2's for a
+# length off its 128-token chunk, MoE's for an odd token count):
+FAM_SERVED = {LM_ARCH: (512, LM_DEADLINE),
+              "minicpm3-4b": (512, LM_DEADLINE),
+              "granite-moe-1b-a400m": (1024, None),
+              "mamba2-2.7b": (512, None)}
+# Whisper-large-v3 at full width and depth (the reference's ``serve``
+# refuses encoder-decoder configs): a prefill of rows of WH_PROMPT tokens
+# over encoder_seq stub frames drawn from --seed into a WH_CACHE-position
+# cache, then WH_STEPS greedy decode steps; run twice.
+FAM_WHISPER = "whisper-large-v3"
+WH_ROWS, WH_PROMPT, WH_CACHE, WH_STEPS = 2, 16, 448, 32
+# Held against the CPU at the smoke size only: at full width one card does
+# not hold their experts (Phi-3.5-MoE ≈ 80.5 GB, Jamba-1.5-Large ≈ 19.3 GB
+# a MoE layer).
+FAM_SMOKE = ("phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b")
+LM_FAMILIES = (*FAM_SERVED, FAM_WHISPER, *FAM_SMOKE)
 # Host syncs (none may fall inside an unguarded scalar solve's rounds or a
 # baseline's iterations) are counted from the lint's one list,
 # ``repro_torch.analyze.trace_checks.SYNC_CALLS`` and any ``*Synchronize``
@@ -384,6 +412,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--leg", choices=["lm"], default=None,
                     help="run only this leg (no build) and print its JSON")
+    ap.add_argument("--arch", choices=LM_FAMILIES, default=LM_ARCH,
+                    help="with --leg lm: the model to run")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -395,7 +425,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     if args.leg == "lm":
-        print(json.dumps(lm_leg(args)))
+        print(json.dumps(family_leg(args)))
         return 0
     from repro_torch.kernels import _build
 
@@ -2784,30 +2814,38 @@ def baselines_leg(args, dd, sc):
 
 
 def lm_leg_child(args) -> dict:
-    """The LM leg in a child process (``chip_smoke.py --leg lm``): it holds
-    ≈ 12 GB of its own on the card, apart from what the earlier legs' process
-    keeps cached.  Echoes the child's lines, raises if it failed, returns
-    its JSON."""
+    """The LM leg, one child process a model (``chip_smoke.py --leg lm
+    --arch A`` for each of ``LM_FAMILIES``), so that each frees the card
+    for the next (MiniCPM3-4B holds ≈ 10 GiB of its own, apart from what
+    the earlier legs' process keeps cached).  Echoes each child's lines,
+    raises if one failed, returns {"lm": {arch: its JSON}}."""
     script = str(pathlib.Path(__file__).resolve())
-    out = subprocess.run([sys.executable, script, "--leg", "lm",
-                          "--seed", str(args.seed)],
-                         capture_output=True, text=True, timeout=900)
-    lines = out.stdout.splitlines()
-    for ln in lines[:-1]:
-        print(f"lm: {ln}")
-    require(out.returncode == 0 and lines,
-            f"lm leg: exit {out.returncode}: {out.stderr[-3000:]}")
-    return json.loads(lines[-1])
+    found = {}
+    for arch in LM_FAMILIES:
+        out = subprocess.run([sys.executable, script, "--leg", "lm",
+                              "--arch", arch, "--seed", str(args.seed)],
+                             capture_output=True, text=True, timeout=600)
+        lines = out.stdout.splitlines()
+        for ln in lines[:-1]:
+            print(f"lm {arch}: {ln}")
+        require(out.returncode == 0 and lines,
+                f"lm {arch}: exit {out.returncode}: {out.stderr[-3000:]}")
+        found[arch] = json.loads(lines[-1])
+    return {"lm": found}
 
 
-def lm_logits(cfg, params, toks, dev):
-    """Logits of a ``LM_PROMPT``-token prefill of ``toks`` and of
+def lm_logits(cfg, params, toks, dev, frames=None):
+    """Logits of a ``LM_PROMPT``-token prefill of ``toks`` (over the
+    encoder frames ``frames``, for an encoder-decoder config) and of
     ``LM_DECODE`` per-slot decode steps on the tokens after it (rows at
     positions P + t and P + t - 3), as one float32 CPU tensor."""
     from repro_torch.models import model as M
     toks = torch.as_tensor(toks, dtype=torch.int64, device=dev)
     b, P = toks.shape[0], LM_PROMPT
-    logits, cache = M.forward(cfg, params, {"tokens": toks[:, :P]},
+    batch = {"tokens": toks[:, :P]}
+    if frames is not None:
+        batch["enc_frames"] = torch.as_tensor(frames, device=dev)
+    logits, cache = M.forward(cfg, params, batch,
                               make_cache_len=P + LM_DECODE)
     outs = [logits]
     for t in range(LM_DECODE):
@@ -2818,144 +2856,438 @@ def lm_logits(cfg, params, toks, dev):
     return torch.cat(outs, 1).float().cpu()
 
 
-def product_weights(params) -> list:
-    """The weights a forward reads through products: the head and every
-    layer's w* leaves (the embedding is a gather of B rows)."""
-    return [params["head"]] + [t for blk in params["blocks"]
-                               for part in ("attn", "mlp")
-                               for name, t in blk[part].items()
-                               if name.startswith("w")]
-
-
 def lm_bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def lm_leg(args) -> dict:
-    """The LM leg: ``repro_torch.launch.serve`` on Qwen3-4B.
+def family_costs(cfg, params, rows: int, smax: int, prompt: int) -> dict:
+    """Bytes and FLOPs of the reference's computation for one prefill of
+    ``prompt`` tokens (one row; Whisper: ``rows`` rows and its encoder)
+    into an ``smax``-position cache, and for one decode step of ``rows``
+    rows at ``smax`` positions.  Counted: every weight read once (the
+    encoder's at prefill only), each product's FLOPs (an MoE decode runs
+    every expert for every token; an MoE prefill on the capacity path runs
+    each expert over its g·cap buffer rows), attention over all S_max
+    positions as the reference masks but computes them, MLA's expansion of
+    the whole cached latent through ``wukv`` (written and read, with the
+    key it concatenates), Mamba-2's float32 state and conv windows read
+    and written, and Whisper's cross K/V recomputed over the encoder
+    frames at every step (written and read).  Not counted: the MoE
+    reference's one-hot dispatch and combine contractions, which the port
+    replaces by index moves, norms and other elementwise work."""
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+    wb = torch.finfo(cfg.compute_dtype).bits // 8
+    cb = torch.finfo(cfg.cache_dtype).bits // 8
+    d, H = cfg.d_model, cfg.num_heads
+    blocks = sum(t.numel() for t in M.leaves(params["blocks"]))
+    block_bytes = sum(t.numel() * t.element_size()
+                      for t in M.leaves(params["blocks"]))
+    head = params.get("head", params["embed"])
+    head_n, head_bytes = head.numel(), head.numel() * head.element_size()
+    experts = sum(sum(p["moe"][n].numel() for n in ("wi", "wg", "wo"))
+                  for p in params["blocks"] if "moe" in p)
+    moe_layers = sum(1 for p in params["blocks"] if "moe" in p)
+    t = prompt * (rows if cfg.is_encdec else 1)
+    pre_flops = 2 * t * (blocks - experts + head_n)
+    if experts:
+        e, k = cfg.num_experts, cfg.moe_top_k
+        if t <= 4 * e or t < 2 * moe_lib.GROUP_SIZE:
+            pre_flops += 2 * t * experts
+        else:
+            g = max(1, t // moe_lib.GROUP_SIZE)
+            tg = t // g
+            cap = min(max(8, int(tg * k * cfg.moe_capacity_factor / e)), tg)
+            pre_flops += 2 * g * cap * experts
+    dec_flops = 2 * rows * (blocks + head_n)
+    pre_bytes = block_bytes + head_bytes
+    dec_bytes = block_bytes + head_bytes + rows * d * wb
+    attn_layers = sum(1 for p in params["blocks"] if "attn" in p)
+    mamba_layers = cfg.num_layers - attn_layers
+    if cfg.attn_kind == "mla":
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        kvr = cfg.kv_lora_rank
+        expand = 2 * smax * kvr * H * (dn + dv)
+        attend = 2 * H * smax * (dn + dr + dv)
+        pre_flops += attn_layers * (expand + prompt * attend)
+        dec_flops += attn_layers * rows * (expand + attend)
+        latent = smax * (kvr + dr) * cb
+        temps = 2 * smax * H * (2 * dn + dr + dv) * wb
+        pre_bytes += attn_layers * (latent + temps)
+        dec_bytes += attn_layers * rows * (latent + temps)
+    else:
+        kv = 2 * smax * cfg.num_kv_heads * cfg.head_dim
+        r = rows if cfg.is_encdec else 1
+        pre_flops += attn_layers * r * 4 * H * prompt * smax * cfg.head_dim
+        dec_flops += attn_layers * rows * 4 * H * smax * cfg.head_dim
+        pre_bytes += attn_layers * r * kv * cb
+        dec_bytes += attn_layers * rows * kv * cb
+    if mamba_layers:
+        d_inner, heads, conv_dim = m2.mamba_dims(cfg)
+        n, hd, chunk = cfg.ssm_state, cfg.mamba_head_dim, min(128, prompt)
+        pre_flops += mamba_layers * 2 * prompt * (
+            chunk * n + heads * chunk * hd + 2 * heads * hd * n)
+        state = (heads * hd * n + (m2.CONV_W - 1) * conv_dim) * 4
+        pre_bytes += mamba_layers * state
+        dec_bytes += mamba_layers * rows * 2 * state
+    if cfg.is_encdec:
+        E, dh = cfg.encoder_seq, cfg.head_dim
+        enc = params["encoder"]
+        enc_n = sum(x.numel() for x in M.leaves(enc))
+        pre_flops += rows * E * (2 * enc_n + 4 * cfg.encoder_layers * H * E
+                                 * dh)
+        pre_bytes += sum(x.numel() * x.element_size() for x in M.leaves(enc))
+        kv_proj, per_query = 2 * 2 * E * d * H * dh, 4 * H * E * dh
+        pre_flops += attn_layers * rows * (kv_proj + prompt * per_query)
+        dec_flops += attn_layers * rows * (kv_proj + per_query)
+        cross_bytes = E * d * wb + 2 * 2 * E * H * dh * wb
+        pre_bytes += attn_layers * rows * cross_bytes
+        dec_bytes += attn_layers * rows * cross_bytes
+    return dict(pre_bytes=pre_bytes, pre_flops=pre_flops,
+                dec_bytes=dec_bytes, dec_flops=dec_flops,
+                moe_layers=moe_layers, mamba_layers=mamba_layers)
 
-    1. Its published widths cut to ``LM_CPU_LAYERS`` layers, drawn on the
-       card and copied to the host: prefill and decode logits on the card
-       against the port's CPU run on the same weights and tokens, in f32
-       (TF32 off) to ``LM_F32_TOL`` and in bf16 to ``LM_BF16_TOL``.
-    2. ``serve`` at full width and depth, on weights built once (bf16,
-       leaf by leaf): the stream, its repeat (equal tokens required), and
-       the stream under a round deadline (equal streams counted); the ages
-       of an engine's slots and a refill free of the previous occupant's
-       state; one decode step of full slots profiled for host syncs (none
-       inside ``DECODE_RANGE``) and the device's idle share.  Prefill and
-       decode times (the repeat's, on the host clock: each ends in a host
-       read) beside their bounds."""
+
+class Routes:
+    """Records the expert picks of every ``models.moe._route`` call, or
+    replays recorded picks: the router's float32 probabilities and gates
+    are computed as ``_route`` computes them, the top-k choice is taken
+    from the record.  A top-k is discontinuous — at a near-tie a pick
+    flips with the last bit of a bf16 product, which cuBLAS and the CPU's
+    BLAS round apart — so the bf16 check holds the card to the CPU's
+    picks, and counts separately the picks it makes otherwise."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, moe._route = moe._route, self.route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.real
+
+    def route(self, p, xt, cfg):
+        logits = torch.matmul(xt.float(), p["router"].float())
+        probs = torch.softmax(logits, dim=-1)
+        if self.replay is None:
+            vals, idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+        else:
+            idx = self.replay[len(self.calls)][1].to(xt.device)
+            vals = torch.gather(probs, -1, idx)
+        self.calls.append((probs.cpu(), idx.cpu()))
+        vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+        return vals, idx
+
+
+class LayerIO:
+    """Records the input and output hidden states of every
+    ``models.model._apply_layer`` call (on the host), or runs each call on
+    a recorded input in place of its own (``feed``): the bf16 check of the
+    16-layer Jamba smoke model runs each layer on the card from the CPU's
+    input, as a last-bit difference in one bf16 product moves its logits
+    by up to half the largest on the CPU alone."""
+
+    def __init__(self, feed=None):
+        self.ins, self.outs, self.feed = [], [], feed
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+        self.real, M._apply_layer = M._apply_layer, self.apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        M._apply_layer = self.real
+
+    def apply(self, cfg, spec, p, h, *args, **kw):
+        if self.feed is not None:
+            h = self.feed[len(self.outs)].to(h.device, h.dtype)
+        self.ins.append(h.cpu())
+        out = self.real(cfg, spec, p, h, *args, **kw)
+        self.outs.append(out[0].float().cpu())
+        return out
+
+
+def first_flips(cpu_calls, card_calls) -> tuple[int, int, float]:
+    """(picks that differ over all calls, tokens flipped at the first call
+    where any differs, the largest relative gap on the CPU between a
+    flipped token's k-th and (k+1)-th probability there)."""
+    differ, first, gap = 0, 0, 0.0
+    for (probs, want), (_, got) in zip(cpu_calls, card_calls):
+        same = (torch.sort(want, -1).values == torch.sort(got, -1).values)
+        bad = ~same.all(-1)
+        differ += int((~same).sum())
+        if first == 0 and bool(bad.any()):
+            first = int(bad.sum())
+            k = want.shape[-1]
+            top = torch.topk(probs[bad], k + 1, dim=-1).values
+            gap = float(((top[..., k - 1] - top[..., k]) / top[..., k - 1])
+                        .max())
+    return differ, first, gap
+
+
+def family_checks(arch, cut, args, dev) -> dict:
+    """``cut`` (published widths cut to 2 layers, or the smoke config)
+    drawn on the card from --seed and copied to the host: the card's
+    prefill and per-slot decode logits against the CPU's on the same
+    weights and tokens, in f32 to ``LM_F32_TOL`` and bf16 to
+    ``LM_BF16_TOL``.  An MoE config's bf16 logits are compared with the
+    card on the CPU's expert picks (``Routes``); its own picks may differ
+    from the CPU's only at near-ties: at the first layer where any
+    differs, each flipped token's k-th and (k+1)-th CPU probabilities lie
+    within ``LM_BF16_TOL`` of each other."""
     import dataclasses
 
-    from repro_torch.analyze.trace_checks import syncs_of
-    from repro_torch.configs import ARCHS
-    from repro_torch.launch import serve as S
-    from repro_torch.models import layers as L
     from repro_torch.models import model as M
-
-    t_leg = time.perf_counter()
-    dev = torch.device(DEVICE)
-    card = dev.type == "cuda"
-    smi = nvidia_smi_line() if card else "cpu"
-    mod = ARCHS[LM_ARCH]
-    full = mod.smoke_config() if LM_SMOKE else mod.CONFIG
-
-    # ---- 1. the full width, cut to 2 layers, against the CPU ------------
-    cut = dataclasses.replace(full, num_layers=LM_CPU_LAYERS)
     params = M.init(cut, torch.Generator(dev).manual_seed(args.seed))
     host = M.to_device(params, "cpu")
-    toks = np.random.default_rng(args.seed).integers(
-        1, cut.vocab_size, (2, LM_PROMPT + LM_DECODE))
+    rng = np.random.default_rng(args.seed)
+    toks = rng.integers(1, cut.vocab_size, (2, LM_PROMPT + LM_DECODE))
+    frames = (rng.standard_normal((2, cut.encoder_seq, cut.d_model),
+                                  dtype=np.float32) if cut.is_encdec
+              else None)
+    moe = any(s.ffn == "moe" for s in cut.pattern)
+    by_layer = arch in FAM_SMOKE
     checks = {}
     for tag, dtype, tol in (("f32", torch.float32, LM_F32_TOL),
                             ("bf16", torch.bfloat16, LM_BF16_TOL)):
         cfg = dataclasses.replace(cut, compute_dtype=dtype, cache_dtype=dtype)
         t0 = time.perf_counter()
-        got = lm_logits(cfg, M.cast_weights(params, dtype), toks, dev)
+        with Routes() as free:
+            got = lm_logits(cfg, M.cast_weights(params, dtype), toks, dev,
+                            frames)
         t1 = time.perf_counter()
-        want = lm_logits(cfg, M.cast_weights(host, dtype), toks, "cpu")
+        with Routes() as cpu, LayerIO() as layers:
+            want = lm_logits(cfg, M.cast_weights(host, dtype), toks, "cpu",
+                             frames)
         t2 = time.perf_counter()
+        free_err = float((got - want).abs().max() / want.abs().max())
+        differ, first, gap = first_flips(cpu.calls, free.calls)
+        picks = sum(i.numel() for _, i in cpu.calls)
+        route = ""
+        if moe:
+            route = (f"; expert picks: {differ} of {picks} differ from the "
+                     f"CPU's, {first} tokens first (CPU gap <= {gap:.2e})")
+        layer_err = None
+        if moe and dtype == torch.bfloat16:
+            feed = layers.ins if by_layer else None
+            with Routes(replay=cpu.calls), LayerIO(feed=feed) as fed:
+                got = lm_logits(cfg, M.cast_weights(params, dtype), toks,
+                                dev, frames)
+            route += ", logits on the CPU's picks"
+            if by_layer:
+                layer_err = max(float((a - b).abs().max() / b.abs().max())
+                                for a, b in zip(fed.outs, layers.outs))
+                route += (f", each layer from the CPU's input: max |diff| / "
+                          f"max |output| {layer_err:.3e} (free-running "
+                          f"logits {free_err:.3e}, not required)")
+                require(layer_err <= tol, f"{arch} {tag} by layer: "
+                        f"{layer_err:.3e} > {tol:g}")
+            require(gap <= tol, f"{arch} {tag}: an expert pick flipped at a "
+                    f"CPU probability gap of {gap:.2e}")
+        elif moe:
+            require(differ == 0, f"{arch} {tag}: {differ} expert picks "
+                    "differ from the CPU's")
         err = float((got - want).abs().max() / want.abs().max())
         same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        print(f"check {LM_ARCH} full width, {LM_CPU_LAYERS} layers, {tag}: "
-              f"prefill {LM_PROMPT} + {LM_DECODE} per-slot decode steps, "
-              f"2 rows, card vs CPU: max |diff| / max |logit| {err:.3e} "
-              f"(tol {tol:g}), argmax equal at {same:.4f} of positions "
-              f"(card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s)")
+        enc = (f", {cut.encoder_layers} encoder layers over "
+               f"{cut.encoder_seq} frames" if cut.is_encdec else "")
+        print(f"check {arch} d_model {cut.d_model}, {cut.num_layers} "
+              f"layers{enc}, {tag}: prefill {LM_PROMPT} + {LM_DECODE} "
+              f"per-slot decode steps, 2 rows, card vs CPU: max |diff| / "
+              f"max |logit| {err:.3e} (tol {tol:g}), argmax equal at "
+              f"{same:.4f} of positions{route} (card {t1 - t0:.2f} s, CPU "
+              f"{t2 - t1:.2f} s)")
         require(math.isfinite(err) and err <= tol,
-                f"lm {tag} card vs CPU: {err:.3e} > {tol:g}")
+                f"{arch} {tag} card vs CPU: {err:.3e} > {tol:g}")
         checks[tag] = dict(rel_err=err, argmax_equal=same)
-    del params, host
+        if layer_err is not None:
+            checks[tag]["layer_err"] = layer_err
+        if moe:
+            checks[tag].update(picks=picks, picks_differ=differ,
+                               first_flipped=first, flip_gap=gap,
+                               free_err=free_err)
+    return checks
+
+
+def profile_step(fn, label, smi):
+    """One profiled call of ``fn`` (a decode step and its host read, inside
+    ``LM_STEP_RANGE``): its host syncs, those inside ``DECODE_RANGE`` (none
+    allowed; at most one in the step) and the device's idle share."""
+    from repro_torch.analyze.trace_checks import syncs_of
+    from repro_torch.launch import serve as S
+
+    def one_step():
+        with torch.profiler.record_function(LM_STEP_RANGE):
+            fn()
+
+    events = profiled_events(one_step)
+    inside, ranges, dtoh = syncs_of(events, S.DECODE_RANGE)
+    step_syncs, _, _ = syncs_of(events, LM_STEP_RANGE)
+    busy, span, n_dev, _, _ = busy_of(events)
+    idle = 1.0 - busy / span if span else float("nan")
+    require(ranges == 1 and not inside,
+            f"{label}: host syncs inside the decode range: {inside}")
+    require(len(step_syncs) <= 1, f"{label}: host syncs in a step: "
+            f"{step_syncs}")
+    print(f"{label} decode step profiled: {len(step_syncs)} host syncs in "
+          f"the step ({step_syncs}), {len(inside)} inside "
+          f"{S.DECODE_RANGE}, {dtoh} device-to-host copies, {n_dev} device "
+          f"records, device busy {busy:.3f} ms of a {span:.3f} ms span "
+          f"(idle share {idle:.4f}) [{smi}]")
+    return dict(host_syncs_per_step=len(step_syncs),
+                syncs_in_decode_range=len(inside), decode_busy_ms=busy,
+                decode_span_ms=span, idle_share=idle, device_records=n_dev)
+
+
+def print_bounds(arch, costs, prefill_ms, decode_ms, rows, prompt, smi):
+    pre_bound, pre_by = lm_bound(costs["pre_bytes"], costs["pre_flops"])
+    dec_bound, dec_by = lm_bound(costs["dec_bytes"], costs["dec_flops"])
+    print(f"{arch} prefill of a {prompt}-token prompt: {prefill_ms:.3f} ms "
+          f"(bound {pre_bound:.3f} ms by {pre_by}: {costs['pre_bytes']} "
+          f"bytes, {costs['pre_flops'] / 1e12:.4f} TFLOP; "
+          f"{pre_bound / prefill_ms:.3f} of bound) [{smi}]")
+    print(f"{arch} decode step ({rows} rows): {decode_ms:.3f} ms (bound "
+          f"{dec_bound:.3f} ms by {dec_by}: {costs['dec_bytes']} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {costs['dec_flops'] / 1e12:.4f}"
+          f" TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; "
+          f"{dec_bound / decode_ms:.3f} of bound) [{smi}]")
+    return dict(prefill_bound_ms=pre_bound, prefill_bound_by=pre_by,
+                decode_bound_ms=dec_bound, decode_bound_by=dec_by)
+
+
+def family_leg(args) -> dict:
+    """One LM model (``args.arch``), in its own process.
+
+    1. The card against the CPU: the published widths cut to 2 layers
+       (Whisper: 2 encoder and 2 decoder layers over its 1500 frames), or
+       the smoke config for ``FAM_SMOKE``, in f32 and bf16.
+    2. ``FAM_SERVED`` (Qwen3-4B first): ``serve`` at full width and depth
+       on weights drawn once (bf16, leaf by leaf): the stream and its
+       repeat (equal tokens required), the deadline stream where there is
+       one; slot ages, and a refill into a used slot against a fresh
+       engine; one decode step of full slots profiled for host syncs and
+       the idle share; prefill and decode times (the repeat's, on the host
+       clock: each ends in a host read) beside their bounds.
+    3. Whisper: its encoder and a prefill, then ``WH_STEPS`` greedy decode
+       steps at full width and depth, twice with equal tokens, one step
+       profiled, times beside their bounds."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    t_leg = time.perf_counter()
+    arch = args.arch
+    dev = torch.device(DEVICE)
+    card = dev.type == "cuda"
+    smi = nvidia_smi_line() if card else "cpu"
+    mod = ARCHS[arch]
+    if arch in FAM_SMOKE:
+        checks = family_checks(arch, mod.smoke_config(), args, dev)
+        wall = time.perf_counter() - t_leg
+        print(f"{arch} leg: {wall:.1f} s wall (smoke size only)")
+        return dict(arch=arch, cpu_check=checks, wall_s=wall)
+    full = mod.smoke_config() if LM_SMOKE else mod.CONFIG
+    cut = dataclasses.replace(full, num_layers=LM_CPU_LAYERS)
+    if full.is_encdec:
+        cut = dataclasses.replace(cut, encoder_layers=LM_CPU_LAYERS)
+    checks = family_checks(arch, cut, args, dev)
     if card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
-    # ---- 2. the server at full width and depth --------------------------
     t0 = time.perf_counter()
-    weights = M.init(full, torch.Generator(dev).manual_seed(args.seed),
-                     weight_dtype=full.compute_dtype)
+    gen = torch.Generator(dev).manual_seed(args.seed)
+    weights = M.init(full, gen, weight_dtype=full.compute_dtype)
     if card:
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     wbytes = sum(t.numel() * t.element_size() for t in M.leaves(weights))
-    products = product_weights(weights)
-    mparams = sum(t.numel() for t in products)
-    mbytes = sum(t.numel() * t.element_size() for t in products)
-    kv_bytes = (full.num_layers * LM_SLOTS * LM_MAX_LEN * full.num_kv_heads
-                * full.head_dim * 2 * torch.finfo(full.cache_dtype).bits // 8)
+    enc = f" + {full.encoder_layers} encoder" if full.is_encdec else ""
     route = ("bmm(out_dtype=float32)" if card and L._bmm_out_dtype()
              else "float32 copies")
-    print(f"attention logits from bf16 operands: {route}")
-    print(f"{LM_ARCH}: {full.num_layers} layers built in {build_s:.3f} s, "
-          f"{wbytes} weight bytes ({mbytes} in products), KV cache "
-          f"{kv_bytes} bytes ({LM_SLOTS} slots x {LM_MAX_LEN})")
+    print(f"{arch}: {full.num_layers}{enc} layers built in {build_s:.3f} s, "
+          f"{wbytes} weight bytes; attention logits from bf16 operands by "
+          f"{route} [{smi}]")
+    out = dict(arch=arch, layers=full.num_layers, cpu_check=checks,
+               build_s=build_s, weight_bytes=wbytes)
+    if full.is_encdec:
+        out.update(whisper_run(full, weights, gen, args, dev, smi))
+    else:
+        out.update(served_run(arch, full, weights, args, dev, smi))
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30 if card
+                       else float("nan"))
+    out["wall_s"] = time.perf_counter() - t_leg
+    print(f"{arch} leg: {out['wall_s']:.1f} s wall, peak device memory "
+          f"{out['peak_gib']:.2f} GiB [{smi}]")
+    return out
+
+
+def served_run(arch, full, weights, args, dev, smi) -> dict:
+    """Step 2 of ``family_leg``."""
+    from repro_torch.launch import serve as S
+    prompt_len, deadline = FAM_SERVED[arch]
     kw = dict(requests=LM_REQUESTS, batch=LM_SLOTS, max_new=LM_MAX_NEW,
-              prompt_len=LM_PROMPT_LEN, max_len=LM_MAX_LEN, seed=args.seed,
+              prompt_len=prompt_len, max_len=LM_MAX_LEN, seed=args.seed,
               smoke=LM_SMOKE, quiet=True, params=weights, device=dev)
+    streams = [("first", {}), ("repeat", {})]
+    if deadline is not None:
+        streams.append(("deadline", dict(max_rounds=deadline,
+                                         max_evictions=LM_MAX_EVICTIONS)))
     runs = {}
-    for label, extra in (("first", {}), ("repeat", {}),
-                         ("deadline", dict(max_rounds=LM_DEADLINE,
-                                           max_evictions=LM_MAX_EVICTIONS))):
+    for label, extra in streams:
         st = {}
-        reqs = S.serve(LM_ARCH, stats=st, **kw, **extra)
+        reqs = S.serve(arch, stats=st, **kw, **extra)
         rids = sorted(r.rid for r in reqs)
         require(rids == list(range(LM_REQUESTS)),
-                f"lm {label}: rids finished {rids}")
+                f"{arch} {label}: rids finished {rids}")
         for r in reqs:
             require(r.done and 1 <= len(r.out) <= LM_MAX_NEW
                     and all(0 <= x < full.padded_vocab for x in r.out),
-                    f"lm {label}: request {r.rid} gave {len(r.out)} tokens "
-                    f"{r.out[:8]}")
+                    f"{arch} {label}: request {r.rid} gave {len(r.out)} "
+                    f"tokens {r.out[:8]}")
         runs[label] = ({r.rid: r.out for r in reqs}, st,
                        sum(r.evictions for r in reqs))
-        print(f"serve {label}: {len(reqs)} requests, {st['tokens']} tokens, "
-              f"{st['decode_steps']} decode steps, {st['prefills']} "
-              f"prefills, evictions {runs[label][2]}, {st['wall_s']:.3f} s "
+        print(f"{arch} serve {label}: {len(reqs)} requests of {prompt_len} "
+              f"tokens, {st['tokens']} tokens, {st['decode_steps']} decode "
+              f"steps, {st['prefills']} prefills, evictions "
+              f"{runs[label][2]}, {st['wall_s']:.3f} s "
               f"({st['tokens'] / st['wall_s']:.1f} tokens/s) [{smi}]")
     require(runs["repeat"][0] == runs["first"][0],
-            "lm: the repeated stream's tokens differ from the first's")
-    require(runs["deadline"][2] > 0, "lm: the deadline evicted nothing")
-    agree = sum(runs["deadline"][0][i] == runs["first"][0][i]
-                for i in range(LM_REQUESTS))
-    print(f"serve deadline vs first: {agree} of {LM_REQUESTS} token streams "
-          "equal (re-prefill is another computation; not required in bf16)")
+            f"{arch}: the repeated stream's tokens differ from the first's")
+    out = {}
+    if deadline is not None:
+        require(runs["deadline"][2] > 0, f"{arch}: the deadline evicted "
+                "nothing")
+        out["deadline_streams_equal"] = sum(
+            runs["deadline"][0][i] == runs["first"][0][i]
+            for i in range(LM_REQUESTS))
+        out["evictions"] = runs["deadline"][2]
+        print(f"{arch} serve deadline vs first: "
+              f"{out['deadline_streams_equal']} of {LM_REQUESTS} token "
+              "streams equal (not required in bf16)")
 
+    rng = np.random.default_rng(args.seed + 1)
+    prompts = [rng.integers(1, full.vocab_size, prompt_len, dtype=np.int32)
+               for _ in range(LM_SLOTS + 1)]
     eng = S.Engine(full, batch=LM_SLOTS, max_len=LM_MAX_LEN, params=weights,
                    device=dev)
-    rng = np.random.default_rng(args.seed + 1)
-    prompts = [rng.integers(1, full.vocab_size, LM_PROMPT_LEN, dtype=np.int32)
-               for _ in range(LM_SLOTS + 1)]
     eng.admit(S.Request(0, prompts[0], LM_MAX_NEW), 0)
     for expect in (1, 2, 3):
         eng.step()
         require(eng.age[0] == expect and eng.age[1] == 0,
-                f"lm ages after {expect} steps: {eng.age}")
+                f"{arch} ages after {expect} steps: {eng.age}")
     late = S.Request(1, prompts[1], 6)
     eng.admit(late, 0)
-    require(eng.age[0] == 0, f"lm: refilled slot's age {eng.age[0]}")
+    require(eng.age[0] == 0, f"{arch}: refilled slot's age {eng.age[0]}")
     while not late.done:
         eng.step()
     fresh = S.Engine(full, batch=LM_SLOTS, max_len=LM_MAX_LEN,
@@ -2964,69 +3296,98 @@ def lm_leg(args) -> dict:
     fresh.admit(alone, 0)
     while not alone.done:
         fresh.step()
-    require(late.out == alone.out, f"lm: refill into a used slot gave "
+    require(late.out == alone.out, f"{arch}: refill into a used slot gave "
             f"{late.out}, a fresh engine {alone.out}")
     del fresh
-    print("serve engine: ages count decode steps and reset on refill; a "
-          "refill into a used slot gives the fresh engine's tokens")
+    print(f"{arch} serve engine: ages count decode steps and reset on "
+          "refill; a refill into a used slot (every cache leaf spliced) "
+          "gives the fresh engine's tokens")
     for i in range(LM_SLOTS):
         eng.admit(S.Request(10 + i, prompts[i], 10 ** 6), i)
     eng.step()
-
-    def one_step():
-        with torch.profiler.record_function(LM_STEP_RANGE):
-            eng.step()
-
-    events = profiled_events(one_step)
-    inside, ranges, dtoh = syncs_of(events, S.DECODE_RANGE)
-    step_syncs, _, _ = syncs_of(events, LM_STEP_RANGE)
-    busy, span, n_dev, _, _ = busy_of(events)
-    idle = 1.0 - busy / span if span else float("nan")
-    require(ranges == 1 and not inside,
-            f"lm: host syncs inside the decode range: {inside}")
-    require(len(step_syncs) <= 1, f"lm: host syncs in a step: {step_syncs}")
-    print(f"serve decode step profiled: {len(step_syncs)} host syncs in "
-          f"the step ({step_syncs}), {len(inside)} inside "
-          f"{S.DECODE_RANGE}, {dtoh} device-to-host copies, {n_dev} device "
-          f"records, device busy {busy:.3f} ms of a {span:.3f} ms span "
-          f"(idle share {idle:.4f}) [{smi}]")
+    out.update(profile_step(eng.step, f"{arch} serve", smi))
     del eng
 
     rep = runs["repeat"][1]
     prefill_ms = rep["prefill_s"] / rep["prefills"] * 1e3
     decode_ms = rep["step_s"] / rep["steps"] * 1e3
-    layers, H, dh = full.num_layers, full.num_heads, full.head_dim
-    plen = LM_PROMPT_LEN
-    pre_flops = 2 * mparams * plen + 4 * layers * H * plen * LM_MAX_LEN * dh
-    dec_flops = 2 * mparams * LM_SLOTS + 4 * layers * H * LM_SLOTS * \
-        LM_MAX_LEN * dh
-    pre_bound, pre_by = lm_bound(mbytes, pre_flops)
-    dec_bound, dec_by = lm_bound(mbytes + kv_bytes, dec_flops)
-    peak = torch.cuda.max_memory_allocated() / 2**30 if card else float("nan")
-    print(f"serve prefill of a {plen}-token prompt: {prefill_ms:.3f} ms mean "
-          f"of {rep['prefills']} (bound {pre_bound:.3f} ms by {pre_by}: "
-          f"{pre_flops / 1e12:.3f} TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} "
-          f"TFLOP/s; {pre_bound / prefill_ms:.3f} of bound) [{smi}]")
-    print(f"serve decode step ({LM_SLOTS} slots, S_max {LM_MAX_LEN}): "
-          f"{decode_ms:.3f} ms mean of {rep['steps']} (bound "
-          f"{dec_bound:.3f} ms by {dec_by}: {mbytes + kv_bytes} bytes at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {dec_bound / decode_ms:.3f} "
-          f"of bound); {rep['tokens'] / rep['wall_s']:.1f} tokens/s; peak "
-          f"device memory {peak:.2f} GiB [{smi}]")
-    wall = time.perf_counter() - t_leg
-    print(f"lm leg: {wall:.1f} s wall")
-    return {"lm": dict(
-        arch=LM_ARCH, layers=full.num_layers, cpu_check=checks,
-        build_s=build_s, weight_bytes=wbytes, product_weight_bytes=mbytes,
-        kv_bytes=kv_bytes, prefill_ms=prefill_ms, prefill_bound_ms=pre_bound,
-        decode_ms=decode_ms, decode_bound_ms=dec_bound,
-        tokens_per_s=rep["tokens"] / rep["wall_s"],
-        decode_steps=rep["decode_steps"], host_syncs_per_step=len(step_syncs),
-        syncs_in_decode_range=len(inside), decode_busy_ms=busy,
-        decode_span_ms=span, idle_share=idle, peak_gib=peak,
-        deadline_streams_equal=agree, evictions=runs["deadline"][2],
-        wall_s=wall)}
+    costs = family_costs(full, weights, LM_SLOTS, LM_MAX_LEN, prompt_len)
+    out.update(print_bounds(arch, costs, prefill_ms, decode_ms, LM_SLOTS,
+                            prompt_len, smi))
+    out.update(prefill_ms=prefill_ms, decode_ms=decode_ms,
+               tokens_per_s=rep["tokens"] / rep["wall_s"],
+               decode_steps=rep["decode_steps"], prompt_len=prompt_len,
+               decode_bytes=costs["dec_bytes"], decode_flops=costs["dec_flops"])
+    print(f"{arch}: {out['tokens_per_s']:.1f} tokens/s over the repeat "
+          f"stream [{smi}]")
+    return out
 
+
+def whisper_run(full, weights, gen, args, dev, smi) -> dict:
+    """Step 3 of ``family_leg``."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    card = dev.type == "cuda"
+    frames = torch.randn(WH_ROWS, full.encoder_seq, full.d_model,
+                         generator=gen, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(args.seed).integers(
+        1, full.vocab_size, (WH_ROWS, WH_PROMPT)), device=dev)
+    state = {}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def prefill():
+        logits, state["cache"] = M.forward(
+            full, weights, {"tokens": toks, "enc_frames": frames},
+            make_cache_len=WH_CACHE)
+        state["nxt"] = torch.argmax(logits[:, -1], -1)
+        state["pos"] = WH_PROMPT
+
+    def step():
+        with torch.profiler.record_function(S.DECODE_RANGE):
+            logits, state["cache"] = M.decode_step(
+                full, weights, state["nxt"][:, None], state["cache"],
+                state["pos"])
+            state["nxt"] = torch.argmax(logits[:, -1], -1)
+        state["pos"] += 1
+        return state["nxt"].tolist()
+
+    runs = []
+    for label in ("first", "repeat"):
+        sync()
+        t0 = time.perf_counter()
+        prefill()
+        sync()
+        t1 = time.perf_counter()
+        toks_out = [step() for _ in range(WH_STEPS)]
+        t2 = time.perf_counter()
+        runs.append((toks_out, t1 - t0, t2 - t1))
+        require(all(0 <= x < full.padded_vocab for row in toks_out
+                    for x in row), f"whisper {label}: tokens {toks_out[:2]}")
+        print(f"whisper {label}: encoder + prefill of {WH_ROWS} rows x "
+              f"{WH_PROMPT} tokens over {full.encoder_seq} frames "
+              f"{(t1 - t0) * 1e3:.3f} ms, {WH_STEPS} decode steps "
+              f"{(t2 - t1) * 1e3:.3f} ms [{smi}]")
+    require(runs[0][0] == runs[1][0],
+            "whisper: the repeat's tokens differ from the first's")
+    prefill()
+    step()
+    out = profile_step(step, "whisper", smi)
+    del state["cache"]
+    _, prefill_s, decode_s = runs[1]
+    prefill_ms, decode_ms = prefill_s * 1e3, decode_s / WH_STEPS * 1e3
+    costs = family_costs(full, weights, WH_ROWS, WH_CACHE, WH_PROMPT)
+    out.update(print_bounds("whisper", costs, prefill_ms, decode_ms, WH_ROWS,
+                            WH_PROMPT, smi))
+    out.update(prefill_ms=prefill_ms, decode_ms=decode_ms,
+               tokens_per_s=WH_ROWS * WH_STEPS / decode_s,
+               decode_steps=WH_STEPS, prompt_len=WH_PROMPT,
+               decode_bytes=costs["dec_bytes"], decode_flops=costs["dec_flops"])
+    print(f"whisper: {out['tokens_per_s']:.1f} tokens/s over "
+          f"{WH_STEPS} decode steps of {WH_ROWS} rows [{smi}]")
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

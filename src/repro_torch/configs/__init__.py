@@ -1,6 +1,5 @@
 """Assigned-architecture registry (port of ``repro.configs``): --arch <id>
-resolves here.  Every arch stays listed; one whose layers are not ported
-yet raises ``NotImplementedError`` from ``models.model.init``/``forward``."""
+resolves here."""
 from repro_torch.configs import (qwen15_110b, minicpm3_4b, qwen3_4b,
                                  nemotron4_340b, whisper_large_v3, mamba2_27b,
                                  qwen2_vl_7b, phi35_moe_42b, granite_moe_1b,

@@ -85,32 +85,38 @@ def slot_arrays_from_numpy(meta_tuple, stacked_numpy, *, device="cuda"):
 
 
 def _lm_leaf_paths(tree, prefix=""):
-    """(path, tensor) of every leaf of a port parameter (sub)tree, paths
-    ``/``-joined in the reference's spelling."""
+    """(path, tensor) of every leaf of a port parameter (sub)tree outside
+    its lists of layers, paths ``/``-joined in the reference's spelling."""
     for k in sorted(tree):
         v, path = tree[k], f"{prefix}{k}"
         if isinstance(v, dict):
             yield from _lm_leaf_paths(v, path + "/")
-        else:
+        elif not isinstance(v, list):
             yield path, v
 
 
 def _lm_layout(cfg):
     """{reference path: (port leaves it maps to, stacked shape)} for
-    ``cfg``: a ``blocks/l{i}/…`` path carries the group axis and maps to
-    layers i, i + P, i + 2P, … of the port's list (P = pattern length)."""
+    ``cfg``.  A port leaf is (list path, layer, sub-path), list path None
+    for a leaf outside the layer lists.  A ``blocks/l{i}/…`` path carries
+    the group axis and maps to layers i, i + P, i + 2P, … of the port's
+    ``blocks`` list (P = pattern length; an MoE expert leaf keeps its
+    expert axis after the group axis); an ``encoder/blocks/…`` path is
+    stacked over the encoder's layers."""
     from repro_torch.models import model as M
     meta = M.init(cfg, device="meta")
-    top = {k: v for k, v in meta.items() if k != "blocks"}
-    layout = {path: ([(None, path)], tuple(t.shape))
-              for path, t in _lm_leaf_paths(top)}
+    layout = {path: ([(None, None, path)], tuple(t.shape))
+              for path, t in _lm_leaf_paths(meta)}
     P = len(cfg.pattern)
-    for i in range(P):
-        for sub, t in _lm_leaf_paths(meta["blocks"][i]):
-            layers = range(i, cfg.num_layers, P)
-            layout[f"blocks/l{i}/{sub}"] = (
-                [(layer, sub) for layer in layers],
-                (len(layers),) + tuple(t.shape))
+    stacks = [(f"blocks/l{i}/", "blocks", range(i, cfg.num_layers, P))
+              for i in range(P)]
+    if cfg.is_encdec:
+        stacks.append(("encoder/blocks/", "encoder/blocks",
+                       range(cfg.encoder_layers)))
+    for prefix, seq, layers in stacks:
+        for sub, t in _lm_leaf_paths(_get(meta, seq)[layers[0]]):
+            layout[prefix + sub] = ([(seq, layer, sub) for layer in layers],
+                                    (len(layers),) + tuple(t.shape))
     return layout
 
 
@@ -131,9 +137,10 @@ def lm_params_from_numpy(cfg, flat, *, device="cuda"):
     """The port's LM parameters (``models.model``) from the reference's
     parameter tree as a flat dict of ``/``-joined paths (``embed``,
     ``final_norm/scale``, ``blocks/l0/attn/wq`` with the leading group
-    axis, …) to numpy arrays, so that both packages compute with the same
-    weights.  bf16 arrays stay bf16, everything else becomes float32.
-    Raises ``ValueError`` on a missing or unknown path or a wrong shape."""
+    axis, ``encoder/blocks/…`` with the encoder's layer axis, …) to numpy
+    arrays, so that both packages compute with the same weights.  bf16
+    arrays stay bf16, everything else becomes float32.  Raises
+    ``ValueError`` on a missing or unknown path or a wrong shape."""
     dev = resolve_device(device)
     layout = _lm_layout(cfg)
     missing = sorted(set(layout) - set(flat))
@@ -142,6 +149,9 @@ def lm_params_from_numpy(cfg, flat, *, device="cuda"):
         raise ValueError(f"{cfg.name}: parameter paths missing {missing}, "
                          f"unknown {unknown}")
     params: dict = {"blocks": [{} for _ in range(cfg.num_layers)]}
+    if cfg.is_encdec:
+        params["encoder"] = {"blocks": [{} for _ in
+                                        range(cfg.encoder_layers)]}
     for path, (dests, shape) in layout.items():
         arr = np.asarray(flat[path])
         if arr.shape != shape:
@@ -150,11 +160,11 @@ def lm_params_from_numpy(cfg, flat, *, device="cuda"):
         bf16 = arr.dtype.name == "bfloat16"
         t = torch.from_numpy(np.array(arr, np.float32)).to(dev)
         t = t.to(torch.bfloat16) if bf16 else t
-        for group, (layer, sub) in enumerate(dests):
-            if layer is None:
+        for group, (seq, layer, sub) in enumerate(dests):
+            if seq is None:
                 _put(params, sub, t)
             else:
-                _put(params["blocks"][layer], sub, t[group])
+                _put(_get(params, seq)[layer], sub, t[group])
     return params
 
 
@@ -164,8 +174,9 @@ def lm_params_to_numpy(cfg, params):
     arrays of their values), the blocks stacked over groups."""
     flat = {}
     for path, (dests, _) in _lm_layout(cfg).items():
-        ts = [(_get(params, sub) if layer is None
-               else _get(params["blocks"][layer], sub)) for layer, sub in dests]
+        ts = [(_get(params, sub) if seq is None
+               else _get(_get(params, seq)[layer], sub))
+              for seq, layer, sub in dests]
         arrs = [t.detach().float().cpu().numpy() for t in ts]
         flat[path] = arrs[0] if dests[0][0] is None else np.stack(arrs)
     return flat

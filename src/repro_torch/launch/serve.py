@@ -12,9 +12,10 @@ Design (vLLM-style):
     the slot is immediately refilled from the queue by prefilling the new
     prompt *into that slot only* — one slow request never blocks the batch,
   * prefill runs the (1, L) context with a fresh cache of ``max_len`` rows
-    and replaces the slot's whole row of every layer's cache with it (zeros
-    beyond L); decode steps all slots in lock-step with per-slot positions,
-    free and finished slots riding along (token 0, position held).
+    and replaces the slot's row of every leaf of every layer's cache with
+    it — KV (zeros beyond L), MLA latent, SSM state and conv windows;
+    decode steps all slots in lock-step with per-slot positions, free and
+    finished slots riding along (token 0, position held).
 
 The engine holds every matmul weight as its compute-dtype copy (the bits
 the reference casts to at each use), so a decode step reads the weights
@@ -101,9 +102,7 @@ class Engine:
         toks = torch.as_tensor(ctx, dtype=torch.int64).to(self.device)[None]
         logits, fresh = M.forward(self.cfg, self.params, {"tokens": toks},
                                   make_cache_len=self.max_len)
-        for full, one in zip(self.cache["blocks"], fresh["blocks"]):
-            for name, buf in full["kv"].items():
-                buf[slot].copy_(one["kv"][name][0])
+        M.splice(self.cache, fresh, slot)
         nxt = int(torch.argmax(logits[0, -1]))
         req.out.append(nxt)
         self.board.place(req, slot)

@@ -1,9 +1,13 @@
-"""GQA attention (port of the GQA half of ``repro.models.attention``): QKV
-bias, qk-norm, M-RoPE and cross attention.  MLA waits for its own slice.
+"""Attention blocks (port of ``repro.models.attention``): GQA (QKV bias,
+qk-norm, M-RoPE, cross attention) and MLA (multi-head latent attention,
+MiniCPM3 / DeepSeek-V2 style).
 
 KV-cache layout: k/v of shape (B, S_max, Hkv, Dh), as in the reference, held
 as views of head-major (B, Hkv, S_max, Dh) buffers so that attention reads
-each (slot, kv head) as one contiguous (S_max, Dh) block.  The cache is
+each (slot, kv head) as one contiguous (S_max, Dh) block.  MLA caches the
+compressed latent ``ckv`` (B, S_max, kv_rank) and the shared rope key
+``k_rope`` (B, S_max, 1, rope_dim), and expands the whole S_max latent
+through ``wukv`` at every call, as the reference does.  Caches are
 written in place: prefill (scalar ``pos``) writes rows ``pos : pos + S``,
 per-slot decode (vector ``pos``) writes one row per slot, with the values
 the reference's functional updates give.
@@ -35,22 +39,23 @@ def repeat_kv(x, n_rep):
 
 
 def sdpa(q, k, v, causal, q_offset=0, kv_len=None):
-    """q: (B, Sq, H, Dh), k/v: (B, Sk, Hk, Dh) with Hk dividing H (query
-    head j·H/Hk + r reads kv head j, as after ``repeat_kv``).  fp32
-    softmax.
+    """q/k: (B, Sq/Sk, H/Hk, Dh), v: (B, Sk, Hk, Dv) with Hk dividing H
+    (query head j·H/Hk + r reads kv head j, as after ``repeat_kv``); the
+    logits are scaled by 1/√Dh (q's head dim; MLA's Dv differs).  fp32
+    softmax.  Returns (B, Sq, H, Dv).
 
     ``q_offset``: absolute position of q[0] (decode: pos).  ``kv_len``:
     (B,) number of valid kv entries (masks the cache tail).
     """
     b, sq, h, dh = q.shape
-    sk, hk = k.shape[1], k.shape[2]
+    sk, hk, dv = k.shape[1], k.shape[2], v.shape[-1]
     rep = h // hk
     scale = 1.0 / math.sqrt(dh)
     # (B, Hk, rep·Sq, Dh) queries against (B, Hk, Sk, Dh) keys
     qg = q.reshape(b, sq, hk, rep, dh).permute(0, 2, 3, 1, 4).reshape(
         b * hk, rep * sq, dh)
     kt = k.transpose(1, 2).reshape(b * hk, sk, dh)
-    vt = v.transpose(1, 2).reshape(b * hk, sk, dh)
+    vt = v.transpose(1, 2).reshape(b * hk, sk, dv)
     logits = L.matmul_f32(qg, kt.transpose(1, 2)).mul_(scale).view(
         b, h, sq, sk)
     if causal:
@@ -62,8 +67,8 @@ def sdpa(q, k, v, causal, q_offset=0, kv_len=None):
         logits.masked_fill_(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.bmm(probs.view(b * hk, rep * sq, sk), vt)
-    return out.view(b, hk, rep, sq, dh).permute(0, 3, 1, 2, 4).reshape(
-        b, sq, h, dh)
+    return out.view(b, hk, rep, sq, dv).permute(0, 3, 1, 2, 4).reshape(
+        b, sq, h, dv)
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +124,8 @@ def _write_slots(buf, new, pvec):
     rows = torch.arange(buf.shape[0], device=buf.device)
     inside = (pvec >= 0) & (pvec < smax)
     at = pvec.clamp(0, smax - 1)
-    vals = torch.where(inside[:, None, None], new[:, 0].to(buf.dtype),
-                       buf[rows, at])
+    vals = torch.where(inside.view((-1,) + (1,) * (buf.dim() - 2)),
+                       new[:, 0].to(buf.dtype), buf[rows, at])
     buf[rows, at] = vals
 
 
@@ -166,11 +171,8 @@ def gqa_apply(p, x, cfg, positions, dtype, *, causal=True, cache=None,
             causal = False
             q_offset = 0
         else:
-            # dynamic_update_slice: the start is clamped so the rows fit
-            smax = cache["k"].shape[1]
-            at = min(max(int(pos), 0), smax - s)
-            cache["k"][:, at:at + s] = k.to(cache["k"].dtype)
-            cache["v"][:, at:at + s] = v.to(cache["v"].dtype)
+            _write_rows(cache["k"], k, pos)
+            _write_rows(cache["v"], v, pos)
             q_offset = int(pos)
         # scalar path: causal mask with q_offset=pos hides both the future
         # inside this chunk and the unwritten cache tail (kpos > pos + s - 1)
@@ -187,3 +189,92 @@ def gqa_cache_init(cfg, batch, s_max, dtype=torch.bfloat16, *, device=None):
     return {name: torch.zeros(batch, hkv, s_max, dh, dtype=dtype,
                               device=device).transpose(1, 2)
             for name in ("k", "v")}
+
+
+def _write_rows(buf, new, pos):
+    """Prefill / scalar-pos write of ``new`` (B, S, ...) at rows
+    pos : pos + S; the start is clamped so the rows fit, as
+    ``dynamic_update_slice`` clamps it."""
+    s, smax = new.shape[1], buf.shape[1]
+    at = min(max(int(pos), 0), smax - s)
+    buf[:, at:at + s] = new.to(buf.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention) — MiniCPM3 / DeepSeek-V2 family
+# ---------------------------------------------------------------------------
+
+def mla_init(cfg, *, generator=None, device=None, dtype=torch.float32):
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "wdq": L.dense_init((d, qr), **kw),
+        "q_norm": L.rmsnorm_init(qr, device=device),
+        "wuq": L.dense_init((qr, h * (dn + dr)), **kw),
+        "wdkv": L.dense_init((d, kvr), **kw),
+        "kv_norm": L.rmsnorm_init(kvr, device=device),
+        "wukv": L.dense_init((kvr, h * (dn + dv)), **kw),
+        "wkr": L.dense_init((d, dr), **kw),
+        "wo": L.dense_init((h * dv, d), **kw),
+    }
+
+
+def mla_rope(cfg, positions):
+    """The (cos, sin) pair MLA rotates its ``qk_rope_dim`` query and key
+    dims by (its own angles, not GQA's over ``head_dim``)."""
+    return L.rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_theta)
+
+
+def mla_apply(p, x, cfg, positions, dtype, *, causal=True, cache=None,
+              pos=None, rope=None):
+    """Returns (out, cache).  cache = dict(ckv (B, S_max, kv_rank), k_rope
+    (B, S_max, 1, rope_dim)), updated in place and returned.  Modes as
+    ``gqa_apply``'s: full (cache=None), prefill / scalar decode (int
+    ``pos``), per-slot decode (tensor ``pos``: the rows at pos written,
+    kv_len = pos + 1, no causal mask).  Every call expands the whole
+    cached latent through ``wukv`` (not the "absorbed" form).  ``rope``:
+    ``mla_rope(cfg, positions)`` if the caller has it."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    cos, sin = mla_rope(cfg, positions) if rope is None else rope
+    # queries through the low-rank bottleneck
+    cq = L.rmsnorm(p["q_norm"], L.matmul(x, p["wdq"], dtype))
+    q = L.matmul(cq, p["wuq"], dtype).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], L.rotate(q[..., dn:], cos, sin)
+    # compressed KV latent + shared rope key (this is what gets cached)
+    ckv = L.rmsnorm(p["kv_norm"], L.matmul(x, p["wdkv"], dtype))
+    k_rope = L.rotate(L.matmul(x, p["wkr"], dtype)[:, :, None, :], cos, sin)
+
+    kv_len = None
+    q_offset = 0 if pos is None else pos
+    if cache is not None:
+        if torch.is_tensor(pos) and pos.dim() > 0:
+            pvec = pos.reshape(b)
+            _write_slots(cache["ckv"], ckv, pvec)
+            _write_slots(cache["k_rope"], k_rope, pvec)
+            kv_len = pvec + 1
+            causal = False
+            q_offset = 0
+        else:
+            _write_rows(cache["ckv"], ckv, pos)
+            _write_rows(cache["k_rope"], k_rope, pos)
+            q_offset = int(pos)
+        ckv, k_rope = cache["ckv"], cache["k_rope"]
+    sk = ckv.shape[1]
+    kv = L.matmul(ckv.to(dtype), p["wukv"], dtype).reshape(b, sk, h, dn + dv)
+    k = torch.cat([kv[..., :dn],
+                   k_rope.to(dtype).expand(b, sk, h, dr)], dim=-1)
+    out = sdpa(torch.cat([q_nope, q_rope], dim=-1), k, kv[..., dn:],
+               causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out = L.matmul(out.reshape(b, s, h * dv), p["wo"], dtype)
+    return out, cache
+
+
+def mla_cache_init(cfg, batch, s_max, dtype=torch.bfloat16, *, device=None):
+    return {"ckv": torch.zeros(batch, s_max, cfg.kv_lora_rank, dtype=dtype,
+                               device=device),
+            "k_rope": torch.zeros(batch, s_max, 1, cfg.qk_rope_dim,
+                                  dtype=dtype, device=device)}

@@ -13,6 +13,7 @@ the input dtype.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -106,11 +107,42 @@ def norm_apply(kind, params, x):
 # Activations
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _const(v, dtype):
+    """The Python float ``v`` rounded to ``dtype``, as JAX rounds a weak
+    constant to its operand's dtype (computed once per pair)."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
+
+
+def silu(x):
+    """``jax.nn.silu`` as the reference computes it: x·(1 / (1 + exp(−x))),
+    every op in x's dtype — for bf16 each op's result rounded, as JAX's
+    lowering of ``logistic`` does — not the fused ``F.silu``, which rounds
+    once."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu``'s default (the tanh form), op by op in x's dtype as
+    the reference computes it: 0.5·(1 + tanh(√(2/π)·(x + 0.044715·x³)))
+    times x, the constants rounded to x's dtype."""
+    cube = x * (x * x)
+    inner = _const(math.sqrt(2 / math.pi), x.dtype) * (
+        x + _const(0.044715, x.dtype) * cube)
+    return x * (0.5 * (1 + torch.tanh(inner)))
+
+
+def softplus(x):
+    """``jax.nn.softplus`` as the reference computes it, ``logaddexp(x,
+    0)``: max(x, 0) + log1p(exp(−|x|))."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def activation(name, x):
     if name == "silu":
-        return F.silu(x)
+        return silu(x)
     if name == "gelu":                # jax.nn.gelu's default: the tanh form
-        return F.gelu(x, approximate="tanh")
+        return gelu_tanh(x)
     if name == "relu2":               # squared ReLU (nemotron-4)
         r = F.relu(x)
         return r * r

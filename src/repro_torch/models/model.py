@@ -1,5 +1,6 @@
-"""The decoder model over a ``ModelConfig`` (port of ``repro.models.model``,
-the ``attn`` + ``mlp``/``none`` layers):
+"""The model over a ``ModelConfig`` (port of ``repro.models.model``): every
+layer kind of the ten configurations — GQA or MLA attention, the Mamba-2
+mixer, the MLP or MoE FFN, and the encoder with cross attention (Whisper).
 
     init(cfg, generator)                          -> params
     forward(cfg, params, batch)                   -> logits   (train/prefill)
@@ -8,16 +9,13 @@ the ``attn`` + ``mlp``/``none`` layers):
 Parameters are a dict like the reference's tree, with the decoder blocks as
 a list of per-layer dicts (layer ``g·len(pattern) + i`` is the reference's
 ``blocks/l{i}`` at group g; ``convert.lm_params_from_numpy`` maps one to
-the other) and the layers run one after another in Python.  The cache is
-``{"blocks": [{"kv": {"k", "v"}} per layer], "enc_out": None}``, updated in
-place.
-
-Not ported yet (ROADMAP Queue 1 #13): MLA (MiniCPM3), MoE (Granite,
-Phi-3.5), Mamba-2 and the Jamba hybrid, and the encoder (Whisper) —
-``init``, ``forward`` and ``decode_step`` raise ``NotImplementedError`` for
-a config that needs one.  ``sharding.py``'s ``shard_btd``/``shard_btv``
-activation constraints do nothing without a mesh, and this port runs on one
-card, so they are left out; ``sharding.py`` waits for the multi-card slice.
+the other), the encoder's likewise (``encoder/blocks``), and the layers run
+one after another in Python.  The cache is ``{"blocks": [per layer
+{"kv": {...}} (attention) or {"ssm": {"ssm", "conv_x", "conv_bc"}}
+(mamba)], "enc_out": encoder output or None}``, updated in place.
+``sharding.py``'s ``shard_btd``/``shard_btv`` activation constraints do
+nothing without a mesh, and this port runs on one card, so they are left
+out; ``sharding.py`` waits for the multi-card slice.
 """
 from __future__ import annotations
 
@@ -29,6 +27,8 @@ import torch
 from repro_torch.device import exact_lm_matmul
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,36 +131,45 @@ def leaves(tree):
     return [] if tree is None else [tree]
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config that needs a layer this
-    port does not have yet (ROADMAP Queue 1 #13)."""
-    missing = []
-    if cfg.attn_kind == "mla":
-        missing.append("MLA attention (MiniCPM3)")
-    if any(s.ffn == "moe" for s in cfg.pattern):
-        missing.append("MoE (Granite, Phi-3.5, Jamba)")
-    if any(s.mixer == "mamba" for s in cfg.pattern):
-        missing.append("the Mamba-2 mixer (Mamba2, Jamba)")
-    if cfg.is_encdec:
-        missing.append("the encoder (Whisper)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet "
-            "(ROADMAP Queue 1 #13)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+
+def _layer_init(cfg, spec, kw, device):
+    d = cfg.d_model
+    p = {"pre_norm": L.norm_init(cfg.norm, d, device=device)}
+    if spec.mixer == "attn":
+        p["attn"] = (attn.mla_init(cfg, **kw) if cfg.attn_kind == "mla"
+                     else attn.gqa_init(cfg, **kw))
+    else:
+        p["mamba"] = m2.mamba_init(cfg, **kw)
+    if spec.ffn != "none":
+        p["post_norm"] = L.norm_init(cfg.norm, d, device=device)
+        if spec.ffn == "moe":
+            p["moe"] = moe_lib.moe_init(cfg, **kw)
+        else:
+            p["mlp"] = L.mlp_init(d, cfg.d_ff, cfg.gated, **kw)
+    if cfg.is_encdec and spec.mixer == "attn":
+        p["cross_norm"] = L.norm_init(cfg.norm, d, device=device)
+        p["cross"] = attn.gqa_init(cfg, **kw)
+    return p
+
+
+def _enc_layer_init(cfg, kw, device):
+    d = cfg.d_model
+    return {"pre_norm": L.norm_init(cfg.norm, d, device=device),
+            "attn": attn.gqa_init(cfg, **kw),
+            "post_norm": L.norm_init(cfg.norm, d, device=device),
+            "mlp": L.mlp_init(d, cfg.d_ff, cfg.gated, **kw)}
+
 
 def init(cfg: ModelConfig, generator=None, *, device=None,
          weight_dtype=torch.float32):
     """Parameters drawn from ``generator`` (on ``device``, by default the
     generator's).  Every matmul weight (and the embedding) is drawn in
     float32 and cast to ``weight_dtype`` at once, leaf by leaf, so a bf16
-    model never holds more than one float32 leaf; norm scales and biases
-    stay float32.  ``device="meta"`` gives the shapes only."""
-    check_ported(cfg)
+    model never holds more than one float32 leaf; the ``F32_LEAVES`` stay
+    float32.  ``device="meta"`` gives the shapes only."""
     if device is None:
         device = generator.device if generator is not None else "cpu"
     kw = dict(generator=generator, device=device, dtype=weight_dtype)
@@ -171,22 +180,22 @@ def init(cfg: ModelConfig, generator=None, *, device=None,
     }
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init((d, V), **kw)
-    blocks = []
-    for layer in range(cfg.num_layers):
-        spec = cfg.pattern[layer % len(cfg.pattern)]
-        p = {"pre_norm": L.norm_init(cfg.norm, d, device=device),
-             "attn": attn.gqa_init(cfg, **kw)}
-        if spec.ffn != "none":
-            p["post_norm"] = L.norm_init(cfg.norm, d, device=device)
-            p["mlp"] = L.mlp_init(d, cfg.d_ff, cfg.gated, **kw)
-        blocks.append(p)
-    params["blocks"] = blocks
+    params["blocks"] = [_layer_init(cfg, _spec(cfg, layer), kw, device)
+                        for layer in range(cfg.num_layers)]
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "blocks": [_enc_layer_init(cfg, kw, device)
+                       for _ in range(cfg.encoder_layers)],
+            "norm": L.norm_init(cfg.norm, d, device=device)}
     return params
 
 
 # Leaves that stay float32 in a model held in the compute dtype: norm
-# scales and biases, and the QKV biases (added in the compute dtype).
-F32_LEAVES = ("scale", "bias", "bq", "bk", "bv")
+# scales and biases, the QKV biases (added in the compute dtype), and the
+# leaves the reference reads in float32 — the MoE router and Mamba-2's
+# A_log, D and dt_bias.
+F32_LEAVES = ("scale", "bias", "bq", "bk", "bv", "router", "A_log", "D",
+              "dt_bias")
 
 
 def _map(tree, fn, name=""):
@@ -215,22 +224,74 @@ def to_device(tree, device):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg, spec: LayerSpec, p, h, positions, dtype, *,
-                 causal=True, cache=None, pos=None, positions3=None,
-                 rope=None):
-    """One decoder layer.  Returns (h, new_cache)."""
+                 causal=True, cache=None, pos=None, enc_out=None,
+                 positions3=None, decode=False, rope=None):
+    """One decoder layer.  Returns (h, new_cache).  ``rope``: the (cos,
+    sin) pair of the config's attention (``_rope``).  A mamba layer with
+    ``decode`` steps the recurrent state in ``cache["ssm"]`` in place;
+    without it, a ``cache`` asks for the prefill's final state."""
     new_cache = {}
     x = L.norm_apply(cfg.norm, p["pre_norm"], h)
-    out, kv = attn.gqa_apply(p["attn"], x, cfg, positions, dtype,
-                             causal=causal,
-                             cache=None if cache is None else cache.get("kv"),
-                             pos=pos, positions3=positions3, rope=rope)
-    if kv is not None:
-        new_cache["kv"] = kv
-    h = h + out
+    if spec.mixer == "attn":
+        kv = None if cache is None else cache.get("kv")
+        if cfg.attn_kind == "mla":
+            out, kv = attn.mla_apply(p["attn"], x, cfg, positions, dtype,
+                                     causal=causal, cache=kv, pos=pos,
+                                     rope=rope)
+        else:
+            out, kv = attn.gqa_apply(p["attn"], x, cfg, positions, dtype,
+                                     causal=causal, cache=kv, pos=pos,
+                                     positions3=positions3, rope=rope)
+        if kv is not None:
+            new_cache["kv"] = kv
+        h = h + out
+        if cfg.is_encdec:
+            xc = L.norm_apply(cfg.norm, p["cross_norm"], h)
+            out, _ = attn.gqa_apply(p["cross"], xc, cfg, positions, dtype,
+                                    causal=False, xc=enc_out, use_rope=False)
+            h = h + out
+    elif decode:
+        out, st = m2.mamba_decode_step(p["mamba"], x, cache["ssm"], cfg,
+                                       dtype)
+        for name, buf in cache["ssm"].items():
+            buf.copy_(st[name])
+        new_cache["ssm"] = cache["ssm"]
+        h = h + out
+    else:
+        out, (final_state, (conv_x, conv_bc)) = m2.mamba_apply(
+            p["mamba"], x, cfg, dtype)
+        if cache is not None:        # prefill: capture the recurrent state
+            new_cache["ssm"] = {"ssm": final_state.float(),
+                                "conv_x": conv_x.float(),
+                                "conv_bc": conv_bc.float()}
+        h = h + out
     if spec.ffn != "none":
         x = L.norm_apply(cfg.norm, p["post_norm"], h)
-        h = h + L.mlp_apply(p["mlp"], x, cfg.activation, dtype)
+        if spec.ffn == "moe":
+            h = h + moe_lib.moe_apply(p["moe"], x, cfg, dtype)
+        else:
+            h = h + L.mlp_apply(p["mlp"], x, cfg.activation, dtype)
     return h, new_cache
+
+
+def _encode(cfg, params, enc_frames):
+    """Whisper-style encoder over precomputed (stub) frame embeddings
+    (B, S_enc, D): sinusoidal positions, non-causal self attention without
+    RoPE, the MLP, then the encoder's final norm."""
+    dtype = cfg.compute_dtype
+    h = enc_frames.to(dtype)
+    b, s = h.shape[:2]
+    h = h + L.sinusoidal_positions(s, cfg.d_model,
+                                   device=h.device).to(dtype)[None]
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    for p in params["encoder"]["blocks"]:
+        x = L.norm_apply(cfg.norm, p["pre_norm"], h)
+        out, _ = attn.gqa_apply(p["attn"], x, cfg, positions, dtype,
+                                causal=False, use_rope=False)
+        h = h + out
+        x = L.norm_apply(cfg.norm, p["post_norm"], h)
+        h = h + L.mlp_apply(p["mlp"], x, cfg.activation, dtype)
+    return L.norm_apply(cfg.norm, params["encoder"]["norm"], h)
 
 
 def _head(cfg, params, h, dtype):
@@ -245,14 +306,28 @@ def _spec(cfg, layer):
     return cfg.pattern[layer % len(cfg.pattern)]
 
 
+def _rope(cfg, positions, positions3=None):
+    """The (cos, sin) pair every attention layer of ``cfg`` rotates by,
+    computed once per call."""
+    if cfg.attn_kind == "mla":
+        return attn.mla_rope(cfg, positions)
+    return attn.gqa_rope(cfg, positions, positions3)
+
+
+def _kv_cache_init(cfg, batch, s_max, device):
+    fn = attn.mla_cache_init if cfg.attn_kind == "mla" else \
+        attn.gqa_cache_init
+    return fn(cfg, batch, s_max, cfg.cache_dtype, device=device)
+
+
 def forward(cfg: ModelConfig, params, batch, *, make_cache_len: int = 0,
             return_hidden: bool = False):
-    """Full-sequence forward.  batch keys: tokens (B,S) [, positions3
-    (B,3,S)].  If make_cache_len > 0, also build and return the KV cache
-    sized to that length (prefill).  Returns (logits, cache|None); with
-    return_hidden=True returns (logits, hidden) where hidden is the
-    final-norm output (B, S, D)."""
-    check_ported(cfg)
+    """Full-sequence forward.  batch keys: tokens (B,S) [, enc_frames
+    (B, S_enc, D) for an encoder-decoder config, positions3 (B,3,S)].  If
+    make_cache_len > 0, also build and return the KV/SSM cache sized to
+    that length (prefill), with the encoder output.  Returns (logits,
+    cache|None); with return_hidden=True returns (logits, hidden) where
+    hidden is the final-norm output (B, S, D)."""
     dtype = cfg.compute_dtype
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -262,46 +337,61 @@ def forward(cfg: ModelConfig, params, batch, *, make_cache_len: int = 0,
     h = params["embed"][tokens].to(dtype)
     positions = torch.arange(s, device=dev).expand(b, s)
     positions3 = batch.get("positions3")
-    rope = attn.gqa_rope(cfg, positions, positions3)
+    rope = _rope(cfg, positions, positions3)
+    enc_out = (_encode(cfg, params, batch["enc_frames"]) if cfg.is_encdec
+               else None)
     prefill = make_cache_len > 0
     caches = []
     for layer, p in enumerate(params["blocks"]):
+        spec = _spec(cfg, layer)
         cache_in = pos = None
         if prefill:
-            cache_in = {"kv": attn.gqa_cache_init(
-                cfg, b, make_cache_len, cfg.cache_dtype, device=dev)}
             pos = 0
-        h, c = _apply_layer(cfg, _spec(cfg, layer), p, h, positions, dtype,
-                            cache=cache_in, pos=pos, positions3=positions3,
-                            rope=rope)
+            cache_in = ({"kv": _kv_cache_init(cfg, b, make_cache_len, dev)}
+                        if spec.mixer == "attn" else {"ssm": None})
+        h, c = _apply_layer(cfg, spec, p, h, positions, dtype,
+                            cache=cache_in, pos=pos, enc_out=enc_out,
+                            positions3=positions3, rope=rope)
         caches.append(c)
     logits, h = _head(cfg, params, h, dtype)
     if return_hidden:
         return logits, h
     if prefill:
-        return logits, {"blocks": caches, "enc_out": None}
+        return logits, {"blocks": caches, "enc_out": enc_out}
     return logits, None
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device=None):
-    """Zero KV cache for ``batch`` slots of ``s_max`` positions."""
-    check_ported(cfg)
-    return {"blocks": [{"kv": attn.gqa_cache_init(cfg, batch, s_max,
-                                                  cfg.cache_dtype,
-                                                  device=device)}
-                       for _ in range(cfg.num_layers)],
-            "enc_out": None}
+    """Zero cache for ``batch`` slots: KV of ``s_max`` positions for an
+    attention layer, the float32 SSM state and conv windows for a mamba
+    layer."""
+    return {"blocks": [
+        {"kv": _kv_cache_init(cfg, batch, s_max, device)}
+        if _spec(cfg, layer).mixer == "attn"
+        else {"ssm": m2.mamba_state_init(cfg, batch, device=device)}
+        for layer in range(cfg.num_layers)], "enc_out": None}
+
+
+def splice(cache, fresh, slot: int) -> None:
+    """Copy a one-row cache ``fresh`` (a prefill's) into row ``slot`` of
+    every leaf of ``cache`` (KV, latent, SSM state and conv windows);
+    raises ``ValueError`` on leaves of other shapes."""
+    for full, one in zip(leaves(cache["blocks"]), leaves(fresh["blocks"])):
+        if full.shape[1:] != one.shape[1:]:
+            raise ValueError(f"cache leaf {tuple(one.shape[1:])} does not "
+                             f"fit a slot of {tuple(full.shape[1:])}")
+        full[slot].copy_(one[0])
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
-                positions3=None):
+                enc_out=None, positions3=None):
     """One decode step.  tokens: (B, 1) integer; pos: an int (or 0-d
     tensor) for every row, or a (B,) / (B, 1) tensor of per-slot
-    positions.  The cache is updated in place.
+    positions.  The cache is updated in place; ``enc_out`` defaults to the
+    cache's.
 
     Returns (logits (B, 1, V), cache).
     """
-    check_ported(cfg)
     dtype = cfg.compute_dtype
     b = tokens.shape[0]
     dev = tokens.device
@@ -313,10 +403,14 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
     else:
         pos = int(pos)
         positions = torch.full((b, 1), pos, device=dev)
-    rope = attn.gqa_rope(cfg, positions, positions3)
+    if enc_out is None:
+        enc_out = cache.get("enc_out")
+    rope = _rope(cfg, positions, positions3)
     for layer, p in enumerate(params["blocks"]):
-        h, _ = _apply_layer(cfg, _spec(cfg, layer), p, h, positions, dtype,
+        spec = _spec(cfg, layer)
+        h, _ = _apply_layer(cfg, spec, p, h, positions, dtype,
                             cache=cache["blocks"][layer], pos=pos,
-                            positions3=positions3, rope=rope)
+                            enc_out=enc_out, positions3=positions3,
+                            decode=spec.mixer == "mamba", rope=rope)
     logits, _ = _head(cfg, params, h, dtype)
-    return logits, cache
+    return logits, {"blocks": cache["blocks"], "enc_out": enc_out}

@@ -1495,3 +1495,188 @@ def test_lm_path_reduces_bf16_products_in_f32(cuda, monkeypatch):
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             flag
     assert seen and not any(seen)
+
+
+# ---------------------------------------------------------------------------
+# The remaining LM families: MLA, MoE, Mamba-2, Jamba, the Whisper encoder
+# ---------------------------------------------------------------------------
+
+LM_FAMILIES = ["minicpm3-4b", "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
+               "mamba2-2.7b", "jamba-1.5-large-398b", "whisper-large-v3"]
+
+
+def _family_logits(cfg, params, toks, frames, dev):
+    """A 12-token prefill and four per-slot decode steps' logits, float32
+    on the host."""
+    from repro_torch.models import model as TM
+    toks = toks.to(dev)
+    batch = {"tokens": toks[:, :12]}
+    if frames is not None:
+        batch["enc_frames"] = frames.to(dev)
+    logits, cache = TM.forward(cfg, TM.to_device(params, dev), batch,
+                               make_cache_len=20)
+    outs = [logits]
+    for t in range(12, 16):
+        pos = torch.tensor([[t], [t - 3]], device=dev)
+        lg, cache = TM.decode_step(cfg, TM.to_device(params, dev),
+                                   toks[:, t:t + 1], cache, pos)
+        outs.append(lg)
+    return torch.cat(outs, 1).float().cpu()
+
+
+def _routed(monkeypatch, picks=None):
+    """``models.moe._route`` recording each call's expert picks into the
+    returned list, or taking them from ``picks`` (the router's own
+    probabilities gathered at them): a top-k flips at a near-tie with the
+    last bit of a bf16 product, which the card's and the CPU's BLAS round
+    apart, so bf16 logits are compared on one side's picks."""
+    from repro_torch.models import moe as tmoe
+    seen = []
+    real = getattr(tmoe._route, "__wrapped__", tmoe._route)
+
+    def route(p, xt, cfg):
+        if picks is None:
+            vals, idx = real(p, xt, cfg)
+        else:
+            idx = picks[len(seen)].to(xt.device)
+            probs = torch.softmax(torch.matmul(xt.float(),
+                                               p["router"].float()), -1)
+            vals = torch.gather(probs, -1, idx)
+            vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+        seen.append(idx.cpu())
+        return vals, idx
+    route.__wrapped__ = real
+    monkeypatch.setattr(tmoe, "_route", route)
+    return seen
+
+
+def _layer_io(monkeypatch, feed=None):
+    """``models.model._apply_layer`` recording each call's input and
+    output hidden states (float32, on the host), or running each call on
+    ``feed``'s recorded input in place of its own."""
+    from repro_torch.models import model as TM
+    ins, outs = [], []
+    real = getattr(TM._apply_layer, "__wrapped__", TM._apply_layer)
+
+    def apply(cfg, spec, p, h, *args, **kw):
+        if feed is not None:
+            h = feed[len(outs)].to(h.device, h.dtype)
+        ins.append(h.cpu())
+        out = real(cfg, spec, p, h, *args, **kw)
+        outs.append(out[0].float().cpu())
+        return out
+    apply.__wrapped__ = real
+    monkeypatch.setattr(TM, "_apply_layer", apply)
+    return ins, outs
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_family_on_card_matches_cpu(cuda, arch, dtype, monkeypatch):
+    """Each family at the smoke size on the same weights and tokens.  f32:
+    the card's prefill and decode logits within 1e-4 of the CPU's largest
+    logit, an MoE family picking the CPU's experts on its own.  bf16: a
+    last-bit difference in a bf16 product (the card's and the CPU's BLAS
+    sum in another order) moves the 16-layer Jamba smoke model's logits by
+    up to 0.48 of the largest on the CPU alone, so each layer runs on the
+    card from the CPU's input hidden state and on the CPU's expert picks,
+    and its output, and the logits, must lie within 2e-2 of the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as TM
+    cfg = ARCHS[arch].smoke_config()
+    dt, tol = ((torch.float32, 1e-4) if dtype == "f32"
+               else (torch.bfloat16, 2e-2))
+    cfg = dataclasses.replace(cfg, compute_dtype=dt, cache_dtype=dt)
+    g = torch.Generator().manual_seed(5)
+    params = TM.cast_weights(TM.init(cfg, g), dt)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    frames = (torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=g)
+              if cfg.is_encdec else None)
+    bf16 = dtype == "bf16"
+    cpu_picks = _routed(monkeypatch)
+    cpu_in, cpu_out = _layer_io(monkeypatch)
+    want = _family_logits(cfg, params, toks, frames, "cpu")
+    card_picks = _routed(monkeypatch, cpu_picks if bf16 else None)
+    _, card_out = _layer_io(monkeypatch, cpu_in if bf16 else None)
+    got = _family_logits(cfg, params, toks, frames, cuda)
+    assert len(card_picks) == len(cpu_picks)
+    assert len(card_out) == len(cpu_out) == 5 * cfg.num_layers
+    if not bf16:
+        assert all(torch.equal(a, b) for a, b in zip(card_picks, cpu_picks))
+    for i, (a, b) in enumerate(zip(card_out, cpu_out) if bf16 else []):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= tol, (i, err)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= tol, err
+
+
+def test_lm_moe_capacity_path_on_card_matches_cpu(cuda):
+    """The grouped capacity dispatch (t = 1024, two groups, capacity factor
+    1.0 so that picks are dropped) on the card: the same kept picks and
+    output as on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe as tmoe
+    cfg = dataclasses.replace(ARCHS["granite-moe-1b-a400m"].smoke_config(),
+                              moe_capacity_factor=1.0)
+    g = torch.Generator().manual_seed(6)
+    p = tmoe.moe_init(cfg, generator=g)
+    x = torch.randn(2, 512, cfg.d_model, generator=g)
+    want = tmoe.moe_apply(p, x, cfg, torch.float32)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    got = tmoe.moe_apply(pc, x.to(cuda), cfg, torch.float32).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    keeps = []
+    for params, xx in ((p, x), (pc, x.to(cuda))):
+        _, idx = tmoe._route(params, xx.reshape(2, 512, -1), cfg)
+        keeps.append(tmoe.capacity_slots(idx, cfg.num_experts, 256)[1].cpu())
+    assert torch.equal(keeps[0], keeps[1]) and not bool(keeps[0].all())
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_lm_splice_leaves_the_other_slots_alone(cuda, arch):
+    """Admitting a request into one slot rewrites that slot's row of every
+    cache leaf (MLA latent, SSM state and conv windows) with the prefill's
+    and leaves every other slot's bits as they were."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import Engine, Request
+    from repro_torch.models import model as TM
+    cfg = ARCHS[arch].smoke_config()
+    eng = Engine(cfg, batch=3, max_len=32, seed=0, device=cuda)
+    g = torch.Generator(cuda).manual_seed(7)
+    for t in TM.leaves(eng.cache["blocks"]):
+        t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    before = [t.clone() for t in TM.leaves(eng.cache["blocks"])]
+    prompt = np.arange(1, 9, dtype=np.int32)
+    eng.admit(Request(0, prompt, 4), 1)
+    _, fresh = TM.forward(cfg, eng.params, {"tokens": torch.as_tensor(
+        prompt, dtype=torch.int64, device=cuda)[None]}, make_cache_len=32)
+    for old, new, one in zip(before, TM.leaves(eng.cache["blocks"]),
+                             TM.leaves(fresh["blocks"])):
+        assert torch.equal(new[0], old[0]) and torch.equal(new[2], old[2])
+        assert torch.equal(new[1], one[0])
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_lm_served_repeat_gives_equal_tokens(cuda, arch):
+    """The same stream served twice on the card (the smoke config, a round
+    deadline of three steps so that requests are evicted and re-prefilled)
+    gives the same tokens."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as TM
+    params = TM.init(ARCHS[arch].smoke_config(),
+                     torch.Generator(cuda).manual_seed(8))
+    runs = []
+    for _ in range(2):
+        reqs = serve(arch, requests=4, batch=2, max_new=6, prompt_len=5,
+                     max_len=32, quiet=True, seed=2, max_rounds=3,
+                     max_evictions=10, params=params, device=cuda)
+        runs.append({r.rid: r.out for r in reqs})
+    assert runs[0] == runs[1] and sorted(runs[0]) == list(range(4))

@@ -34,9 +34,6 @@ from repro_torch.models import model as TM  # noqa: E402
 F32, BF16 = "f32", "bf16"
 TOL = {F32: 1e-5, BF16: 2e-2}
 GQA_ARCHS = ["qwen3-4b", "qwen1.5-110b", "nemotron-4-340b", "qwen2-vl-7b"]
-UNPORTED = ["minicpm3-4b", "whisper-large-v3", "mamba2-2.7b",
-            "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m",
-            "jamba-1.5-large-398b"]
 
 
 @pytest.fixture(autouse=True)
@@ -497,7 +494,7 @@ def test_vector_pos_decode_matches_scalar():
 
 
 # ---------------------------------------------------------------------------
-# configs, parameter counts, the converter, unported layers
+# configs, parameter counts, the converter
 # ---------------------------------------------------------------------------
 
 def _field(v):
@@ -628,13 +625,3 @@ def test_converter_round_trip_and_errors():
     with pytest.raises(ValueError, match="head has shape"):
         convert.lm_params_from_numpy(tc, wrong, device="cpu")
 
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_layers_raise(arch):
-    cfg = ARCHS[arch].smoke_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.param_count()
