@@ -43,7 +43,7 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           profiled for host syncs inside its iterations, repeated bit for
           bit and held against the CPU; and the paper's metric, rounds to
           0.5% of F*, for the dense fused block and scalar Shotgun solves;
-  lm      last, each model in a child process (``--leg lm`` runs
+  lm      each model in a child process (``--leg lm`` runs
           Qwen3-4B's alone, ``--leg lm --arch A`` another family's): the
           LM serving path ``repro_torch.launch.serve`` (torch code, no
           kernel of its own) on Qwen3-4B — its published widths cut to 2
@@ -60,7 +60,21 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           picks, whose flips are counted), Whisper-large-v3's encoder
           (1500 stub frames) and 32 decode steps at 32 + 32 layers, and
           Phi-3.5-MoE and Jamba against the CPU at the smoke size (Jamba's
-          bf16 layer by layer from the CPU's inputs).
+          bf16 layer by layer from the CPU's inputs);
+  train   last, the LM training path ``repro_torch.launch.train`` (torch
+          code, no kernel of its own), one child a model (``--leg
+          train`` runs Qwen3-4B's, ``--leg train --arch
+          granite-moe-1b-a400m`` Granite's): Qwen3-4B's published widths
+          cut to 2 layers, one train step on the card against one on the
+          CPU (loss, grad norm, every grad, the parameters and the
+          optimizer state after it) in f32 and bf16, then every smoke
+          config with AdamW and with Adafactor; Qwen3-4B at full width and
+          depth, 20 steps of 4 x 512 tokens from the loader (falling loss,
+          ms a step beside its bound, tokens/s, 6·N·T over the step time,
+          idle share, host syncs a step, peak memory); Granite-MoE-1B the
+          same (its MoE capacity path backward at 2048 tokens), then a
+          kill and resume at the smoke size whose losses must equal the
+          uninterrupted run's bit for bit.
 
 The two-kernel pair #3/#4 is timed on three clocks (events, the
 profiler's counted records, events behind a spin) beside cuBLAS on a
@@ -85,6 +99,7 @@ import argparse
 import datetime
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -186,6 +201,20 @@ WH_ROWS, WH_PROMPT, WH_CACHE, WH_STEPS = 2, 16, 448, 32
 # a MoE layer).
 FAM_SMOKE = ("phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b")
 LM_FAMILIES = (*FAM_SERVED, FAM_WHISPER, *FAM_SMOKE)
+# Train leg: the models trained at full width and depth, each in its own
+# child (``--leg train --arch A``; the first also runs the CPU checks), the
+# rows, tokens a row, steps and learning rate of those runs; the CPU
+# checks' rows and tokens; the kill-and-resume's arguments (the
+# reference's tests/test_ckpt_and_fault_tolerance.py:70 run); cuBLAS's
+# workspace for deterministic algorithms, set before the child's first
+# cuBLAS call.
+TRAIN_ARCHS = (LM_ARCH, "granite-moe-1b-a400m")
+TRAIN_ROWS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 20, 1e-3
+TRAIN_CHECK_ROWS, TRAIN_CHECK_SEQ, TRAIN_CHECK_LR = 2, 16, 1e-3
+TRAIN_RESUME = dict(smoke=True, steps=9, batch=2, seq=16, lr=1e-3,
+                    save_every=3, log_every=100)
+TRAIN_RANGE = "chip_smoke.train_step"   # one training step, profiled
+CUBLAS_CONFIG = ":4096:8"
 # Host syncs (none may fall inside an unguarded scalar solve's rounds or a
 # baseline's iterations) are counted from the lint's one list,
 # ``repro_torch.analyze.trace_checks.SYNC_CALLS`` and any ``*Synchronize``
@@ -410,11 +439,13 @@ def queued_ms(fn, iters: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--leg", choices=["lm"], default=None,
+    ap.add_argument("--leg", choices=["lm", "train"], default=None,
                     help="run only this leg (no build) and print its JSON")
     ap.add_argument("--arch", choices=LM_FAMILIES, default=LM_ARCH,
-                    help="with --leg lm: the model to run")
+                    help="with --leg lm or train: the model to run")
     args = ap.parse_args()
+    if args.leg == "train":
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_CONFIG)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -426,6 +457,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if args.leg == "lm":
         print(json.dumps(family_leg(args)))
+        return 0
+    if args.leg == "train":
+        print(json.dumps(train_leg(args)))
         return 0
     from repro_torch.kernels import _build
 
@@ -479,12 +513,14 @@ def main() -> int:
     scalar_json, scalar_data = scalar_leg(args, dense_data, sparse_data)
     baselines_json = baselines_leg(args, dense_data, scalar_data)
     del dense_data, sparse_data, scalar_data
+    release_card("the LM legs")
     lm_json = lm_leg_child(args)
+    train_json = train_leg_child(args)
 
     # ---- report -----------------------------------------------------------
     print(json.dumps({**lint_json, **dense_json, **sparse_json,
                       **sharded_json, **serve_json, **scalar_json,
-                      **baselines_json, **lm_json}))
+                      **baselines_json, **lm_json, **train_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": dense_kernels + sparse_kernels
                       + sharded_kernels + serve_kernels}))
@@ -2813,6 +2849,20 @@ def baselines_leg(args, dd, sc):
 
 
 
+def release_card(before: str) -> None:
+    """Return this process's cached device memory to the card before
+    child processes that need the card (a full-width train step takes
+    ≈ 66 GiB), and print what it still holds."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"device memory before {before}: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+
+
 def lm_leg_child(args) -> dict:
     """The LM leg, one child process a model (``chip_smoke.py --leg lm
     --arch A`` for each of ``LM_FAMILIES``), so that each frees the card
@@ -2949,6 +2999,64 @@ def family_costs(cfg, params, rows: int, smax: int, prompt: int) -> dict:
     return dict(pre_bytes=pre_bytes, pre_flops=pre_flops,
                 dec_bytes=dec_bytes, dec_flops=dec_flops,
                 moe_layers=moe_layers, mamba_layers=mamba_layers)
+
+
+def train_costs(cfg, params, rows: int, seq: int) -> dict:
+    """FLOPs of one train step of ``rows`` x ``seq`` tokens as the
+    reference computes it, and the optimizer's bytes.  Counted: every
+    product of the forward (attention over all seq x seq positions, as the
+    reference masks but computes them; an MoE layer on the capacity path
+    each expert over its g·cap buffer rows, on the dense path every expert
+    for every token; Mamba-2's SSD as ``family_costs`` counts it), again
+    for the remat's recompute of each group, twice for the backward, the
+    head's product three times (it is not recomputed); the optimizer's
+    float32 reads and writes (AdamW: p, g, m, v read, p, m, v written;
+    Adafactor: p and g read, p written, its statistics not counted).  Not
+    counted: norms, softmax, the loss and other elementwise work.  ``n``:
+    the parameters a token's products touch (the embedding table left out;
+    an MoE layer's top-k of its experts), for 6·n·tokens.  Decoder-only
+    configurations."""
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+    if cfg.is_encdec:
+        raise ValueError("train_costs counts decoder-only configurations")
+    t, H = rows * seq, cfg.num_heads
+    blocks = sum(x.numel() for x in M.leaves(params["blocks"]))
+    experts = sum(sum(p["moe"][n].numel() for n in ("wi", "wg", "wo"))
+                  for p in params["blocks"] if "moe" in p)
+    head = params.get("head", params["embed"])
+    layers = 2 * t * (blocks - experts)
+    if experts:
+        e, k = cfg.num_experts, cfg.moe_top_k
+        if t <= 4 * e or t < 2 * moe_lib.GROUP_SIZE:
+            layers += 2 * t * experts
+        else:
+            g = max(1, t // moe_lib.GROUP_SIZE)
+            cap = min(max(8, int((t // g) * k * cfg.moe_capacity_factor
+                                 / e)), t // g)
+            layers += 2 * g * cap * experts
+    attn_layers = sum(1 for p in params["blocks"] if "attn" in p)
+    if cfg.attn_kind == "mla":
+        per = cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim
+        layers += attn_layers * 2 * rows * H * seq * seq * per
+    else:
+        layers += attn_layers * 4 * rows * H * seq * seq * cfg.head_dim
+    mamba_layers = cfg.num_layers - attn_layers
+    if mamba_layers:
+        _, heads, _ = m2.mamba_dims(cfg)
+        n, hd, chunk = cfg.ssm_state, cfg.mamba_head_dim, min(128, seq)
+        layers += mamba_layers * rows * 2 * seq * (
+            chunk * n + heads * chunk * hd + 2 * heads * hd * n)
+    head_flops = 2 * t * head.numel()
+    flops = (4 if cfg.remat else 3) * layers + 3 * head_flops
+    total = sum(x.numel() for x in M.leaves(params))
+    opt_bytes = (7 if cfg.optimizer == "adamw" else 3) * 4 * total
+    active = total - params["embed"].numel() - experts
+    if experts:
+        active += experts * cfg.moe_top_k // cfg.num_experts
+    return dict(flops=flops, opt_bytes=opt_bytes, params=total,
+                active=active, tokens=t)
 
 
 class Routes:
@@ -3388,6 +3496,341 @@ def whisper_run(full, weights, gen, args, dev, smi) -> dict:
     print(f"whisper: {out['tokens_per_s']:.1f} tokens/s over "
           f"{WH_STEPS} decode steps of {WH_ROWS} rows [{smi}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The train leg
+# ---------------------------------------------------------------------------
+
+def train_leg_child(args) -> dict:
+    """The train leg, one child process a model of ``TRAIN_ARCHS``
+    (``chip_smoke.py --leg train --arch A``), with cuBLAS's deterministic
+    workspace in its environment.  Echoes each child's lines, raises if
+    one failed, returns {"train": {arch: its JSON}}."""
+    script = str(pathlib.Path(__file__).resolve())
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_CONFIG)
+    found = {}
+    for arch in TRAIN_ARCHS:
+        out = subprocess.run([sys.executable, script, "--leg", "train",
+                              "--arch", arch, "--seed", str(args.seed)],
+                             capture_output=True, text=True, timeout=900,
+                             env=env)
+        lines = out.stdout.splitlines()
+        for ln in lines[:-1]:
+            print(f"train {arch}: {ln}")
+        require(out.returncode == 0 and lines,
+                f"train {arch}: exit {out.returncode}: {out.stderr[-3000:]}")
+        found[arch] = json.loads(lines[-1])
+    return {"train": found}
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err / scale if scale > 0 else err
+
+
+def train_check(cfg, label, tol, args, dev) -> dict:
+    """One train step of ``cfg`` on the card against the CPU from the same
+    state (drawn on the card from --seed, copied to the host) and the same
+    loader batch: the loss, the grad norm and every grad leaf to ``tol``
+    of its largest magnitude; then the parameters and the optimizer state
+    after the card's step against the CPU's optimizer applied to the
+    card's grads (the same bits the card's step computes, with
+    deterministic algorithms on), the first moments and parameters to
+    ``tol``, the statistics of squared grads to 2·tol.  (Applied to its
+    own grads, the CPU's first step would move an element whose grad is
+    near zero by up to lr either way: it divides each grad by statistics
+    of its own size.)"""
+    from repro_torch import tree as T
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import adafactor, adamw
+    t0 = time.perf_counter()
+    state = TS.init_train_state(cfg, torch.Generator(dev).manual_seed(
+        args.seed))
+    host = T.map_tree(lambda x: x.to("cpu", copy=True), state)
+    loader = TokenLoader(LoaderConfig(cfg.vocab_size, TRAIN_CHECK_ROWS,
+                                      TRAIN_CHECK_SEQ, seed=args.seed),
+                         device=dev)
+    batch = loader.batch_at(0)
+    if cfg.is_encdec:
+        batch["enc_frames"] = TR.enc_frames(cfg, TRAIN_CHECK_ROWS,
+                                            args.seed, 0, dev)
+    hbatch = {k: v.cpu() for k, v in batch.items()}
+    _, grads_c = TS.loss_and_grads(cfg, state.params, batch)
+    loss_h, grads_h = TS.loss_and_grads(cfg, host.params, hbatch)
+    grads_c = [g.cpu() for g in grads_c]
+    grad_err = max(_rel(a, b) for a, b in zip(grads_c, grads_h))
+    norm_h = adamw.global_norm(grads_h)
+    del grads_h
+    state, m_c = TS.make_train_step(cfg, lr=TRAIN_CHECK_LR)(state, batch)
+    loss_err = _rel(m_c["loss"], loss_h)
+    norm_err = _rel(m_c["grad_norm"], norm_h)
+    if cfg.optimizer == "adafactor":
+        opt, _ = adafactor.apply(
+            grads_c, host.opt, T.leaves(host.params), TRAIN_CHECK_LR,
+            groups=adafactor.layout(host.params, M.ref_layout(cfg)))
+    else:
+        opt, _ = adamw.apply(grads_c, host.opt, T.leaves(host.params),
+                             TRAIN_CHECK_LR)
+    first = ("mu",) if cfg.optimizer == "adamw" else ()
+    mom_err = sq_err = 0.0
+    for name in opt._fields[:-1]:
+        for a, b in zip(T.leaves(getattr(state.opt, name)),
+                        T.leaves(getattr(opt, name))):
+            if name in first:
+                mom_err = max(mom_err, _rel(a, b))
+            else:
+                sq_err = max(sq_err, _rel(a, b))
+    par_err = max(_rel(a, b) for a, b in zip(T.leaves(state.params),
+                                             T.leaves(host.params)))
+    ok = (max(loss_err, norm_err, grad_err, mom_err, par_err) <= tol
+          and sq_err <= 2 * tol and int(state.step) == 1
+          and int(opt.count) == 1)
+    print(f"check train {label}: card vs CPU, one step of "
+          f"{TRAIN_CHECK_ROWS} x {TRAIN_CHECK_SEQ} tokens: loss "
+          f"{loss_err:.3e}, grad norm {norm_err:.3e}, grads {grad_err:.3e}; "
+          f"after the step (the CPU's optimizer on the card's grads): "
+          f"first moments {mom_err:.3e}, squared statistics {sq_err:.3e}, "
+          f"params {par_err:.3e} (tol {tol:g}, squared 2x) "
+          f"({time.perf_counter() - t0:.2f} s)")
+    require(ok and math.isfinite(loss_err + grad_err),
+            f"train {label}: card vs CPU beyond tolerance")
+    return dict(loss=loss_err, grad_norm=norm_err, grads=grad_err,
+                moments=mom_err, squared=sq_err, params=par_err)
+
+
+def top_device_ops(events, n: int = 8) -> list:
+    """[(name, summed device ms, count)] of a profiler window's device
+    records, grouped by name, the ``n`` costliest."""
+    tot: dict[str, list] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False) and \
+                not e.name.startswith(("repro_torch.", "chip_smoke.")):
+            t = tot.setdefault(e.name[:60], [0.0, 0])
+            t[0] += (e.time_range.end - e.time_range.start) / 1e3
+            t[1] += 1
+    return sorted(((k, v[0], v[1]) for k, v in tot.items()),
+                  key=lambda x: -x[1])[:n]
+
+
+def min_ms(fn, reps: int = 2) -> float:
+    """The best of ``reps`` host-clock times of ``fn``, the card
+    synchronized around each."""
+    best = float("inf")
+    for _ in range(reps):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def bmm_out_dtype_backward(dev) -> str:
+    """Whether this PyTorch's ``bmm(..., out_dtype=float32)`` has a
+    backward on the card (``layers.matmul_f32`` takes float32 copies
+    whenever autograd records the product, either way)."""
+    a = torch.ones(1, 2, 2, dtype=torch.bfloat16, device=dev,
+                   requires_grad=True)
+    try:
+        torch.bmm(a, a.detach(), out_dtype=torch.float32).sum().backward()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return f"no backward ({type(e).__name__}: {str(e)[:120]})"
+    return "a backward"
+
+
+def train_leg(args) -> dict:
+    """One model of ``TRAIN_ARCHS`` (``args.arch``), in its own process,
+    with deterministic algorithms on.
+
+    1. Qwen3-4B's child first checks the card against the CPU
+       (``train_check``): the published widths cut to 2 layers in f32 and
+       bf16, then every smoke config with AdamW and with Adafactor.
+    2. ``launch.train.train`` at full width and depth, ``TRAIN_STEPS`` of
+       ``TRAIN_ROWS`` x ``TRAIN_SEQ`` loader tokens: the loss must fall;
+       its ms a step (the median after two warm-up steps, host clock, the
+       loss read included) beside ``train_costs``' bound, tokens/s, 6·n·T
+       over the step time and the peak rate; one more training step
+       profiled for its host syncs (only the loss read; none inside
+       ``steps.STEP_RANGE``) and the device's idle share; peak memory.
+    3. Granite's child then kills and resumes a smoke-size run
+       (``TRAIN_RESUME``): the resumed losses equal the uninterrupted
+       run's bit for bit."""
+    from repro_torch.launch import train as TR
+
+    t_leg = time.perf_counter()
+    arch = args.arch
+    require(arch in TRAIN_ARCHS, f"--leg train: --arch {arch} is not one "
+            f"of {TRAIN_ARCHS}")
+    dev = torch.device(DEVICE)
+    card = dev.type == "cuda"
+    smi = nvidia_smi_line() if card else "cpu"
+    with TR.deterministic(dev):
+        return _train_leg(arch, args, dev, card, smi, t_leg)
+
+
+def _train_leg(arch, args, dev, card, smi, t_leg) -> dict:
+    """``train_leg``'s body, with deterministic algorithms on."""
+    import dataclasses
+    import statistics as stats_mod
+
+    from repro_torch.analyze.trace_checks import syncs_of
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.launch import train as TR
+    from repro_torch.models import steps as TS
+
+    out = dict(arch=arch)
+    if arch == LM_ARCH:
+        print("bmm(out_dtype=float32) on the card has "
+              f"{bmm_out_dtype_backward(dev)}")
+        cut = dataclasses.replace(ARCHS[arch].CONFIG,
+                                  num_layers=LM_CPU_LAYERS)
+        checks = {}
+        for tag, dtype, tol in (("f32", torch.float32, LM_F32_TOL),
+                                ("bf16", torch.bfloat16, LM_BF16_TOL)):
+            cfg = dataclasses.replace(cut, compute_dtype=dtype)
+            checks[tag] = train_check(cfg, f"{arch} d_model {cut.d_model}, "
+                                      f"{cut.num_layers} layers, {tag}",
+                                      tol, args, dev)
+        for name in sorted(ARCHS):
+            for opt in ("adamw", "adafactor"):
+                cfg = dataclasses.replace(ARCHS[name].smoke_config(),
+                                          optimizer=opt)
+                checks[f"{name}/{opt}"] = train_check(
+                    cfg, f"{name} smoke, {opt}", LM_F32_TOL, args, dev)
+        out["cpu_check"] = checks
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    cfg = ARCHS[arch].smoke_config() if LM_SMOKE else ARCHS[arch].CONFIG
+    st = {}
+    t0 = time.perf_counter()
+    state, losses = TR.train(arch, smoke=LM_SMOKE, steps=TRAIN_STEPS,
+                             batch=TRAIN_ROWS, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                             seed=args.seed, log_every=5, device=dev,
+                             stats=st)
+    wall = time.perf_counter() - t0
+    require(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
+    late = sum(losses[-5:]) / 5
+    require(late < losses[0], f"{arch}: loss did not fall: first "
+            f"{losses[0]:.4f}, mean of the last five {late:.4f}")
+    step_s = stats_mod.median(st["step_s"][2:])
+    costs = train_costs(cfg, state.params, TRAIN_ROWS, TRAIN_SEQ)
+    flop_ms = costs["flops"] / BF16_FLOPS_PER_S * 1e3
+    byte_ms = costs["opt_bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_ms = flop_ms + byte_ms
+    toks_s = costs["tokens"] / step_s
+    util = 6 * costs["active"] * costs["tokens"] / step_s / BF16_FLOPS_PER_S
+    print(f"{arch} train: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{costs['params']} parameters, {cfg.optimizer}, remat "
+          f"{cfg.remat}; {TRAIN_STEPS} steps of {TRAIN_ROWS} x {TRAIN_SEQ} "
+          f"tokens in {wall:.1f} s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of the last five {late:.4f}) [{smi}]")
+    print(f"{arch} train step: {step_s * 1e3:.1f} ms (median of steps "
+          f"3-{TRAIN_STEPS}; bound {bound_ms:.1f} ms = "
+          f"{costs['flops'] / 1e12:.2f} TFLOP at "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s ({flop_ms:.1f} ms) + "
+          f"{costs['opt_bytes'] / 1e9:.1f} GB of optimizer traffic at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({byte_ms:.1f} ms); "
+          f"{bound_ms / (step_s * 1e3):.3f} of bound); {toks_s:.0f} "
+          f"tokens/s; 6·n·T / (step time · peak) {util:.4f} with n = "
+          f"{costs['active']} [{smi}]")
+    loader = TokenLoader(LoaderConfig(cfg.vocab_size, TRAIN_ROWS, TRAIN_SEQ,
+                                      seed=args.seed), device=dev)
+    step = TS.make_train_step(cfg, lr=TRAIN_LR)
+    box = {"state": state}
+    del state
+
+    def one_step():
+        with torch.profiler.record_function(TRAIN_RANGE):
+            box["state"], m = step(box["state"],
+                                   loader.batch_at(TRAIN_STEPS))
+            box["loss"] = float(m["loss"])
+
+    events = profiled_events(one_step) if card else []
+    step_syncs, _, _ = syncs_of(events, TRAIN_RANGE)
+    waits = [n for n in step_syncs if n.endswith("Synchronize")]
+    reads = step_syncs.count("aten::item")
+    inside, ranges, dtoh = syncs_of(events, TS.STEP_RANGE)
+    busy, span, n_dev, _, _ = busy_of(events)
+    idle = 1.0 - busy / span if span else float("nan")
+    if card:
+        require(ranges == 1 and not inside,
+                f"{arch}: host syncs inside {TS.STEP_RANGE}: {inside}")
+        require(len(waits) == 1 and reads == 1, f"{arch}: host syncs in a "
+                f"training step: {step_syncs}")
+    print(f"{arch} train step profiled: {len(waits)} host wait in the "
+          f"training step, the loss read ({step_syncs}), {len(inside)} "
+          f"inside {TS.STEP_RANGE}, {dtoh} device-to-host copies, {n_dev} "
+          f"device records, device busy {busy:.1f} ms of a {span:.1f} ms "
+          f"span (idle share {idle:.4f}) [{smi}]")
+    kernels = top_device_ops(events)
+    print(f"{arch} train step, device time by operation (top of "
+          f"{busy:.1f} ms): " + "; ".join(f"{n} {ms:.1f} ms x{c}"
+                                          for n, ms, c in kernels))
+    batch = loader.batch_at(TRAIN_STEPS + 1)
+
+    def grads_only():
+        TS.loss_and_grads(cfg, box["state"].params, batch)
+
+    def whole_step():
+        box["state"], m = step(box["state"], batch)
+        float(m["loss"])
+    grads_ms, step_ms = min_ms(grads_only), min_ms(whole_step)
+    print(f"{arch} train step phases (host clock, the best of two): "
+          f"autograd (forward, remat recompute, backward) {grads_ms:.1f} ms "
+          f"of the step's {step_ms:.1f} ms; the clip and the optimizer "
+          f"{step_ms - grads_ms:.1f} ms [{smi}]")
+    del box
+    peak = torch.cuda.max_memory_allocated() / 2**30 if card else float("nan")
+    print(f"{arch} train: peak device memory {peak:.2f} GiB [{smi}]")
+    out.update(layers=cfg.num_layers, losses=losses, step_ms=step_s * 1e3,
+               bound_ms=bound_ms, flop_ms=flop_ms, opt_byte_ms=byte_ms,
+               tokens_per_s=toks_s, six_nt_util=util,
+               host_syncs_per_step=len(waits),
+               syncs_in_step_range=len(inside), idle_share=idle,
+               busy_ms=busy, span_ms=span, device_records=n_dev,
+               peak_gib=peak, params=costs["params"], grads_ms=grads_ms,
+               optimizer_ms=step_ms - grads_ms, top_device_ops=kernels,
+               active_params=costs["active"], tokens=costs["tokens"])
+    if card:
+        torch.cuda.empty_cache()
+
+    if arch == TRAIN_ARCHS[-1]:
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = pathlib.Path(tmp)
+            kw = dict(TRAIN_RESUME, device=dev, seed=args.seed)
+            _, whole = TR.train(arch, ckpt_dir=tmp / "whole", **kw)
+            try:
+                TR.train(arch, ckpt_dir=tmp / "cut", simulate_failure_at=5,
+                         **kw)
+                require(False, f"{arch}: the simulated failure did not fire")
+            except TR.SimulatedFailure:
+                pass
+            _, resumed = TR.train(arch, ckpt_dir=tmp / "cut", **kw)
+        same = whole[3:] == resumed
+        print(f"{arch} kill and resume at the smoke size: {len(whole)} "
+              f"steps; killed after step 5, resumed from the step-3 "
+              f"checkpoint; the resumed losses "
+              f"{'equal' if same else 'DIFFER FROM'} the uninterrupted "
+              f"run's bit for bit ({resumed[:3]}...)")
+        require(same, f"{arch}: resumed losses {resumed} != {whole[3:]}")
+        out["resume_bit_identical"] = same
+    out["wall_s"] = time.perf_counter() - t_leg
+    print(f"{arch} train leg: {out['wall_s']:.1f} s wall [{smi}]")
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -12,6 +12,11 @@ only after the npz and the manifest are flushed; a crash mid-write leaves
 the previous checkpoint untouched, and a half-written step is ignored.
 A checkpoint holds global values (the sharded driver's rank 0 writes the
 gathered arrays), so it restores onto any number of ranks.
+
+A tree is any ``repro_torch.tree``: nested dicts, lists, tuples and
+NamedTuples (a ``TrainState`` with its optimizer state); a leaf's npz key
+is its path joined by ``|``, and ``restore`` walks its template, so lists
+and NamedTuples come back as they went in.
 """
 from __future__ import annotations
 
@@ -23,33 +28,17 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.device import resolve_device
 
 LATEST = "LATEST"
 SEP = "|"  # path-key separator inside the npz
 
 
-def _flatten(tree, prefix: str = "") -> dict:
-    """Nested dicts to {"a|b": leaf} in insertion order."""
-    out = {}
-    for k, v in tree.items():
-        key = f"{prefix}{SEP}{k}" if prefix else str(k)
-        if isinstance(v, dict):
-            out.update(_flatten(v, key))
-        else:
-            out[key] = v
-    return out
-
-
-def _unflatten(flat: dict) -> dict:
-    out: dict = {}
-    for key, v in flat.items():
-        node = out
-        *parents, leaf = key.split(SEP)
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return out
+def _flatten(tree) -> dict:
+    """{"a|0|b": leaf} of every leaf of ``tree``, in ``tree.items`` order."""
+    return {SEP.join(str(k) for k in path): leaf
+            for path, leaf in T.items(tree)}
 
 
 def _numpy(leaf) -> np.ndarray:
@@ -58,9 +47,9 @@ def _numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save(ckpt_dir, step: int, tree: dict, *, keep: int = 3) -> pathlib.Path:
-    """Atomically save the (nested) dict of arrays ``tree`` as step
-    ``step``; prune to the ``keep`` newest steps."""
+def save(ckpt_dir, step: int, tree, *, keep: int = 3) -> pathlib.Path:
+    """Atomically save the tree of arrays ``tree`` as step ``step``; prune
+    to the ``keep`` newest steps."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:012d}"
@@ -107,12 +96,12 @@ def latest_step(ckpt_dir) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir, template: dict, *, step: int | None = None,
-            device="cuda") -> tuple[int, dict]:
-    """Restore into the structure of ``template`` (a nested dict whose
-    leaves have ``.shape`` and ``.dtype``: tensors, or numpy arrays), as
-    torch tensors of the template's dtypes on ``device`` (the card unless
-    the caller asks for the CPU; raises without a card).
+def restore(ckpt_dir, template, *, step: int | None = None,
+            device="cuda"):
+    """Restore into the structure of ``template`` (a tree whose leaves have
+    ``.shape`` and ``.dtype``: tensors — meta tensors too —, or numpy
+    arrays), as torch tensors of the template's dtypes on ``device`` (the
+    card unless the caller asks for the CPU; raises without a card).
 
     Returns (step, tree).  Raises FileNotFoundError without a checkpoint,
     KeyError for a missing leaf and ValueError for a shape mismatch."""
@@ -124,7 +113,7 @@ def restore(ckpt_dir, template: dict, *, step: int | None = None,
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     path = ckpt_dir / f"step_{step:012d}"
     manifest = json.loads((path / "manifest.json").read_text())
-    out = {}
+    out = []
     with np.load(path / "arrays.npz") as data:
         for key, leaf in _flatten(template).items():
             if key not in data:
@@ -136,5 +125,5 @@ def restore(ckpt_dir, template: dict, *, step: int | None = None,
             t = torch.from_numpy(np.array(arr))
             dtype = (leaf.dtype if isinstance(leaf.dtype, torch.dtype)
                      else torch.from_numpy(np.zeros(0, leaf.dtype)).dtype)
-            out[key] = t.to(device=device, dtype=dtype)
-    return manifest["step"], _unflatten(out)
+            out.append(t.to(device=device, dtype=dtype))
+    return manifest["step"], T.unflatten(template, out)

@@ -84,53 +84,25 @@ def slot_arrays_from_numpy(meta_tuple, stacked_numpy, *, device="cuda"):
             rows, order, meta.n_pad))
 
 
-def _lm_leaf_paths(tree, prefix=""):
-    """(path, tensor) of every leaf of a port parameter (sub)tree outside
-    its lists of layers, paths ``/``-joined in the reference's spelling."""
-    for k in sorted(tree):
-        v, path = tree[k], f"{prefix}{k}"
-        if isinstance(v, dict):
-            yield from _lm_leaf_paths(v, path + "/")
-        elif not isinstance(v, list):
-            yield path, v
-
-
 def _lm_layout(cfg):
-    """{reference path: (port leaves it maps to, stacked shape)} for
-    ``cfg``.  A port leaf is (list path, layer, sub-path), list path None
-    for a leaf outside the layer lists.  A ``blocks/l{i}/…`` path carries
-    the group axis and maps to layers i, i + P, i + 2P, … of the port's
-    ``blocks`` list (P = pattern length; an MoE expert leaf keeps its
-    expert axis after the group axis); an ``encoder/blocks/…`` path is
-    stacked over the encoder's layers."""
+    """{reference path: (port paths, stacked shape)} for ``cfg``
+    (``models.model.ref_layout`` with each reference leaf's shape)."""
+    from repro_torch import tree as T
     from repro_torch.models import model as M
     meta = M.init(cfg, device="meta")
-    layout = {path: ([(None, None, path)], tuple(t.shape))
-              for path, t in _lm_leaf_paths(meta)}
-    P = len(cfg.pattern)
-    stacks = [(f"blocks/l{i}/", "blocks", range(i, cfg.num_layers, P))
-              for i in range(P)]
-    if cfg.is_encdec:
-        stacks.append(("encoder/blocks/", "encoder/blocks",
-                       range(cfg.encoder_layers)))
-    for prefix, seq, layers in stacks:
-        for sub, t in _lm_leaf_paths(_get(meta, seq)[layers[0]]):
-            layout[prefix + sub] = ([(seq, layer, sub) for layer in layers],
-                                    (len(layers),) + tuple(t.shape))
-    return layout
+    out = {}
+    for path, (stacked, dests) in M.ref_layout(cfg).items():
+        shape = tuple(T.get(meta, dests[0]).shape)
+        out[path] = (dests if stacked else None, ((len(dests),) + shape
+                                                  if stacked else shape),
+                     dests[0])
+    return out
 
 
 def _put(tree, path, value):
-    *dirs, leaf = path.split("/")
-    for d in dirs:
-        tree = tree.setdefault(d, {})
-    tree[leaf] = value
-
-
-def _get(tree, path):
-    for d in path.split("/"):
-        tree = tree[d]
-    return tree
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {}) if isinstance(k, str) else tree[k]
+    tree[path[-1]] = value
 
 
 def lm_params_from_numpy(cfg, flat, *, device="cuda"):
@@ -152,7 +124,7 @@ def lm_params_from_numpy(cfg, flat, *, device="cuda"):
     if cfg.is_encdec:
         params["encoder"] = {"blocks": [{} for _ in
                                         range(cfg.encoder_layers)]}
-    for path, (dests, shape) in layout.items():
+    for path, (dests, shape, first) in layout.items():
         arr = np.asarray(flat[path])
         if arr.shape != shape:
             raise ValueError(f"{cfg.name}: {path} has shape {arr.shape}, "
@@ -160,11 +132,10 @@ def lm_params_from_numpy(cfg, flat, *, device="cuda"):
         bf16 = arr.dtype.name == "bfloat16"
         t = torch.from_numpy(np.array(arr, np.float32)).to(dev)
         t = t.to(torch.bfloat16) if bf16 else t
-        for group, (seq, layer, sub) in enumerate(dests):
-            if seq is None:
-                _put(params, sub, t)
-            else:
-                _put(_get(params, seq)[layer], sub, t[group])
+        if dests is None:
+            _put(params, first, t)
+        for group, dest in enumerate(dests or ()):
+            _put(params, dest, t[group])
     return params
 
 
@@ -172,11 +143,65 @@ def lm_params_to_numpy(cfg, params):
     """Inverse of ``lm_params_from_numpy``: the reference's flat
     ``/``-joined paths to numpy arrays (float32; bf16 leaves as float32
     arrays of their values), the blocks stacked over groups."""
+    from repro_torch import tree as T
     flat = {}
-    for path, (dests, _) in _lm_layout(cfg).items():
-        ts = [(_get(params, sub) if seq is None
-               else _get(_get(params, seq)[layer], sub))
-              for seq, layer, sub in dests]
-        arrs = [t.detach().float().cpu().numpy() for t in ts]
-        flat[path] = arrs[0] if dests[0][0] is None else np.stack(arrs)
+    for path, (dests, _, first) in _lm_layout(cfg).items():
+        arrs = [T.get(params, d).detach().float().cpu().numpy()
+                for d in (dests or [first])]
+        flat[path] = arrs[0] if dests is None else np.stack(arrs)
+    return flat
+
+
+def _sub(flat, prefix):
+    n = len(prefix)
+    return {k[n:]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
+def train_state_from_numpy(cfg, flat, *, device="cuda"):
+    """The port's ``models.steps.TrainState`` from the reference's, as a
+    flat dict of ``/``-joined paths to numpy arrays: ``params/…``,
+    ``opt/count`` and ``step``, with AdamW's ``opt/mu/…`` and
+    ``opt/nu/…`` (the parameters' paths, carried through the same layout
+    as the parameters) or Adafactor's ``opt/vr/…``, ``opt/vc/…`` and
+    ``opt/v/…`` (kept in the reference's stacked layout, as the port's
+    Adafactor keeps them)."""
+    from repro_torch.models.steps import TrainState
+    from repro_torch.optim.adafactor import AdafactorState
+    from repro_torch.optim.adamw import AdamWState
+    dev = resolve_device(device)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+    params = lm_params_from_numpy(cfg, _sub(flat, "params/"), device=dev)
+    count = i32(flat["opt/count"])
+    if cfg.optimizer == "adafactor":
+        opt = AdafactorState(*[
+            {k: torch.tensor(np.asarray(v, np.float32), device=dev)
+             for k, v in _sub(flat, f"opt/{name}/").items()}
+            for name in ("vr", "vc", "v")], count=count)
+    else:
+        opt = AdamWState(
+            mu=lm_params_from_numpy(cfg, _sub(flat, "opt/mu/"), device=dev),
+            nu=lm_params_from_numpy(cfg, _sub(flat, "opt/nu/"), device=dev),
+            count=count)
+    return TrainState(params=params, opt=opt, step=i32(flat["step"]))
+
+
+def train_state_to_numpy(cfg, state):
+    """Inverse of ``train_state_from_numpy``: the reference's flat paths to
+    numpy arrays."""
+    flat = {f"params/{k}": v
+            for k, v in lm_params_to_numpy(cfg, state.params).items()}
+    opt = state.opt
+    if cfg.optimizer == "adafactor":
+        for name in ("vr", "vc", "v"):
+            for k, v in getattr(opt, name).items():
+                flat[f"opt/{name}/{k}"] = v.detach().cpu().numpy()
+    else:
+        for name in ("mu", "nu"):
+            for k, v in lm_params_to_numpy(cfg, getattr(opt, name)).items():
+                flat[f"opt/{name}/{k}"] = v
+    flat["opt/count"] = opt.count.cpu().numpy()
+    flat["step"] = state.step.cpu().numpy()
     return flat

@@ -1,1 +1,2 @@
-"""The solver service and its slot board (port of ``repro.launch``)."""
+"""Entry points (port of ``repro.launch``): the solver service and its
+slot board, the LM server and the LM trainer."""

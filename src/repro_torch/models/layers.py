@@ -42,10 +42,15 @@ def matmul_f32(a, b):
     for operands in any float dtype: JAX's ``preferred_element_type``
     without the final cast.  bf16/f16 products are exact in float32, so
     upcasting first gives the same sums; on the card a cuBLAS call with a
-    float32 output does it without the copies where PyTorch has one."""
+    float32 output does it without the copies where PyTorch has one, for
+    inference only: that ``bmm`` has no backward, so a product that
+    autograd records takes the float32 copies."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.matmul(a, b)
-    if a.is_cuda and a.dim() == 3 and b.dim() == 3 and _bmm_out_dtype():
+    recorded = torch.is_grad_enabled() and (a.requires_grad
+                                            or b.requires_grad)
+    if a.is_cuda and a.dim() == 3 and b.dim() == 3 and not recorded \
+            and _bmm_out_dtype():
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.matmul(a.float(), b.float())
 

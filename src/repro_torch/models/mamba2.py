@@ -71,6 +71,18 @@ def _causal_conv(x, w, bias, dtype):
     return acc.to(dtype) + bias.to(dtype)
 
 
+def _cumsum(x, dim):
+    """``torch.cumsum`` along ``dim``; on the card, a product with a
+    triangular matrix of ones, as CUDA's floating-point cumsum has no
+    deterministic kernel (``torch.use_deterministic_algorithms`` refuses
+    it, and ``launch.train`` runs with it on)."""
+    if not x.is_cuda:
+        return torch.cumsum(x, dim=dim)
+    n = x.shape[dim]
+    upper = torch.ones(n, n, dtype=x.dtype, device=x.device).triu()
+    return torch.matmul(x.movedim(dim, -1), upper).movedim(-1, dim)
+
+
 def _segsum(x):
     """Stable segment-sum: out[..., i, j] = sum_{j < k <= i} x[..., k]
     (-inf above the diagonal)."""
@@ -78,7 +90,7 @@ def _segsum(x):
     xx = x[..., None].expand(*x.shape, T)                # X[..., i, j] = x_i
     below = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device),
                        diagonal=-1)
-    xs = torch.cumsum(torch.where(below, xx, 0.0), dim=-2)
+    xs = _cumsum(torch.where(below, xx, 0.0), dim=-2)
     on = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
     return torch.where(on, xs, float("-inf"))
 
@@ -100,7 +112,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk, edt=torch.bfloat16):
     Ac = Adt.reshape(b, c, chunk, h).permute(0, 3, 1, 2)  # (b, h, c, l)
     Bc = Bm.to(edt).reshape(b, c, chunk, n)
     Cc = Cm.to(edt).reshape(b, c, chunk, n)
-    A_cum = torch.cumsum(Ac, dim=-1)                     # (b, h, c, l) f32
+    A_cum = _cumsum(Ac, dim=-1)                          # (b, h, c, l) f32
     # 1. intra-chunk (diagonal block) output; the decay matrix, C·Bᵀ and
     # their product in edt, the contraction over s in float32
     Lmat = torch.exp(_segsum(Ac)).to(edt)                # (b, h, c, l, l)

@@ -5,6 +5,7 @@ mixer, the MLP or MoE FFN, and the encoder with cross attention (Whisper).
     init(cfg, generator)                          -> params
     forward(cfg, params, batch)                   -> logits   (train/prefill)
     decode_step(cfg, params, tok, cache, pos)     -> logits, cache (serving)
+    ref_layout(cfg)                               -> reference path -> leaves
 
 Parameters are a dict like the reference's tree, with the decoder blocks as
 a list of per-layer dicts (layer ``g·len(pattern) + i`` is the reference's
@@ -16,6 +17,12 @@ one after another in Python.  The cache is ``{"blocks": [per layer
 ``sharding.py``'s ``shard_btd``/``shard_btv`` activation constraints do
 nothing without a mesh, and this port runs on one card, so they are left
 out; ``sharding.py`` waits for the multi-card slice.
+
+Remat: with ``cfg.remat`` and autograd recording, ``forward`` runs each
+group of ``len(cfg.pattern)`` decoder layers (and each encoder layer)
+under ``torch.utils.checkpoint`` — the reference's ``jax.checkpoint`` of
+its scanned group body — so a backward keeps only each group's input and
+recomputes the rest; the values are the same bits either way.
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as T
 from repro_torch.device import exact_lm_matmul
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -122,13 +131,32 @@ def jamba_pattern():
         for i in range(8))
 
 
-def leaves(tree):
-    """The tensors of a parameter or cache tree, in a fixed order."""
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for x in tree for t in leaves(x)]
-    return [] if tree is None else [tree]
+leaves = T.leaves     # the tensors of a parameter or cache tree, in order
+
+
+def ref_layout(cfg: ModelConfig) -> dict:
+    """{reference path: (stacked, port paths)} of every parameter of
+    ``cfg``: the reference's ``/``-joined leaf path (``embed``,
+    ``blocks/l0/attn/wq``, ``encoder/blocks/mlp/wi``, …), whether the
+    reference stacks it over a leading axis, and the paths (``tree``
+    paths) of the port leaves it holds, in the order of that axis.  A
+    ``blocks/l{i}/…`` leaf stacks layers i, i + P, i + 2P, … of the port's
+    ``blocks`` list (P = pattern length) over the reference's group axis;
+    an ``encoder/blocks/…`` leaf stacks the encoder's layers."""
+    meta = init(cfg, device="meta")
+    out = {"/".join(path): (False, [path]) for path, _ in T.items(meta)
+           if not any(isinstance(k, int) for k in path)}
+    P = len(cfg.pattern)
+    stacks = [(f"blocks/l{i}/", ("blocks",), range(i, cfg.num_layers, P))
+              for i in range(P)]
+    if cfg.is_encdec:
+        stacks.append(("encoder/blocks/", ("encoder", "blocks"),
+                       range(cfg.encoder_layers)))
+    for prefix, seq, layers in stacks:
+        for sub, _ in T.items(T.get(meta, seq)[layers[0]]):
+            out[prefix + "/".join(sub)] = (
+                True, [seq + (layer,) + sub for layer in layers])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -284,14 +312,27 @@ def _encode(cfg, params, enc_frames):
     h = h + L.sinusoidal_positions(s, cfg.d_model,
                                    device=h.device).to(dtype)[None]
     positions = torch.arange(s, device=h.device).expand(b, s)
-    for p in params["encoder"]["blocks"]:
+
+    def body(h, p):
         x = L.norm_apply(cfg.norm, p["pre_norm"], h)
         out, _ = attn.gqa_apply(p["attn"], x, cfg, positions, dtype,
                                 causal=False, use_rope=False)
         h = h + out
         x = L.norm_apply(cfg.norm, p["post_norm"], h)
-        h = h + L.mlp_apply(p["mlp"], x, cfg.activation, dtype)
+        return h + L.mlp_apply(p["mlp"], x, cfg.activation, dtype)
+
+    for p in params["encoder"]["blocks"]:
+        h = _remat(cfg, body, h, p)
     return L.norm_apply(cfg.norm, params["encoder"]["norm"], h)
+
+
+def _remat(cfg, fn, h, *args):
+    """``fn(h, *args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    and autograd is recording (a backward then recomputes ``fn`` from
+    ``h``), as the reference's ``jax.checkpoint``."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, h, *args, use_reentrant=False)
+    return fn(h, *args)
 
 
 def _head(cfg, params, h, dtype):
@@ -342,17 +383,28 @@ def forward(cfg: ModelConfig, params, batch, *, make_cache_len: int = 0,
                else None)
     prefill = make_cache_len > 0
     caches = []
-    for layer, p in enumerate(params["blocks"]):
-        spec = _spec(cfg, layer)
-        cache_in = pos = None
-        if prefill:
-            pos = 0
+    if prefill:
+        for layer, p in enumerate(params["blocks"]):
+            spec = _spec(cfg, layer)
             cache_in = ({"kv": _kv_cache_init(cfg, b, make_cache_len, dev)}
                         if spec.mixer == "attn" else {"ssm": None})
-        h, c = _apply_layer(cfg, spec, p, h, positions, dtype,
-                            cache=cache_in, pos=pos, enc_out=enc_out,
-                            positions3=positions3, rope=rope)
-        caches.append(c)
+            h, c = _apply_layer(cfg, spec, p, h, positions, dtype,
+                                cache=cache_in, pos=0, enc_out=enc_out,
+                                positions3=positions3, rope=rope)
+            caches.append(c)
+    else:
+        P = len(cfg.pattern)
+
+        def group(h, first):
+            for layer in range(first, first + P):
+                h, _ = _apply_layer(cfg, _spec(cfg, layer),
+                                    params["blocks"][layer], h, positions,
+                                    dtype, enc_out=enc_out,
+                                    positions3=positions3, rope=rope)
+            return h
+
+        for first in range(0, cfg.num_layers, P):
+            h = _remat(cfg, group, h, first)
     logits, h = _head(cfg, params, h, dtype)
     if return_hidden:
         return logits, h

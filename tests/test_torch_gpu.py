@@ -1680,3 +1680,143 @@ def test_lm_served_repeat_gives_equal_tokens(cuda, arch):
                      max_evictions=10, params=params, device=cuda)
         runs.append({r.rid: r.out for r in reqs})
     assert runs[0] == runs[1] and sorted(runs[0]) == list(range(4))
+
+
+# ---------------------------------------------------------------------------
+# The LM training path
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, dev, rows=2, seq=16, seed=3):
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.launch import train as ttrain
+    batch = TokenLoader(LoaderConfig(cfg.vocab_size, rows, seq, seed=seed),
+                        device=dev).batch_at(0)
+    if cfg.is_encdec:
+        batch["enc_frames"] = ttrain.enc_frames(cfg, rows, seed, 0, dev)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m",
+                                  "mamba2-2.7b", "whisper-large-v3",
+                                  "qwen1.5-110b"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """One smoke-size train step (the config's optimizer) on the card
+    against the CPU from the same state and batch: loss, grad norm and
+    every grad leaf within 1e-4 of its largest magnitude (loss and norm
+    rel 1e-5); after the step, the parameters and first moments within
+    1e-4, the statistics of squared grads within 2e-4, of the CPU's
+    optimizer applied to the card's grads (its own grads would move an
+    element whose grad is near zero by up to lr: the first step divides
+    each grad by statistics of its own size)."""
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as TM
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import adafactor, adamw
+    cfg = ARCHS[arch].smoke_config()
+    lr = 1e-3
+    state = TS.init_train_state(cfg, torch.Generator().manual_seed(4))
+    card = T.map_tree(lambda x: x.to(cuda, copy=True), state)
+    batch = _train_batch(cfg, "cpu")
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    _, gc = TS.loss_and_grads(cfg, card.params, cbatch)
+    lh, gh = TS.loss_and_grads(cfg, state.params, batch)
+    gc = [g.cpu() for g in gc]
+    for a, b in zip(gc, gh):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    card, mc = TS.make_train_step(cfg, lr=lr)(card, cbatch)
+    torch.testing.assert_close(mc["loss"].cpu(), lh, rtol=1e-5, atol=0)
+    torch.testing.assert_close(mc["grad_norm"].cpu(), adamw.global_norm(gh),
+                               rtol=1e-5, atol=0)
+    if cfg.optimizer == "adafactor":
+        opt, _ = adafactor.apply(
+            gc, state.opt, T.leaves(state.params), lr,
+            groups=adafactor.layout(state.params, TM.ref_layout(cfg)))
+    else:
+        opt, _ = adamw.apply(gc, state.opt, T.leaves(state.params), lr)
+    for name in opt._fields[:-1]:
+        tol = 1e-4 if name == "mu" else 2e-4
+        for a, b in zip(T.leaves(getattr(card.opt, name)),
+                        T.leaves(getattr(opt, name))):
+            assert float((a.cpu() - b).abs().max()) <= tol * float(
+                b.abs().max()), name
+    for a, b in zip(T.leaves(card.params), T.leaves(state.params)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    assert int(card.step) == int(opt.count) == 1
+
+
+def test_lm_train_runs_are_deterministic_on_card(cuda, tmp_path):
+    """Two equal smoke-size runs of ``train`` (MoE, so the embedding's and
+    the gather's backward take the deterministic kernels) give the same
+    losses and the same final state bit for bit, and a killed run resumes
+    onto them."""
+    from repro_torch import tree as T
+    from repro_torch.launch import train as ttrain
+    kw = dict(smoke=True, steps=6, batch=2, seq=16, lr=1e-3, save_every=2,
+              log_every=100, device=cuda)
+    arch = "granite-moe-1b-a400m"
+    s1, l1 = ttrain.train(arch, ckpt_dir=tmp_path / "a", **kw)
+    s2, l2 = ttrain.train(arch, ckpt_dir=tmp_path / "b", **kw)
+    assert l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(s1),
+                                                 T.leaves(s2)))
+    with pytest.raises(ttrain.SimulatedFailure):
+        ttrain.train(arch, ckpt_dir=tmp_path / "c", simulate_failure_at=3,
+                     **kw)
+    _, l3 = ttrain.train(arch, ckpt_dir=tmp_path / "c", **kw)
+    assert l3 == l1[2:]
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m",
+                                  "mamba2-2.7b"])
+def test_lm_train_step_makes_no_host_sync(cuda, arch):
+    """Inside ``steps.STEP_RANGE`` (autograd through the model, the clip
+    and the optimizer, with deterministic algorithms on, as ``train`` runs
+    it) nothing waits on the card and nothing is copied from it."""
+    import os
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import schedule
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = ARCHS[arch].smoke_config()
+    box = {"state": TS.init_train_state(cfg, torch.Generator(
+        cuda).manual_seed(0))}
+    step = TS.make_train_step(cfg, lr=schedule.warmup_cosine(1e-3, 2, 10))
+    batch = _train_batch(cfg, cuda)
+
+    def run():
+        box["state"], box["m"] = step(box["state"], batch)
+    torch.use_deterministic_algorithms(True)
+    try:
+        waits, n_ranges, dtoh = _host_waits(run, TS.STEP_RANGE)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert (waits, n_ranges, dtoh) == ([], 1, [])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m",
+                                  "mamba2-2.7b", "whisper-large-v3"])
+def test_lm_remat_is_bit_identical_on_card(cuda, arch):
+    """Per-group remat on the card, in bf16 with deterministic algorithms
+    (as ``train`` runs): the loss and every grad of the run without it,
+    bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import steps as TS
+    cfg = dataclasses.replace(ARCHS[arch].smoke_config(),
+                              compute_dtype=torch.bfloat16)
+    params = TS.init_train_state(cfg, torch.Generator(cuda).manual_seed(
+        2)).params
+    batch = _train_batch(cfg, cuda)
+    runs = []
+    with ttrain.deterministic(cuda):
+        for remat in (False, True):
+            loss, grads = TS.loss_and_grads(
+                dataclasses.replace(cfg, remat=remat), params, batch)
+            runs.append([loss, *grads])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
