@@ -74,7 +74,24 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           idle share, host syncs a step, peak memory); Granite-MoE-1B the
           same (its MoE capacity path backward at 2048 tokens), then a
           kill and resume at the smoke size whose losses must equal the
-          uninterrupted run's bit for bit.
+          uninterrupted run's bit for bit;
+  shard   last, the LM sharding layer (``repro_torch.models.sharding``,
+          ``launch/mesh.py``, ``specs.py``, ``dryrun.py``; torch code, no
+          kernel of its own), one child a part (``--leg shard --part
+          P``): the dry-run of five cells on a fake process group of 256
+          ranks (16 x 16) — Qwen3-4B train_4k, prefill_32k, decode_32k,
+          Phi-3.5-MoE train_4k, Jamba-1.5-Large long_500k — their
+          roofline terms on the H100's data sheet and rank 0's memory, the
+          argument bytes held to the specs'; Qwen3-4B at full width and
+          depth on one NCCL rank with every leaf a DTensor, served (a
+          512-token prefill, 8 decode steps at 8 slots x 2048) in float32
+          and bf16, its first grads held leaf by leaf, and trained 3
+          steps, against the plain tensors on the card; Granite-MoE-1B at full width and depth on four gloo ranks
+          sharing the card as a (data=2, model=2) mesh, after a probe of
+          each collective DTensor issues on card tensors under gloo (a
+          missing one puts the ranks on CPU tensors, said in the output),
+          held in float32 against the one-rank plain run on the card and
+          timed in bf16.
 
 The two-kernel pair #3/#4 is timed on three clocks (events, the
 profiler's counted records, events behind a spin) beside cuBLAS on a
@@ -96,6 +113,7 @@ card's name and power limit as nvidia-smi reports them, and as the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import math
@@ -215,6 +233,27 @@ TRAIN_RESUME = dict(smoke=True, steps=9, batch=2, seq=16, lr=1e-3,
                     save_every=3, log_every=100)
 TRAIN_RANGE = "chip_smoke.train_step"   # one training step, profiled
 CUBLAS_CONFIG = ":4096:8"
+# Shard leg, last, one child a part (``--leg shard --part P``): the dry-run
+# cells measured on a fake process group of 256 ranks (16 x 16); Qwen3-4B
+# on one NCCL rank with every leaf a DTensor (slots, positions a slot, the
+# prefill's tokens, decode steps; train rows, tokens a row, steps); and
+# Granite-MoE-1B on four gloo ranks sharing the card as a (data=2,
+# model=2) mesh (its slots, prefill tokens, decode steps; one train step
+# of the train rows and tokens), held to SH4_TOL of each leaf's largest
+# against the one-rank plain run on the card in float32.  The functional
+# collectives DTensor issues, each probed on card tensors under gloo.
+SHARD_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "prefill_32k"),
+               ("qwen3-4b", "decode_32k"), ("phi3.5-moe-42b-a6.6b",
+                                            "train_4k"),
+               ("jamba-1.5-large-398b", "long_500k"))
+SHARD_PARTS = ("dryrun", "one", "four")
+SH1_SLOTS, SH1_MAX_LEN, SH1_PROMPT, SH1_DECODE = 8, 2048, 512, 8
+SH1_TRAIN_ROWS, SH1_TRAIN_SEQ, SH1_TRAIN_STEPS = 4, 512, 3
+SH1_F32_TOL, SH1_BF16_TOL = 1e-5, 2e-2
+SH4_ARCH, SH4_SLOTS, SH4_PROMPT, SH4_DECODE = "granite-moe-1b-a400m", 4, 256, 8
+SH4_TRAIN_ROWS, SH4_TRAIN_SEQ, SH4_TOL = 4, 512, 1e-4
+SH4_COLLECTIVES = ("reduce_scatter_tensor", "all_reduce",
+                   "all_to_all_single", "broadcast", "all_gather_into_tensor")
 # Host syncs (none may fall inside an unguarded scalar solve's rounds or a
 # baseline's iterations) are counted from the lint's one list,
 # ``repro_torch.analyze.trace_checks.SYNC_CALLS`` and any ``*Synchronize``
@@ -439,12 +478,14 @@ def queued_ms(fn, iters: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--leg", choices=["lm", "train"], default=None,
+    ap.add_argument("--leg", choices=["lm", "train", "shard"], default=None,
                     help="run only this leg (no build) and print its JSON")
     ap.add_argument("--arch", choices=LM_FAMILIES, default=LM_ARCH,
                     help="with --leg lm or train: the model to run")
+    ap.add_argument("--part", choices=SHARD_PARTS, default="dryrun",
+                    help="with --leg shard: the part to run")
     args = ap.parse_args()
-    if args.leg == "train":
+    if args.leg in ("train", "shard"):
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_CONFIG)
 
     if not torch.cuda.is_available():
@@ -460,6 +501,9 @@ def main() -> int:
         return 0
     if args.leg == "train":
         print(json.dumps(train_leg(args)))
+        return 0
+    if args.leg == "shard":
+        print(json.dumps(SHARD_PART[args.part](args)))
         return 0
     from repro_torch.kernels import _build
 
@@ -516,11 +560,13 @@ def main() -> int:
     release_card("the LM legs")
     lm_json = lm_leg_child(args)
     train_json = train_leg_child(args)
+    shard_json = shard_leg_child(args)
 
     # ---- report -----------------------------------------------------------
     print(json.dumps({**lint_json, **dense_json, **sparse_json,
                       **sharded_json, **serve_json, **scalar_json,
-                      **baselines_json, **lm_json, **train_json}))
+                      **baselines_json, **lm_json, **train_json,
+                      **shard_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": dense_kernels + sparse_kernels
                       + sharded_kernels + serve_kernels}))
@@ -3830,6 +3876,649 @@ def _train_leg(arch, args, dev, card, smi, t_leg) -> dict:
     out["wall_s"] = time.perf_counter() - t_leg
     print(f"{arch} train leg: {out['wall_s']:.1f} s wall [{smi}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# shard leg: the LM sharding layer (models/sharding.py, launch/mesh.py,
+# launch/specs.py, launch/dryrun.py; torch code, no kernel of its own)
+# ---------------------------------------------------------------------------
+
+def shard_leg_child(args) -> dict:
+    """The shard leg, one child process a part of ``SHARD_PARTS``
+    (``chip_smoke.py --leg shard --part P``), with cuBLAS's deterministic
+    workspace in its environment: the dry-run beside the one-rank part,
+    then the four ranks.  Echoes each child's lines, raises (stopping the
+    others) if one failed, returns {"shard": {part: its JSON}}."""
+    script = str(pathlib.Path(__file__).resolve())
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_CONFIG)
+    found, t_leg = {}, time.perf_counter()
+
+    def start(part):
+        return part, time.perf_counter(), subprocess.Popen(
+            [sys.executable, script, "--leg", "shard", "--part", part,
+             "--seed", str(args.seed)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env)
+
+    # the dry-run (host only) beside the one-rank part (the card); the
+    # four ranks, which take every host core, after them
+    for group in ((SHARD_PARTS[0], SHARD_PARTS[1]), (SHARD_PARTS[2],)):
+        runs = [start(part) for part in group]
+        try:
+            for part, t0, proc in runs:
+                stdout, stderr = proc.communicate(timeout=900)
+                lines = stdout.splitlines()
+                for ln in lines[:-1]:
+                    print(f"shard {part}: {ln}")
+                require(proc.returncode == 0 and lines, f"shard {part}: "
+                        f"exit {proc.returncode}: {stderr[-3000:]}")
+                found[part] = json.loads(lines[-1])
+                found[part]["wall_s"] = time.perf_counter() - t0
+        finally:
+            for _, _, proc in runs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    parts = ", ".join(f"{p} {found[p]['wall_s']:.1f} s" for p in SHARD_PARTS)
+    print(f"shard leg: {time.perf_counter() - t_leg:.1f} s wall ({parts})")
+    return {"shard": found}
+
+
+def _gib(n) -> str:
+    return f"{n / 2**30:.3f} GiB"
+
+
+def shard_dryrun(args) -> dict:
+    """Part a: ``launch.dryrun.measure_cell`` of each of ``SHARD_CELLS``
+    on the single mesh (a fake process group of 256 ranks, 16 x 16), its
+    tensors fake ones of the card's device type: the three roofline terms
+    on the H100's data sheet, the bottleneck and rank 0's memory; each
+    cell's status must be "ok" and its argument bytes the count its specs
+    give."""
+    from repro_torch.launch import dryrun as D
+    smi = nvidia_smi_line() if DEVICE == "cuda" else "cpu"
+    print(f"dry-run terms on the H100 SXM data sheet: "
+          f"{D.PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, {D.HBM_BW / 1e12:.2f} "
+          f"TB/s HBM3, {D.LINK_BW / 1e9:.0f} GB/s of NVLink a direction; "
+          f"fake tensors of device type {DEVICE} [{smi}]")
+    out = {}
+    for arch, shape in SHARD_CELLS:
+        t0 = time.perf_counter()
+        rec = D.measure_cell(arch, shape, "single", tag="smoke", force=True,
+                             device=DEVICE)
+        wall = time.perf_counter() - t0
+        require(rec["status"] == "ok", f"dry-run {arch} {shape}: "
+                f"{rec.get('error')}\n{rec.get('traceback', '')[-3000:]}")
+        mem, t = rec["memory"], rec["terms"]
+        require(mem["argument_bytes"] == mem["argument_bytes_from_specs"],
+                f"dry-run {arch} {shape}: argument bytes "
+                f"{mem['argument_bytes']} != the specs' "
+                f"{mem['argument_bytes_from_specs']}")
+        coll = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
+                         sorted(rec["collectives"].items()))
+        print(f"dry-run {arch} {shape}, 16 x 16 fake ranks: compute "
+              f"{t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, "
+              f"collective {t['collective_s']:.4e} s -> {rec['bottleneck']}; "
+              f"rank 0: {rec['hlo_flops_per_device']:.4e} FLOP, "
+              f"{rec['hlo_bytes_per_device']:.4e} bytes (eager, unfused), "
+              f"collectives {coll or 'none'}; memory: arguments "
+              f"{_gib(mem['argument_bytes'])} (= the specs' count), outputs "
+              f"{_gib(mem['output_bytes'])}, temporaries at peak "
+              f"{_gib(mem['temp_bytes'])}; model FLOP a rank "
+              f"{rec['model_flops_per_device']:.4e} (useful share "
+              f"{rec['useful_flops_ratio']:.4f}); {wall:.1f} s [{smi}]")
+        out[f"{arch}/{shape}"] = {
+            k: rec[k] for k in ("terms", "bottleneck", "memory",
+                                "collectives", "hlo_flops_per_device",
+                                "hlo_bytes_per_device", "useful_flops_ratio",
+                                "model_flops_per_device", "num_groups")}
+        out[f"{arch}/{shape}"]["wall_s"] = wall
+    return out
+
+
+def _full(x):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _serve_logits(cfg, params, toks, prompt, steps, max_len, dev, slot_pos,
+                  cost=None):
+    """A ``prompt``-token prefill of ``toks``' rows into ``max_len``
+    positions, then ``steps`` per-slot decode steps on the tokens after it
+    (slot i at position prompt + t - slot_pos[i]): (the last prefill
+    position's logits and each step's, float32 on the CPU; prefill ms;
+    decode ms a step, the median of the steps after the first).  A
+    ``cost`` (``launch.dryrun.StepCost``) counts the first decode step."""
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    b = toks.shape[0]
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = M.forward(cfg, params, {"tokens": toks[:, :prompt]},
+                                  make_cache_len=max_len)
+        sync()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        outs, ms = [_full(logits[:, -1]).float().cpu()], []
+        back = torch.tensor(slot_pos, device=dev)[:b, None]
+        for t in range(steps):
+            pos = prompt + t - back
+            tok = toks[:, prompt + t:prompt + t + 1]
+            if SH.is_sharded(toks):
+                pos = SH.distribute(pos, SH.P(SH.axis("batch", b), None),
+                                    toks.device_mesh)
+            sync()
+            t0 = time.perf_counter()
+            with (cost if cost is not None and t == 0
+                  else contextlib.nullcontext()):
+                lg, cache = M.decode_step(cfg, params, tok, cache, pos)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(_full(lg[:, -1]).float().cpu())
+    return outs, pre_ms, statistics.median(ms[1:] if len(ms) > 1 else ms)
+
+
+def _place_leafwise(tree, specs, mesh):
+    """``sharding.distribute_tree`` one leaf at a time, each placed leaf
+    written over the plain one in its dict or list (so that the plain
+    leaf goes at once: a full-width train state does not fit twice on
+    the card)."""
+    from repro_torch import tree as T
+    from repro_torch.models import sharding as SH
+    out = []
+    paths = [path for path, _ in T.items(tree)]
+    for path, sp in zip(paths, T.leaves(specs)):
+        leaf = T.get(tree, path)
+        placed = SH.distribute(leaf, sp, mesh)
+        parent = T.get(tree, path[:-1])
+        if isinstance(parent, (dict, list)):
+            parent[path[-1]] = placed
+        del leaf
+        out.append(placed)
+    return T.unflatten(tree, out)
+
+
+def shard_one(args) -> dict:
+    """Part b: Qwen3-4B at full width and depth on one NCCL rank, a (1, 1)
+    mesh, every parameter, state, batch and cache leaf a DTensor placed
+    by the rules, against the same model with plain tensors on the card:
+    a ``SH1_PROMPT``-token prefill of ``SH1_SLOTS`` rows into
+    ``SH1_MAX_LEN`` positions and ``SH1_DECODE`` per-slot decode steps in
+    float32 and in bf16 (logits to ``SH1_F32_TOL`` / ``SH1_BF16_TOL`` of
+    their largest), the decode ms a step beside the plain one's; the
+    grads of the first batch of ``SH1_TRAIN_ROWS`` x ``SH1_TRAIN_SEQ``
+    loader tokens at the config's dtypes (bf16 compute) with deterministic
+    algorithms, every leaf to the bf16 tolerance of its largest; then
+    ``SH1_TRAIN_STEPS`` train steps (float32 state), the losses and the
+    first step's grad norm to the bf16 tolerance (the later norms and the
+    parameters reported).  Says whether each is bit for bit."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.dist import ranks
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import steps as TS
+
+    dev = torch.device(DEVICE)
+    card = dev.type == "cuda"
+    smi = nvidia_smi_line() if card else "cpu"
+    base = ARCHS[LM_ARCH].smoke_config() if LM_SMOKE else \
+        ARCHS[LM_ARCH].CONFIG
+    pol, out = SH.ShardingPolicy(), {}
+    backend = ONE_RANK_BACKEND if card else "gloo"
+    with ranks.one_rank(backend):
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        toks = torch.randint(0, base.vocab_size,
+                             (SH1_SLOTS, SH1_PROMPT + SH1_DECODE),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(args.seed), device=dev)
+        stagger = [3 * i for i in range(SH1_SLOTS)]
+        for tag, dtype, tol in (("f32", torch.float32, SH1_F32_TOL),
+                                ("bf16", torch.bfloat16, SH1_BF16_TOL)):
+            cfg = dataclasses.replace(base, compute_dtype=dtype,
+                                      cache_dtype=dtype)
+            params = M.init(cfg, torch.Generator(device=dev).manual_seed(
+                args.seed + 1), weight_dtype=dtype)
+            kw = dict(prompt=SH1_PROMPT, steps=SH1_DECODE,
+                      max_len=SH1_MAX_LEN, dev=dev, slot_pos=stagger)
+            plain, pre_p, dec_p = _serve_logits(cfg, params, toks, **kw)
+            dp = _place_leafwise(params, SH.param_specs(params, mesh, pol),
+                                 mesh)
+            del params
+            with SH.activation_axes(mesh, pol):
+                dtoks = SH.distribute(toks, SH.P("data", None), mesh)
+                got, pre_d, dec_d = _serve_logits(cfg, dp, dtoks, **kw)
+            del dp
+            if card:
+                torch.cuda.empty_cache()
+            err = max(_rel(g, w) for g, w in zip(got, plain))
+            same = all(torch.equal(g, w) for g, w in zip(got, plain))
+            require(err <= tol, f"shard one {tag}: logits {err:.3e} > {tol}")
+            print(f"{LM_ARCH} serve on one {backend} rank, (1, 1) mesh, "
+                  f"{tag}, {base.num_layers} layers, d_model "
+                  f"{base.d_model}, {SH1_SLOTS} slots x {SH1_MAX_LEN}: "
+                  f"DTensor vs plain logits (prefill's last position and "
+                  f"{SH1_DECODE} per-slot decode steps) {err:.3e} of the "
+                  f"largest (tolerance {tol}), "
+                  f"{'bit for bit' if same else 'not bit for bit'}; prefill "
+                  f"of {SH1_PROMPT} tokens {pre_d:.1f} ms (plain "
+                  f"{pre_p:.1f}); decode {dec_d:.3f} ms a step (plain "
+                  f"{dec_p:.3f}, x{dec_d / dec_p:.2f}) [{smi}]")
+            out[f"serve_{tag}"] = dict(rel_err=err, bit_for_bit=same,
+                                       prefill_ms=pre_d, prefill_plain_ms=pre_p,
+                                       decode_ms=dec_d, decode_plain_ms=dec_p)
+        loader = TokenLoader(LoaderConfig(base.vocab_size, SH1_TRAIN_ROWS,
+                                          SH1_TRAIN_SEQ, seed=args.seed),
+                             device=dev)
+        # the first step's grads leaf by leaf (the parameters alone, no
+        # optimizer state: both sets of grads fit on the card beside them)
+        batch = loader.batch_at(0)
+        with TR.deterministic(dev):
+            params = M.init(base, torch.Generator(device=dev).manual_seed(
+                args.seed + 2))
+            loss_p, want = TS.loss_and_grads(base, params, batch)
+            dp = _place_leafwise(params, SH.param_specs(params, mesh, pol),
+                                 mesh)
+            del params
+            with SH.activation_axes(mesh, pol):
+                loss_d, got = TS.loss_and_grads(base, dp, SH.distribute_tree(
+                    batch, SH.batch_specs(batch, mesh, pol), mesh))
+            del dp
+            grad_err, grad_same = 0.0, torch.equal(_full(loss_d), loss_p)
+            for g, w in zip(got, want):
+                g = _full(g)
+                scale = float(w.abs().max())
+                err = float((g - w).abs().max())
+                grad_err = max(grad_err, err / scale if scale > 0 else err)
+                grad_same = grad_same and torch.equal(g, w)
+            del got, want, g, w
+        if card:
+            torch.cuda.empty_cache()
+        require(grad_err <= SH1_BF16_TOL,
+                f"shard one grads: {grad_err:.3e} > {SH1_BF16_TOL}")
+        print(f"{LM_ARCH} grads on one {backend} rank, DTensor vs plain, "
+              f"{SH1_TRAIN_ROWS} x {SH1_TRAIN_SEQ} tokens, "
+              f"{str(base.compute_dtype).split('.')[-1]} compute, "
+              f"deterministic: every leaf's grad {grad_err:.3e} of its "
+              f"largest (tolerance {SH1_BF16_TOL}), loss "
+              f"{float(_full(loss_d)):.6f} (plain {float(loss_p):.6f}), "
+              f"{'bit for bit' if grad_same else 'not bit for bit'} [{smi}]")
+        out["grads"] = dict(rel_err=grad_err, bit_for_bit=grad_same)
+        step = TS.make_train_step(base, lr=TRAIN_LR)
+        runs = {}
+        with TR.deterministic(dev):
+            for sharded in (False, True):
+                state = TS.init_train_state(base, torch.Generator(
+                    device=dev).manual_seed(args.seed + 2))
+                if sharded:
+                    specs = SH.train_state_specs(
+                        state, SH.param_specs(state.params, mesh, pol), mesh)
+                    state = _place_leafwise(state, specs, mesh)
+                ctx = (SH.activation_axes(mesh, pol) if sharded
+                       else contextlib.nullcontext())
+                losses, norms, ms = [], [], []
+                with ctx:
+                    for i in range(SH1_TRAIN_STEPS):
+                        batch = loader.batch_at(i)
+                        if sharded:
+                            batch = SH.distribute_tree(batch, SH.batch_specs(
+                                batch, mesh, pol), mesh)
+                        t0 = time.perf_counter()
+                        state, m = step(state, batch)
+                        losses.append(float(_full(m["loss"])))
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                        norms.append(float(_full(m["grad_norm"])))
+                runs[sharded] = dict(losses=losses, norms=norms, ms=ms)
+                if not sharded:     # the plain parameters kept on the host
+                    plain = [p.to("cpu", copy=True)
+                             for p in T.leaves(state.params)]
+                else:               # each placed one against them in turn
+                    param_err, param_same = 0.0, True
+                    for p, w in zip(T.leaves(state.params), plain):
+                        p = _full(p).cpu()
+                        param_err = max(param_err, _rel(p, w))
+                        param_same = param_same and torch.equal(p, w)
+                    del plain, p, w
+                del state
+                if card:
+                    torch.cuda.empty_cache()
+        a, b = runs[True], runs[False]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                           b["losses"]))
+        norm_errs = [abs(x - y) / abs(y) for x, y in zip(a["norms"],
+                                                         b["norms"])]
+        norm_err = norm_errs[0]
+        same = a["losses"] == b["losses"] and param_same
+        # the parameters, and the grad norms after the first step, are
+        # reported, not held: where the two runs' rounding differs, Adam
+        # divides each grad by statistics of its own size, so an element
+        # whose grad is near zero moves by up to lr a step on either side,
+        # and the next grads follow
+        require(max(loss_err, norm_err) <= SH1_BF16_TOL,
+                f"shard one train: loss {loss_err:.3e}, grad norm "
+                f"{norm_err:.3e}")
+        print(f"{LM_ARCH} train on one {backend} rank, DTensor vs plain, "
+              f"{SH1_TRAIN_STEPS} steps of {SH1_TRAIN_ROWS} x "
+              f"{SH1_TRAIN_SEQ} tokens, {base.optimizer}, "
+              f"{str(base.compute_dtype).split('.')[-1]} compute, "
+              f"deterministic: losses {a['losses']} (plain {b['losses']}), "
+              f"rel {loss_err:.3e}; grad norms {a['norms']} (plain "
+              f"{b['norms']}), rel " + ", ".join(f"{e:.3e}" for e in
+                                                 norm_errs) + "; "
+              f"parameters after them {param_err:.3e} of each leaf's "
+              f"largest (reported); "
+              f"{'bit for bit' if same else 'not bit for bit'}; "
+              f"step {statistics.median(a['ms'][1:]):.1f} ms (plain "
+              f"{statistics.median(b['ms'][1:]):.1f}) [{smi}]")
+        out["train"] = dict(losses=a["losses"], plain_losses=b["losses"],
+                            loss_rel=loss_err, grad_norm_rel=norm_errs,
+                            param_rel=param_err, bit_for_bit=same,
+                            step_ms=a["ms"], plain_step_ms=b["ms"])
+    out["backend"] = backend
+    return out
+
+
+PROBE_COLLECTIVES = r"""
+import sys, torch, torch.distributed as dist
+from repro_torch.dist import ranks
+r, w, store, *names = sys.argv[1], sys.argv[2], sys.argv[3], *sys.argv[4:]
+r, w = int(r), int(w)
+ranks.join_group(r, w, store, timeout_s=60)
+import torch.distributed._functional_collectives as fc
+x = torch.full((8, 4), float(r + 1), device="cuda")
+g = dist.group.WORLD
+calls = {"all_gather_into_tensor": lambda: fc.all_gather_tensor(x, 0, g),
+         "reduce_scatter_tensor": lambda: fc.reduce_scatter_tensor(
+             x, "sum", 0, g),
+         "all_reduce": lambda: fc.all_reduce(x, "sum", g),
+         "all_to_all_single": lambda: fc.all_to_all_single(x, None, None, g),
+         "broadcast": lambda: fc.broadcast(x, 0, g)}
+for name in names:
+    print("try", name, flush=True)
+    try:
+        y = calls[name]()
+        y = y.wait() if hasattr(y, "wait") else y
+        torch.cuda.synchronize()
+        print("ok", name, float(y.sum()), flush=True)
+    except Exception as e:
+        print("err", name, type(e).__name__, str(e)[:120].replace("\n", " "),
+              flush=True)
+    dist.barrier()
+"""
+
+
+def gloo_card_collectives() -> dict:
+    """{collective: "ok" or what went wrong} for each functional collective
+    DTensor issues (``SH4_COLLECTIVES``), run by four gloo ranks on card
+    tensors: one set of child processes for all of them, and a new one for
+    those after a collective that killed it."""
+    from repro_torch.dist import ranks
+    todo, found = list(SH4_COLLECTIVES), {}
+    while todo:
+        try:
+            text = ranks.spawn_code(PROBE_COLLECTIVES, 4, *todo,
+                                    timeout_s=120)[0]
+        except RuntimeError as e:
+            text = str(e)
+        tried = None
+        for ln in text.splitlines():
+            ln = ln.replace("[rank0]:", "").strip()
+            word = ln.split(" ", 2)
+            if len(word) >= 2 and word[0] in ("try", "ok", "err") and \
+                    word[1] in todo:
+                if word[0] == "try":
+                    tried = word[1]
+                else:
+                    found[word[1]] = "ok" if word[0] == "ok" else \
+                        f"error: {ln[4 + len(word[1]):]}"
+                    tried = None
+        if tried is not None:
+            found[tried] = "kills the process"
+        todo = [n for n in todo if n not in found]
+        if tried is None and todo:       # the group never started
+            for n in todo:
+                found[n] = "not run: " + text[-200:]
+            todo = []
+    return found
+
+
+def shard_four(args) -> dict:
+    """Part c: Granite-MoE-1B at full width and depth on four gloo ranks
+    sharing the card, a (data=2, model=2) mesh: its experts placed by the
+    rules (``wo`` over the experts on model, ``wi``/``wg`` over D on
+    model), FSDP on data.  Gloo on card tensors is probed first for each
+    collective DTensor issues (``gloo_card_collectives``); if one is
+    missing the ranks hold CPU tensors, and the output says "cpu".  Rank
+    0 first runs the model with plain tensors on the card in float32 and
+    bf16 (the ranks serve with the policy's fsdp off, the weights
+    replicated over data as a server holds them, the cache's heads on
+    model, and train with FSDP on data): a ``SH4_PROMPT``-token prefill
+    of ``SH4_SLOTS`` rows and ``SH4_DECODE`` per-slot decode steps, then
+    one AdamW step of ``SH4_TRAIN_ROWS`` x ``SH4_TRAIN_SEQ`` tokens; the
+    ranks run the same in float32 with DTensors (logits, loss, grad norm
+    and every first moment after the step to ``SH4_TOL`` of its largest
+    against rank 0's plain run), and time the same serve in bf16 (its
+    logits finite, their distance from the plain bf16 run's reported);
+    each rank's peak memory, and rank 0's collective bytes of the train
+    step and of a decode step.  The card-tensor branch (no collective
+    missing) has not run: on PyTorch 2.11 gloo's all-gather on card
+    tensors kills the process."""
+    card = DEVICE == "cuda"
+    smi = nvidia_smi_line() if card else "cpu"
+    t0 = time.perf_counter()
+    probe = gloo_card_collectives() if card else {}
+    missing = sorted(k for k, v in probe.items() if v != "ok")
+    where = "cuda" if card and not missing else "cpu"
+    if card:
+        print("gloo on card tensors, four ranks, the functional "
+              "collectives DTensor issues: " + "; ".join(
+                  f"{k} {v}" for k, v in probe.items())
+              + f"; missing: {', '.join(missing) or 'none'} -> the four "
+              f"ranks hold {where} tensors; probe "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    from repro_torch.dist import ranks
+    conf = dict(seed=args.seed, where=where, card=DEVICE, smoke=LM_SMOKE,
+                sizes=[SH4_SLOTS, SH4_PROMPT, SH4_DECODE, SH4_TRAIN_ROWS,
+                       SH4_TRAIN_SEQ])
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke as C; C._four_rank_main(int(sys.argv[1]), "
+            "int(sys.argv[2]), sys.argv[3], sys.argv[4])")
+    outs = ranks.spawn_code(code, 4, json.dumps(conf), timeout_s=900)
+    res = None
+    for ln in outs[0].splitlines():
+        if ln.startswith("SHARD4 "):
+            res = json.loads(ln[len("SHARD4 "):])
+        elif not ln.startswith("[rank") and "Warning" not in ln:
+            print(ln)
+    require(res is not None, f"shard four: no result\n{outs[0][-3000:]}")
+    res.update(backend="gloo", device=where, missing_collectives=missing,
+               probe=probe)
+    return res
+
+
+def _peak_gib(dev) -> float:
+    if dev.type == "cuda":
+        return torch.cuda.max_memory_allocated() / 2**30
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _four_rank_main(rank, world, store, conf_json):
+    """One of part c's four gloo ranks (see ``shard_four``)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.dist import ranks
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import adamw
+
+    conf = json.loads(conf_json)
+    slots, prompt, steps, rows, seq = conf["sizes"]
+    torch.set_num_threads(2)
+    where, card = torch.device(conf["where"]), torch.device(conf["card"])
+    if where.type == "cuda" or card.type == "cuda":
+        torch.cuda.set_device(0)
+    ranks.join_group(rank, world, store, timeout_s=900)
+    smi = nvidia_smi_line() if card.type == "cuda" else "cpu"
+    base = (ARCHS[SH4_ARCH].smoke_config() if conf["smoke"]
+            else ARCHS[SH4_ARCH].CONFIG)
+    f32 = dataclasses.replace(base, compute_dtype=torch.float32,
+                              cache_dtype=torch.float32)
+    # the same weights and tokens on every rank, drawn on the CPU
+    params = M.init(f32, torch.Generator().manual_seed(conf["seed"]))
+    toks = torch.randint(0, base.vocab_size, (slots, prompt + steps),
+                         generator=torch.Generator().manual_seed(
+                             conf["seed"] + 1))
+    batch = TokenLoader(LoaderConfig(base.vocab_size, rows, seq,
+                                     seed=conf["seed"]),
+                        device="cpu").batch_at(0)
+    stagger = [5 * i for i in range(slots)]
+    kw = dict(prompt=prompt, steps=steps, max_len=prompt + steps,
+              slot_pos=stagger)
+    bf = dataclasses.replace(base, cache_dtype=torch.bfloat16)
+    step = TS.make_train_step(f32, lr=TRAIN_LR)
+    ref = {}
+    if rank == 0:               # the one-rank plain run on the card
+        cp = T.map_tree(lambda t: t.to(card, copy=True), params)
+        ref["logits"], _, _ = _serve_logits(f32, cp, toks.to(card), dev=card,
+                                            **kw)
+        ref["bf16"], _, _ = _serve_logits(bf, M.cast_weights(
+            cp, torch.bfloat16), toks.to(card), dev=card, **kw)
+        st = TS.TrainState(cp, adamw.init(cp), torch.zeros(
+            (), dtype=torch.int32, device=card))
+        st, m = step(st, {k: v.to(card) for k, v in batch.items()})
+        ref.update(loss=float(m["loss"]), gnorm=float(m["grad_norm"]),
+                   mu=T.leaves(st.opt.mu))
+        del st, cp
+    dist.barrier()
+    mesh = make_mesh((2, 2), ("data", "model"), device=where)
+    pol = SH.ShardingPolicy()
+    if where.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = M.to_device(params, where)
+    # served with the weights replicated over data (fsdp off: a server
+    # holds them) and the cache's heads on model (where attention takes
+    # them); trained with FSDP on data
+    serve_pol = SH.ShardingPolicy(fsdp=False, cache_heads_on_tensor=True)
+    pol = SH.ShardingPolicy()
+    served = SH.distribute_tree(params, SH.param_specs(params, mesh,
+                                                       serve_pol), mesh)
+    dtoks = SH.distribute(toks.to(where), SH.P("data", None), mesh)
+    dec_cost = D.StepCost()
+    with SH.activation_axes(mesh, serve_pol):
+        got, pre_ms, dec_ms = _serve_logits(f32, served, dtoks, dev=where,
+                                            cost=dec_cost, **kw)
+        cast = M.cast_weights(served, torch.bfloat16)
+        del served
+        bf_got, bf_pre, bf_dec = _serve_logits(bf, cast, dtoks, dev=where,
+                                               **kw)
+        del cast
+    bf_finite = all(bool(torch.isfinite(x).all()) for x in bf_got)
+    dparams = _place_leafwise(params, SH.param_specs(params, mesh, pol), mesh)
+    del params
+    zeros = lambda: T.map_tree(torch.zeros_like, dparams)  # noqa: E731
+    scalar = lambda: SH.distribute(torch.zeros(  # noqa: E731
+        (), dtype=torch.int32, device=where), SH.P(), mesh)
+    dstate = TS.TrainState(dparams, adamw.AdamWState(zeros(), zeros(),
+                                                     scalar()), scalar())
+    del dparams
+    dbatch = SH.distribute_tree({k: v.to(where) for k, v in batch.items()},
+                                SH.batch_specs(batch, mesh, pol), mesh)
+    with SH.activation_axes(mesh, pol):
+        cost = D.StepCost()
+        t0 = time.perf_counter()
+        with cost:
+            dstate, m = step(dstate, dbatch)
+            loss = float(_full(m["loss"]))
+        gnorm = float(_full(m["grad_norm"]))
+        train_ms = (time.perf_counter() - t0) * 1e3
+    # the first moments after one step are a tenth of the clipped grads;
+    # the parameters are not compared: the first step divides each grad by
+    # statistics of its own size, so an element whose grad is near zero
+    # moves by up to lr on either side
+    errs, bf_err = {"logits": 0.0, "mu": 0.0}, 0.0
+    if rank == 0:
+        errs["logits"] = max(_rel(g, w) for g, w in zip(got, ref["logits"]))
+        bf_err = max(_rel(g, w) for g, w in zip(bf_got, ref["bf16"]))
+    for i, x in enumerate(T.leaves(dstate.opt.mu)):
+        whole = _full(x)
+        if rank == 0:
+            errs["mu"] = max(errs["mu"], _rel(whole, ref["mu"][i]))
+        del whole
+    peaks = [None] * world
+    dist.all_gather_object(peaks, _peak_gib(where))
+    if rank == 0:
+        ok = (max(errs.values()) <= SH4_TOL
+              and abs(loss - ref["loss"]) <= SH4_TOL * abs(ref["loss"])
+              and abs(gnorm - ref["gnorm"]) <= SH4_TOL * ref["gnorm"]
+              and bf_finite)
+        kind = "GiB of card memory" if where.type == "cuda" else \
+            "GiB host RSS"
+        coll = {k: v for k, v in sorted(cost.coll.items())}
+        dcoll = {k: v for k, v in sorted(dec_cost.coll.items())}
+        gb = lambda c: ", ".join(  # noqa: E731
+            f"{k} {v / 1e9:.4f} GB" for k, v in c.items()) or "none"
+        print(f"{SH4_ARCH} on four gloo ranks sharing the card, (data=2, "
+              f"model=2) mesh, {where} tensors, {base.num_layers} layers, "
+              f"d_model {base.d_model}, {base.num_experts} experts placed "
+              f"by the rules: "
+              f"float32 against the one-rank plain run on the "
+              f"{card.type}: logits (prefill's last position and "
+              f"{steps} per-slot decode steps at {slots} slots) "
+              f"{errs['logits']:.3e}, one AdamW step of {rows} x {seq} "
+              f"tokens: loss {loss:.6f} (plain {ref['loss']:.6f}), grad "
+              f"norm {gnorm:.6f} (plain {ref['gnorm']:.6f}), first moments "
+              f"{errs['mu']:.3e} of each leaf's largest (tolerance "
+              f"{SH4_TOL}); served with fsdp off and the cache's heads on "
+              f"model, trained with FSDP on data [{smi}]")
+        host = ("the card" if where.type == "cuda" else
+                "the host's CPU, 2 threads a rank")
+        print(f"{SH4_ARCH} four ranks, times on {where} tensors ({host}): "
+              f"prefill of "
+              f"{prompt} tokens at {slots} slots, float32 {pre_ms:.1f} ms, "
+              f"bf16 {bf_pre:.1f} ms; decode a step (the median of "
+              f"{steps - 1} after the first), float32 {dec_ms:.2f} ms, bf16 "
+              f"{bf_dec:.2f} ms (bf16 logits finite, {bf_err:.3e} of the "
+              f"largest from the card's plain bf16 run: reported, not held, "
+              f"as bf16 expert picks can flip); train step {train_ms:.1f} "
+              f"ms (its "
+              f"collectives counted); peak per rank "
+              + ", ".join(f"{p:.2f}" for p in peaks) + f" {kind}; "
+              f"collective result bytes on rank 0: train step {gb(coll)}; "
+              f"decode step {gb(dcoll)} [{smi}]")
+        require(ok, f"shard four: errors {errs}, loss {loss} vs "
+                f"{ref['loss']}, grad norm {gnorm} vs {ref['gnorm']}, bf16 "
+                f"logits finite {bf_finite}")
+        print("SHARD4 " + json.dumps(dict(
+            rel_err=errs, loss=loss,
+            plain_loss=ref["loss"], grad_norm=gnorm,
+            plain_grad_norm=ref["gnorm"], prefill_ms=pre_ms,
+            decode_ms=dec_ms, train_ms=train_ms, bf16_prefill_ms=bf_pre,
+            bf16_decode_ms=bf_dec, bf16_rel_err=bf_err, peak_gib=peaks,
+            peak_kind=kind, collective_bytes=coll,
+            decode_collective_bytes=dcoll)), flush=True)
+    dist.barrier()
+
+
+SHARD_PART = {"dryrun": shard_dryrun, "one": shard_one, "four": shard_four}
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import math
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as SH
 
 NEG_INF = -1e9
 
@@ -39,6 +40,51 @@ def repeat_kv(x, n_rep):
 
 
 def sdpa(q, k, v, causal, q_offset=0, kv_len=None):
+    """``_sdpa``; on DTensors, on each rank's rows and heads: rows on the
+    batch axes, heads on the tensor axis where it divides the KV heads
+    (else every rank takes all heads), the key sequence whole — but for a
+    decode step on a cache whose sequence the policy splits
+    (``cache_seq_on_tensor``), which ``_sdpa_seq_split`` runs on each
+    rank's keys."""
+    if not (SH.is_sharded(q) or SH.is_sharded(k)):
+        return _sdpa(q, k, v, causal, q_offset, kv_len)
+    rows = SH.axis("batch", q.shape[0])
+    seq = SH.kv_seq_axis(k.shape[1]) if q.shape[1] == 1 else None
+    if seq is not None:
+        return _sdpa_seq_split(q, k, v, causal, q_offset, kv_len, rows, seq)
+    lay = (rows, None, SH.axis("tensor", k.shape[2]), None)
+    return SH.local_call(
+        lambda q, k, v, kv_len: _sdpa(q, k, v, causal, q_offset, kv_len),
+        (q, k, v, kv_len),
+        (lay, lay, lay, None if kv_len is None else (rows,)), lay)
+
+
+def _sdpa_seq_split(q, k, v, causal, q_offset, kv_len, rows, seq):
+    """A decode step's attention with the key sequence split over the mesh
+    axes ``seq``, as the reference partitions it: each rank's logits for
+    its keys, pinned so (``sharding.decode_attn_logits_constraint``); the
+    softmax's max and sum reduced across the shards (two small
+    all-reduces; neither the logits nor the cache gathered); each rank's
+    probabilities against its values in float32, partial sums that one
+    all-reduce completes, rounded to q's dtype."""
+    sk = k.shape[1]
+    kv = (rows, seq, None, None)
+    lens = None if kv_len is None else (rows,)
+    logits = SH.local_call(
+        lambda q, k, kv_len: _logits(q, k, causal, q_offset, kv_len,
+                                     SH.first_index(seq, sk)),
+        (q, k, kv_len), ((rows, None, None, None), kv, lens),
+        (rows, None, None, seq))
+    logits = SH.decode_attn_logits_constraint(logits)
+    e = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    out = SH.local_call(lambda p, v: _attend(p.float(), v.float()),
+                        (probs, v), ((rows, None, None, seq), kv),
+                        (rows, None, None, None), partial=seq)
+    return SH.reduce_partials(out).to(q.dtype)
+
+
+def _sdpa(q, k, v, causal, q_offset=0, kv_len=None):
     """q/k: (B, Sq/Sk, H/Hk, Dh), v: (B, Sk, Hk, Dv) with Hk dividing H
     (query head j·H/Hk + r reads kv head j, as after ``repeat_kv``); the
     logits are scaled by 1/√Dh (q's head dim; MLA's Dv differs).  fp32
@@ -47,26 +93,45 @@ def sdpa(q, k, v, causal, q_offset=0, kv_len=None):
     ``q_offset``: absolute position of q[0] (decode: pos).  ``kv_len``:
     (B,) number of valid kv entries (masks the cache tail).
     """
+    logits = _logits(q, k, causal, q_offset, kv_len)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return _attend(probs, v)
+
+
+def _logits(q, k, causal, q_offset=0, kv_len=None, k0=0):
+    """The masked, scaled float32 logits (B, H, Sq, Sk) of ``_sdpa``, the
+    keys at positions k0 : k0 + Sk."""
     b, sq, h, dh = q.shape
-    sk, hk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    sk, hk = k.shape[1], k.shape[2]
     rep = h // hk
     scale = 1.0 / math.sqrt(dh)
     # (B, Hk, rep·Sq, Dh) queries against (B, Hk, Sk, Dh) keys
     qg = q.reshape(b, sq, hk, rep, dh).permute(0, 2, 3, 1, 4).reshape(
         b * hk, rep * sq, dh)
     kt = k.transpose(1, 2).reshape(b * hk, sk, dh)
-    vt = v.transpose(1, 2).reshape(b * hk, sk, dv)
     logits = L.matmul_f32(qg, kt.transpose(1, 2)).mul_(scale).view(
         b, h, sq, sk)
+    if not (causal or kv_len is not None):
+        return logits
+    kpos = torch.arange(sk, device=q.device)
+    if k0:
+        kpos = kpos + k0
     if causal:
         qpos = torch.arange(sq, device=q.device) + q_offset
-        kpos = torch.arange(sk, device=q.device)
         logits.masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
     if kv_len is not None:
-        valid = torch.arange(sk, device=q.device)[None, :] < kv_len[:, None]
+        valid = kpos[None, :] < kv_len[:, None]
         logits.masked_fill_(~valid[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.bmm(probs.view(b * hk, rep * sq, sk), vt)
+    return logits
+
+
+def _attend(probs, v):
+    """probs (B, H, Sq, Sk) against v (B, Sk, Hk, Dv): (B, Sq, H, Dv)."""
+    b, h, sq, sk = probs.shape
+    hk, dv = v.shape[2], v.shape[-1]
+    rep = h // hk
+    vt = v.transpose(1, 2).reshape(b * hk, sk, dv)
+    out = torch.bmm(probs.reshape(b * hk, rep * sq, sk), vt)
     return out.view(b, hk, rep, sq, dv).permute(0, 3, 1, 2, 4).reshape(
         b, sq, h, dv)
 
@@ -107,9 +172,9 @@ def _project_qkv(p, x, xc, cfg, dtype):
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
         v = v + p["bv"].to(dtype)
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, sk, hkv, dh)
-    v = v.reshape(b, sk, hkv, dh)
+    q = SH.split_last(q, (h, dh))
+    k = SH.split_last(k, (hkv, dh))
+    v = SH.split_last(v, (hkv, dh))
     if cfg.qk_norm:
         q = L.rmsnorm(p["q_norm"], q)
         k = L.rmsnorm(p["k_norm"], k)
@@ -121,6 +186,13 @@ def _write_slots(buf, new, pvec):
     a position outside [0, S_max) writes nothing (the reference's
     ``where(arange(S_max) == pos, new, cache)``)."""
     smax = buf.shape[1]
+    if SH.is_sharded(buf):
+        # DTensor has no in-place index_put on a sharded batch: the
+        # reference's masked form, a pass over the buffer
+        hit = torch.arange(smax, device=buf.device)[None, :] == pvec[:, None]
+        hit = hit.view(hit.shape + (1,) * (buf.dim() - 2))
+        buf.copy_(torch.where(hit, new.to(buf.dtype), buf))
+        return
     rows = torch.arange(buf.shape[0], device=buf.device)
     inside = (pvec >= 0) & (pvec < smax)
     at = pvec.clamp(0, smax - 1)
@@ -197,6 +269,9 @@ def _write_rows(buf, new, pos):
     ``dynamic_update_slice`` clamps it."""
     s, smax = new.shape[1], buf.shape[1]
     at = min(max(int(pos), 0), smax - s)
+    if SH.split_count(buf, 1) > 1:
+        SH.write_split_rows(buf, new, at)
+        return
     buf[:, at:at + s] = new.to(buf.dtype)
 
 
@@ -242,7 +317,7 @@ def mla_apply(p, x, cfg, positions, dtype, *, causal=True, cache=None,
     cos, sin = mla_rope(cfg, positions) if rope is None else rope
     # queries through the low-rank bottleneck
     cq = L.rmsnorm(p["q_norm"], L.matmul(x, p["wdq"], dtype))
-    q = L.matmul(cq, p["wuq"], dtype).reshape(b, s, h, dn + dr)
+    q = SH.split_last(L.matmul(cq, p["wuq"], dtype), (h, dn + dr))
     q_nope, q_rope = q[..., :dn], L.rotate(q[..., dn:], cos, sin)
     # compressed KV latent + shared rope key (this is what gets cached)
     ckv = L.rmsnorm(p["kv_norm"], L.matmul(x, p["wdkv"], dtype))
@@ -263,8 +338,14 @@ def mla_apply(p, x, cfg, positions, dtype, *, causal=True, cache=None,
             _write_rows(cache["k_rope"], k_rope, pos)
             q_offset = int(pos)
         ckv, k_rope = cache["ckv"], cache["k_rope"]
+        # sharded, the latent's sequence is gathered before the expansion
+        # (attention takes it whole; folding an S-sharded cache into the
+        # product's rows is a layout DTensor cannot gather)
+        ckv = SH.shard_as(ckv, "batch", None, None)
+        k_rope = SH.shard_as(k_rope, "batch", None, None, None)
     sk = ckv.shape[1]
-    kv = L.matmul(ckv.to(dtype), p["wukv"], dtype).reshape(b, sk, h, dn + dv)
+    kv = SH.split_last(L.matmul(ckv.to(dtype), p["wukv"], dtype),
+                       (h, dn + dv))
     k = torch.cat([kv[..., :dn],
                    k_rope.to(dtype).expand(b, sk, h, dr)], dim=-1)
     out = sdpa(torch.cat([q_nope, q_rope], dim=-1), k, kv[..., dn:],

@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as SH
+
 
 def dense_init(shape, scale=None, *, generator=None, device=None,
                dtype=torch.float32):
@@ -33,8 +35,10 @@ def dense_init(shape, scale=None, *, generator=None, device=None,
 
 def matmul(x, w, compute_dtype):
     """``x @ w`` over x's last axis in ``compute_dtype``, accumulated in
-    float32, the result rounded to ``compute_dtype``."""
-    return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
+    float32, the result rounded to ``compute_dtype``; a sharded weight is
+    gathered over the fsdp axes first (``sharding.gather_fsdp``)."""
+    return torch.matmul(x.to(compute_dtype),
+                        SH.gather_fsdp(w).to(compute_dtype))
 
 
 def matmul_f32(a, b):
@@ -49,8 +53,10 @@ def matmul_f32(a, b):
         return torch.matmul(a, b)
     recorded = torch.is_grad_enabled() and (a.requires_grad
                                             or b.requires_grad)
+    # a DTensor takes the copies too: bmm(out_dtype=) has no sharding
+    # strategy
     if a.is_cuda and a.dim() == 3 and b.dim() == 3 and not recorded \
-            and _bmm_out_dtype():
+            and type(a) is torch.Tensor and _bmm_out_dtype():
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.matmul(a.float(), b.float())
 

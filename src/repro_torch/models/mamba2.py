@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as SH
 
 CONV_W = 4
 
@@ -69,6 +70,18 @@ def _causal_conv(x, w, bias, dtype):
     for i in range(1, CONV_W):
         acc = acc + xp[:, i:i + s].float() * wd[i]
     return acc.to(dtype) + bias.to(dtype)
+
+
+def _conv(x, w, bias, dtype):
+    """``_causal_conv``; on DTensors, on each rank's rows and channels
+    (PyTorch 2.11's DTensor cannot plan the padding's redistribution)."""
+    if not SH.is_sharded(x):
+        return _causal_conv(x, w, bias, dtype)
+    rows = SH.axis("batch", x.shape[0])
+    ch = SH.axis("tensor", x.shape[-1])
+    return SH.local_call(lambda x, w, b: _causal_conv(x, w, b, dtype),
+                         (x, w, bias), ((rows, None, ch), (None, ch), (ch,)),
+                         (rows, None, ch))
 
 
 def _cumsum(x, dim):
@@ -157,14 +170,22 @@ def mamba_apply(p, hidden, cfg, dtype, chunk=128):
     bc_pre = L.matmul(hidden, p["wbc"], dtype)           # (b, s, 2n)
     dt = L.matmul(hidden, p["wdt"], dtype)               # (b, s, heads)
     conv_tail = (x_pre[:, -(CONV_W - 1):], bc_pre[:, -(CONV_W - 1):])
-    x = L.silu(_causal_conv(x_pre, p["conv_w_x"], p["conv_b_x"], dtype))
-    bc = L.silu(_causal_conv(bc_pre, p["conv_w_bc"], p["conv_b_bc"], dtype))
+    x = L.silu(_conv(x_pre, p["conv_w_x"], p["conv_b_x"], dtype))
+    bc = L.silu(_conv(bc_pre, p["conv_w_bc"], p["conv_b_bc"], dtype))
     Bm, Cm = bc[..., :cfg.ssm_state], bc[..., cfg.ssm_state:]
     dt = L.softplus(dt.float() + p["dt_bias"])           # (b, s, h)
     A = -torch.exp(p["A_log"])                           # (h,) negative
     xh = x.reshape(b, s, heads, cfg.mamba_head_dim)
-    y, final_state = ssd_chunked(xh.to(dtype), dt, A, Bm.to(dtype),
-                                 Cm.to(dtype), chunk, edt=dtype)
+    args = (xh.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype))
+    ssd = lambda *a: ssd_chunked(*a, chunk, edt=dtype)  # noqa: E731
+    if SH.is_sharded(xh):
+        rows, hs = SH.axis("batch", b), SH.axis("tensor", heads)
+        y, final_state = SH.local_call(
+            ssd, args, ((rows, None, hs, None), (rows, None, hs), (hs,),
+                        (rows, None, None), (rows, None, None)),
+            ((rows, None, hs, None), (rows, hs, None, None)))
+    else:
+        y, final_state = ssd(*args)
     y = y.float() + xh.float() * p["D"][None, None, :, None]
     y = y.reshape(b, s, d_inner).to(dtype)
     y = L.rmsnorm(p["norm"], y * L.silu(z))              # gated norm
@@ -191,6 +212,17 @@ def _conv_step(window_prev, new, w, bias, dtype):
     return out.to(dtype) + bias.to(dtype), window[:, 1:]
 
 
+def _ssm_step(xh, dt, Bm, Cm, A, D, ssm):
+    """The recurrence of one token, float32: h <- decay·h + dt·x Bᵀ,
+    y = C h + D x (x·(dt·B), as the reference's einsum pairs them).
+    Returns (y (b, h, p), the next state)."""
+    decay = torch.exp(A[None] * dt)                      # (b, h)
+    dBx = xh[..., None] * (dt[..., None] * Bm[:, None, :])[:, :, None, :]
+    ssm = ssm * decay[..., None, None] + dBx
+    y = torch.matmul(ssm, Cm[:, None, :, None])[..., 0]  # (b, h, p)
+    return y + xh * D[None, :, None], ssm
+
+
 def mamba_decode_step(p, hidden, state, cfg, dtype):
     """One-token recurrent step.  hidden: (b, 1, d).  Returns (out
     (b, 1, d), the next state as a new dict)."""
@@ -211,13 +243,16 @@ def mamba_decode_step(p, hidden, state, cfg, dtype):
     dt = L.softplus(dt.float() + p["dt_bias"])           # (b, h)
     A = -torch.exp(p["A_log"])
     xh = x.reshape(b, heads, cfg.mamba_head_dim).float()
-    decay = torch.exp(A[None] * dt)                      # (b, h)
-    # h <- decay * h + dt * x B^T ;  y = C h + D x  (x·(dt·B), as the
-    # reference's einsum pairs them)
-    dBx = xh[..., None] * (dt[..., None] * Bm[:, None, :])[:, :, None, :]
-    ssm = state["ssm"] * decay[..., None, None] + dBx
-    y = torch.matmul(ssm, Cm[:, None, :, None])[..., 0]  # (b, h, p)
-    y = y + xh * p["D"][None, :, None]
+    args = (xh, dt, Bm, Cm, A, p["D"], state["ssm"])
+    if SH.is_sharded(xh):
+        rows, hs = SH.axis("batch", b), SH.axis("tensor", heads)
+        y, ssm = SH.local_call(
+            _ssm_step, args, ((rows, hs, None), (rows, hs), (rows, None),
+                              (rows, None), (hs,), (hs,),
+                              (rows, hs, None, None)),
+            ((rows, hs, None), (rows, hs, None, None)))
+    else:
+        y, ssm = _ssm_step(*args)
     y = y.reshape(b, d_inner).to(dtype)
     y = L.rmsnorm(p["norm"], y * L.silu(z))
     out = L.matmul(y, p["out_proj"], dtype)[:, None]     # (b, 1, d)

@@ -14,9 +14,12 @@ the other), the encoder's likewise (``encoder/blocks``), and the layers run
 one after another in Python.  The cache is ``{"blocks": [per layer
 {"kv": {...}} (attention) or {"ssm": {"ssm", "conv_x", "conv_bc"}}
 (mamba)], "enc_out": encoder output or None}``, updated in place.
-``sharding.py``'s ``shard_btd``/``shard_btv`` activation constraints do
-nothing without a mesh, and this port runs on one card, so they are left
-out; ``sharding.py`` waits for the multi-card slice.
+On DTensor parameters and inputs (``models.sharding``) the same code runs
+sharded: ``sharding``'s ``shard_btd``/``shard_btv`` constraints pin the
+residual stream and the logits where the reference pins them, the
+prefill's cache is placed by ``sharding.cache_specs``, and each
+constraint is a no-op on plain tensors or outside
+``sharding.activation_axes``.
 
 Remat: with ``cfg.remat`` and autograd recording, ``forward`` runs each
 group of ``len(cfg.pattern)`` decoder layers (and each encoder layer)
@@ -38,6 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import sharding as SH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,7 +263,7 @@ def _apply_layer(cfg, spec: LayerSpec, p, h, positions, dtype, *,
     ``decode`` steps the recurrent state in ``cache["ssm"]`` in place;
     without it, a ``cache`` asks for the prefill's final state."""
     new_cache = {}
-    x = L.norm_apply(cfg.norm, p["pre_norm"], h)
+    x = SH.shard_btd(L.norm_apply(cfg.norm, p["pre_norm"], h))
     if spec.mixer == "attn":
         kv = None if cache is None else cache.get("kv")
         if cfg.attn_kind == "mla":
@@ -294,7 +298,7 @@ def _apply_layer(cfg, spec: LayerSpec, p, h, positions, dtype, *,
                                 "conv_bc": conv_bc.float()}
         h = h + out
     if spec.ffn != "none":
-        x = L.norm_apply(cfg.norm, p["post_norm"], h)
+        x = SH.shard_btd(L.norm_apply(cfg.norm, p["post_norm"], h))
         if spec.ffn == "moe":
             h = h + moe_lib.moe_apply(p["moe"], x, cfg, dtype)
         else:
@@ -340,7 +344,7 @@ def _head(cfg, params, h, dtype):
     head = params.get("head")
     if head is None:
         head = params["embed"].T
-    return L.matmul(h, head, dtype), h
+    return SH.shard_btv(L.matmul(h, head, dtype)), h
 
 
 def _spec(cfg, layer):
@@ -375,7 +379,7 @@ def forward(cfg: ModelConfig, params, batch, *, make_cache_len: int = 0,
     dev = tokens.device
     if dev.type == "cuda":
         exact_lm_matmul()
-    h = params["embed"][tokens].to(dtype)
+    h = SH.shard_btd(SH.take_rows(params["embed"], tokens).to(dtype))
     positions = torch.arange(s, device=dev).expand(b, s)
     positions3 = batch.get("positions3")
     rope = _rope(cfg, positions, positions3)
@@ -386,11 +390,14 @@ def forward(cfg: ModelConfig, params, batch, *, make_cache_len: int = 0,
     if prefill:
         for layer, p in enumerate(params["blocks"]):
             spec = _spec(cfg, layer)
-            cache_in = ({"kv": _kv_cache_init(cfg, b, make_cache_len, dev)}
-                        if spec.mixer == "attn" else {"ssm": None})
+            cache_in = ({"kv": SH.place_cache(
+                _kv_cache_init(cfg, b, make_cache_len, dev),
+                ("blocks", layer, "kv"), h)}
+                if spec.mixer == "attn" else {"ssm": None})
             h, c = _apply_layer(cfg, spec, p, h, positions, dtype,
                                 cache=cache_in, pos=0, enc_out=enc_out,
                                 positions3=positions3, rope=rope)
+            h = SH.shard_btd(h)
             caches.append(c)
     else:
         P = len(cfg.pattern)
@@ -401,6 +408,7 @@ def forward(cfg: ModelConfig, params, batch, *, make_cache_len: int = 0,
                                     params["blocks"][layer], h, positions,
                                     dtype, enc_out=enc_out,
                                     positions3=positions3, rope=rope)
+                h = SH.shard_btd(h)
             return h
 
         for first in range(0, cfg.num_layers, P):
@@ -449,7 +457,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
     dev = tokens.device
     if dev.type == "cuda":
         exact_lm_matmul()
-    h = params["embed"][tokens].to(dtype)
+    h = SH.shard_btd(SH.take_rows(params["embed"], tokens).to(dtype))
     if torch.is_tensor(pos) and pos.dim() > 0:
         positions = pos.reshape(b, 1)
     else:

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.models import model as M
+from repro_torch.models import sharding as SH
 from repro_torch.optim import adafactor, adamw
 
 STEP_RANGE = "repro_torch.lm_train_step"
@@ -34,7 +35,7 @@ def cross_entropy(logits, labels):
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
     labels = labels.long()
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    gold = SH.vocab_gather(logits, labels.clamp(min=0))
     mask = (labels >= 0).float()
     nll = (lse - gold) * mask
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
@@ -87,10 +88,10 @@ def accumulated_grads(cfg, params, batch, grad_accum: int = 1):
     if rows % grad_accum:
         raise ValueError(f"batch of {rows} rows does not split into "
                          f"grad_accum={grad_accum} microbatches")
-    mb = rows // grad_accum
     losses, acc = [], None
     for k in range(grad_accum):
-        micro = {name: x[k * mb:(k + 1) * mb] for name, x in batch.items()}
+        micro = {name: SH.microbatch(x, k, grad_accum)
+                 for name, x in batch.items()}
         loss, grads = loss_and_grads(cfg, params, micro)
         losses.append(loss)
         if acc is None:
@@ -146,6 +147,8 @@ def make_decode_step(cfg):
             logits, cache = M.decode_step(cfg, params, tokens, cache, pos,
                                           enc_out=enc_out,
                                           positions3=positions3)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        # the argmax takes the vocabulary whole
+        last = SH.shard_as(logits[:, -1], "batch", None)
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)
         return next_tok[:, None], logits, cache
     return decode_step

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.models import sharding as SH
 from repro_torch.optim.adamw import clip_by_global_norm
 
 
@@ -138,7 +139,7 @@ def apply(grads: list, state: AdafactorState, params: list, lr, *, groups,
             for j, i in enumerate(ids):
                 u = _precondition(grads[i].float(), vr[j], vc[j], None,
                                   True, decay, eps)
-                sq = sq + torch.vdot(u.reshape(-1), u.reshape(-1))
+                sq = sq + SH.sum_squares(u)
                 grads[i] = u
             n = len(ids) * params[ids[0]].numel()
             den = torch.clamp(torch.sqrt(sq / n) / clip_threshold, min=1.0)

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.models import sharding as SH
 
 
 class AdamWState(NamedTuple):
@@ -47,9 +48,7 @@ def init(params) -> AdamWState:
 def global_norm(grads):
     """√(Σ ⟨g, g⟩) over the leaves (a list or a tree), in float32."""
     gs = T.leaves(grads)
-    return torch.sqrt(torch.stack([
-        torch.vdot(g.reshape(-1).float(), g.reshape(-1).float())
-        for g in gs]).sum())
+    return torch.sqrt(torch.stack([SH.sum_squares(g) for g in gs]).sum())
 
 
 def clip_scale(norm, max_norm):

@@ -12,6 +12,8 @@ Run on a machine with the card:
 Tolerances: the kernels sum in another order than the plain versions
 (tile partials, shuffle trees); after R = 8 rounds x, z and F agree to
 rtol/atol 1e-4 (bf16 A: 1e-3, as against the JAX kernel)."""
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -1820,3 +1822,71 @@ def test_lm_remat_is_bit_identical_on_card(cuda, arch):
                 dataclasses.replace(cfg, remat=remat), params, batch)
             runs.append([loss, *grads])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_dtensor_one_rank_step_matches_plain(cuda):
+    """Qwen3-4B's published widths cut to 2 layers, float32, on one NCCL
+    rank with every leaf a DTensor placed by the sharding rules on a
+    (1, 1) mesh: a prefill's logits, every grad, and one AdamW train
+    step's loss and grad norm equal the plain tensors' on the card to
+    1e-5 of each one's largest."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist import ranks
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import steps as TS
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"].CONFIG, num_layers=2,
+                              compute_dtype=torch.float32)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g,
+                         device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    pol = SH.ShardingPolicy()
+    runs = []
+    with ranks.one_rank("nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"), device=cuda)
+        for sharded in (False, True):
+            state = TS.init_train_state(cfg, torch.Generator(
+                device=cuda).manual_seed(1))
+            b = batch
+            if sharded:
+                state = SH.distribute_tree(state, SH.train_state_specs(
+                    state, SH.param_specs(state.params, mesh, pol), mesh),
+                    mesh)
+                b = SH.distribute_tree(batch, SH.batch_specs(batch, mesh,
+                                                             pol), mesh)
+            with (SH.activation_axes(mesh, pol) if sharded
+                  else contextlib.nullcontext()):
+                with torch.no_grad():
+                    logits, _ = TM.forward(cfg, state.params,
+                                           {"tokens": b["tokens"]},
+                                           make_cache_len=80)
+                _, grads = TS.loss_and_grads(cfg, state.params, b)
+                state, m = TS.make_train_step(cfg, lr=1e-3)(state, b)
+            full = lambda x: x.full_tensor() if SH.is_sharded(x) else x  # noqa: E731,E501
+            runs.append([full(logits), full(m["loss"]), full(m["grad_norm"])]
+                        + [full(x) for x in grads])
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert float((b - a).abs().max()) <= 1e-5 * float(a.abs().max()), i
+
+
+def test_dryrun_cell_on_card_fake_tensors(cuda, tmp_path, monkeypatch):
+    """A dry-run cell with fake tensors of the card's device type, on a
+    fake process group of 8 ranks (2 x 4), returns "ok" with the argument
+    bytes its specs give."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun as D
+    monkeypatch.setattr(D, "RESULTS", tmp_path)
+    for arch, shape in (("qwen3-4b", "decode_32k"),
+                        ("granite-moe-1b-a400m", "train_4k")):
+        rec = D.run_cell(arch, shape, "host", device=cuda,
+                         cfg_override=ARCHS[arch].smoke_config(),
+                         mesh=((2, 4), ("data", "model")))
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["device_type"] == "cuda"
+        mem = rec["memory"]
+        assert mem["argument_bytes"] == mem["argument_bytes_from_specs"]
