@@ -75,6 +75,14 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           same (its MoE capacity path backward at 2048 tokens), then a
           kill and resume at the smoke size whose losses must equal the
           uninterrupted run's bit for bit;
+  examples the port's five example programs (``repro_torch.examples``,
+          one child): ``lm_probe --full`` (Qwen3-4B at full width and
+          depth warmed up 20 steps, its mean-pooled final hidden states
+          probed by Shotgun-CDN on the card) and its 2-layer cut against
+          the CPU; ``train_lm`` stopped and resumed; ``quickstart``,
+          ``lasso_paths`` and ``distributed_shotgun`` (one NCCL rank; the
+          block solves launch kernels #1, #3 and #4) at their own sizes on
+          the card against the same programs on the CPU;
   shard   last, the LM sharding layer (``repro_torch.models.sharding``,
           ``launch/mesh.py``, ``specs.py``, ``dryrun.py``; torch code, no
           kernel of its own), one child a part (``--leg shard --part
@@ -82,11 +90,13 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           ranks (16 x 16) — Qwen3-4B train_4k, prefill_32k, decode_32k,
           Phi-3.5-MoE train_4k, Jamba-1.5-Large long_500k — their
           roofline terms on the H100's data sheet and rank 0's memory, the
-          argument bytes held to the specs'; Qwen3-4B at full width and
-          depth on one NCCL rank with every leaf a DTensor, served (a
+          argument bytes held to the specs'; Qwen3-4B at full width cut
+          to 12 of its 36 layers on one NCCL rank with every leaf a
+          DTensor, served (a
           512-token prefill, 8 decode steps at 8 slots x 2048) in float32
           and bf16, its first grads held leaf by leaf, and trained 3
-          steps, against the plain tensors on the card; Granite-MoE-1B at full width and depth on four gloo ranks
+          steps, against the plain tensors on the card; Granite-MoE-1B at
+          full width cut to 6 of its 24 layers on four gloo ranks
           sharing the card as a (data=2, model=2) mesh, after a probe of
           each collective DTensor issues on card tensors under gloo (a
           missing one puts the ranks on CPU tensors, said in the output),
@@ -248,12 +258,26 @@ SHARD_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "prefill_32k"),
                ("jamba-1.5-large-398b", "long_500k"))
 SHARD_PARTS = ("dryrun", "one", "four")
 SH1_SLOTS, SH1_MAX_LEN, SH1_PROMPT, SH1_DECODE = 8, 2048, 512, 8
+SH1_LAYERS = 12          # of Qwen3-4B's 36: the time limit's cut of depth
 SH1_TRAIN_ROWS, SH1_TRAIN_SEQ, SH1_TRAIN_STEPS = 4, 512, 3
 SH1_F32_TOL, SH1_BF16_TOL = 1e-5, 2e-2
 SH4_ARCH, SH4_SLOTS, SH4_PROMPT, SH4_DECODE = "granite-moe-1b-a400m", 4, 256, 8
+SH4_LAYERS = 6           # of Granite's 24: the time limit's cut of depth
 SH4_TRAIN_ROWS, SH4_TRAIN_SEQ, SH4_TOL = 4, 512, 1e-4
 SH4_COLLECTIVES = ("reduce_scatter_tensor", "all_reduce",
                    "all_to_all_single", "broadcast", "all_gather_into_tensor")
+# Examples leg (``--leg examples``), one child: the example programs of
+# ``repro_torch.examples`` through their ``main``.  The solver examples on
+# the card against the CPU: P* equal, ρ and F traces to EX_RTOL of each
+# entry, final nnz within EX_NNZ_TOL, block against fused to EX_GAP;
+# train_lm for EX_TRAIN_STEPS steps saving every EX_SAVE_EVERY, stopped
+# after EX_FAIL_AT and resumed; lm_probe's cut against the CPU:
+# EX_CUT_WARMUP warm-up steps, EX_CUT_BATCHES feature batches of
+# EX_CUT_ROWS rows, EX_CUT_ROUNDS CDN rounds.
+EX_RTOL, EX_NNZ_TOL, EX_GAP = 1e-4, 1, 1e-5
+EX_RISE = 1e-6           # a CDN round's F may rise by rounding, no more
+EX_TRAIN_STEPS, EX_SAVE_EVERY, EX_FAIL_AT = 60, 25, 30
+EX_CUT_WARMUP, EX_CUT_BATCHES, EX_CUT_ROWS, EX_CUT_ROUNDS = 2, 2, 4, 200
 # Host syncs (none may fall inside an unguarded scalar solve's rounds or a
 # baseline's iterations) are counted from the lint's one list,
 # ``repro_torch.analyze.trace_checks.SYNC_CALLS`` and any ``*Synchronize``
@@ -446,7 +470,9 @@ def run_solve(label, ops, health, prob, spec, launches, fused_name,
 
 
 def trace_rel(a, b) -> float:
-    a, b = a.cpu().double(), b.cpu().double()
+    """Largest |a - b| / |b| over two traces (tensors, arrays or numbers)."""
+    a = torch.as_tensor(a).cpu().double()
+    b = torch.as_tensor(b).cpu().double()
     return float(((a - b).abs() / b.abs()).max())
 
 
@@ -478,14 +504,15 @@ def queued_ms(fn, iters: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--leg", choices=["lm", "train", "shard"], default=None,
+    ap.add_argument("--leg", choices=["lm", "train", "shard", "examples"],
+                    default=None,
                     help="run only this leg (no build) and print its JSON")
     ap.add_argument("--arch", choices=LM_FAMILIES, default=LM_ARCH,
                     help="with --leg lm or train: the model to run")
     ap.add_argument("--part", choices=SHARD_PARTS, default="dryrun",
                     help="with --leg shard: the part to run")
     args = ap.parse_args()
-    if args.leg in ("train", "shard"):
+    if args.leg in ("train", "shard", "examples"):
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_CONFIG)
 
     if not torch.cuda.is_available():
@@ -504,6 +531,9 @@ def main() -> int:
         return 0
     if args.leg == "shard":
         print(json.dumps(SHARD_PART[args.part](args)))
+        return 0
+    if args.leg == "examples":
+        print(json.dumps(examples_leg(args)))
         return 0
     from repro_torch.kernels import _build
 
@@ -560,13 +590,14 @@ def main() -> int:
     release_card("the LM legs")
     lm_json = lm_leg_child(args)
     train_json = train_leg_child(args)
+    examples_json = examples_leg_child(args)
     shard_json = shard_leg_child(args)
 
     # ---- report -----------------------------------------------------------
     print(json.dumps({**lint_json, **dense_json, **sparse_json,
                       **sharded_json, **serve_json, **scalar_json,
                       **baselines_json, **lm_json, **train_json,
-                      **shard_json}))
+                      **examples_json, **shard_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": dense_kernels + sparse_kernels
                       + sharded_kernels + serve_kernels}))
@@ -2909,25 +2940,54 @@ def release_card(before: str) -> None:
           f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
 
 
+def _leg_start(leg: str, *argv: str, seed: int,
+               deterministic: bool = False) -> subprocess.Popen:
+    """``chip_smoke.py --leg leg *argv --seed seed`` as a child process,
+    its output piped; ``deterministic`` puts cuBLAS's deterministic
+    workspace in its environment."""
+    env = (dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_CONFIG)
+           if deterministic else None)
+    return subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--leg", leg,
+         *argv, "--seed", str(seed)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _leg_result(label: str, proc: subprocess.Popen, timeout: float) -> dict:
+    """Wait for the child ``proc`` (killed if it outlives ``timeout``),
+    echo its lines but the last, each after ``label``, raise if it failed;
+    returns its last line's JSON."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = stdout.splitlines()
+    for ln in lines[:-1]:
+        print(f"{label}: {ln}")
+    require(proc.returncode == 0 and lines,
+            f"{label}: exit {proc.returncode}: {stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def _leg_child(label: str, leg: str, *argv: str, seed: int, timeout: float,
+               deterministic: bool = False) -> dict:
+    """``_leg_start`` then ``_leg_result``: one child run to its end."""
+    return _leg_result(label, _leg_start(leg, *argv, seed=seed,
+                                         deterministic=deterministic),
+                       timeout)
+
+
 def lm_leg_child(args) -> dict:
     """The LM leg, one child process a model (``chip_smoke.py --leg lm
     --arch A`` for each of ``LM_FAMILIES``), so that each frees the card
     for the next (MiniCPM3-4B holds ≈ 10 GiB of its own, apart from what
     the earlier legs' process keeps cached).  Echoes each child's lines,
     raises if one failed, returns {"lm": {arch: its JSON}}."""
-    script = str(pathlib.Path(__file__).resolve())
-    found = {}
-    for arch in LM_FAMILIES:
-        out = subprocess.run([sys.executable, script, "--leg", "lm",
-                              "--arch", arch, "--seed", str(args.seed)],
-                             capture_output=True, text=True, timeout=600)
-        lines = out.stdout.splitlines()
-        for ln in lines[:-1]:
-            print(f"lm {arch}: {ln}")
-        require(out.returncode == 0 and lines,
-                f"lm {arch}: exit {out.returncode}: {out.stderr[-3000:]}")
-        found[arch] = json.loads(lines[-1])
-    return {"lm": found}
+    return {"lm": {arch: _leg_child(f"lm {arch}", "lm", "--arch", arch,
+                                    seed=args.seed, timeout=600)
+                   for arch in LM_FAMILIES}}
 
 
 def lm_logits(cfg, params, toks, dev, frames=None):
@@ -3553,21 +3613,10 @@ def train_leg_child(args) -> dict:
     (``chip_smoke.py --leg train --arch A``), with cuBLAS's deterministic
     workspace in its environment.  Echoes each child's lines, raises if
     one failed, returns {"train": {arch: its JSON}}."""
-    script = str(pathlib.Path(__file__).resolve())
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_CONFIG)
-    found = {}
-    for arch in TRAIN_ARCHS:
-        out = subprocess.run([sys.executable, script, "--leg", "train",
-                              "--arch", arch, "--seed", str(args.seed)],
-                             capture_output=True, text=True, timeout=900,
-                             env=env)
-        lines = out.stdout.splitlines()
-        for ln in lines[:-1]:
-            print(f"train {arch}: {ln}")
-        require(out.returncode == 0 and lines,
-                f"train {arch}: exit {out.returncode}: {out.stderr[-3000:]}")
-        found[arch] = json.loads(lines[-1])
-    return {"train": found}
+    return {"train": {arch: _leg_child(f"train {arch}", "train", "--arch",
+                                       arch, seed=args.seed, timeout=900,
+                                       deterministic=True)
+                      for arch in TRAIN_ARCHS}}
 
 
 def _rel(got, want) -> float:
@@ -3883,21 +3932,350 @@ def _train_leg(arch, args, dev, card, smi, t_leg) -> dict:
 # launch/specs.py, launch/dryrun.py; torch code, no kernel of its own)
 # ---------------------------------------------------------------------------
 
+def examples_leg_child(args) -> dict:
+    """The examples leg in one child process (``chip_smoke.py --leg
+    examples``), with cuBLAS's deterministic workspace in its environment
+    (``train_lm`` trains under deterministic algorithms).  Echoes its
+    lines, raises if it failed, returns {"examples": its JSON}."""
+    t0 = time.perf_counter()
+    found = _leg_child("examples", "examples", seed=args.seed, timeout=600,
+                       deterministic=True)
+    found["wall_s"] = time.perf_counter() - t0
+    print(f"examples leg: {found['wall_s']:.1f} s wall, the child's start "
+          "included")
+    return {"examples": found}
+
+
+def _cpu_example(name: str) -> tuple[dict, float]:
+    """``repro_torch.examples.<name>`` on the CPU in a worker process (its
+    printed lines dropped): its numbers and host seconds.  The examples
+    leg runs the solver examples' CPU twins there once lm_probe's timed
+    sections are done, beside train_lm and the solver examples' card
+    runs."""
+    import contextlib
+    import importlib
+    import io
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(4)
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = mod.main(["--device", "cpu"])
+    return out, time.perf_counter() - t0
+
+
+def _example_twins(name, twin, kernels, smi) -> tuple[dict, dict, dict]:
+    """``repro_torch.examples.<name>`` on the card (its kernel launches
+    counted from 0, timed on the host clock) against ``twin``, the future
+    of its CPU run (``_cpu_example``): P* equal; ρ, F*, the λ sequence and
+    every F trace within ``EX_RTOL`` of each entry (how many λ are equal
+    bit for bit is printed); each final nnz within ``EX_NNZ_TOL``; a
+    kernel of ``kernels`` not launched on the card fails.  Returns (the
+    check's JSON, the card's numbers, the CPU's numbers)."""
+    import importlib
+
+    from repro_torch.kernels import batched as kb
+    from repro_torch.kernels import shotgun_block as sb
+    from repro_torch.kernels import shotgun_sparse as ss
+
+    main = importlib.import_module(f"repro_torch.examples.{name}").main
+    for mod in (sb, ss, kb):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    card = main(["--device", DEVICE])
+    card_s = time.perf_counter() - t0
+    launches = {k: v for mod in (sb, ss, kb) for k, v in mod.LAUNCHES.items()
+                if v}
+    cpu, cpu_s = twin.result()
+    require(card["p_star"] == cpu["p_star"],
+            f"{name}: P* {card['p_star']} on the card, {cpu['p_star']} on "
+            "the CPU")
+    errs = {k: trace_rel(card[k], cpu[k]) for k in card
+            if k in ("rho", "fstar", "lambdas", "objectives")
+            or k.endswith("_F")}
+    nnz = {k: int(np.max(np.abs(np.asarray(card[k]) - np.asarray(cpu[k]))))
+           for k in card if k == "nnz" or k.endswith("_nnz")}
+    same_lams = ""
+    if "lambdas" in card:
+        lam, clam = np.asarray(card["lambdas"]), np.asarray(cpu["lambdas"])
+        same_lams = (f", λ equal bit for bit {int(np.sum(lam == clam))} of "
+                     f"{clam.size}")
+    for k in kernels:
+        require(launches.get(k, 0) > 0,
+                f"{name}: kernel {k} was not launched ({launches})")
+    worst = max(errs.values())
+    print(f"{name}: card vs CPU: P* {card['p_star']} both; largest rel. "
+          f"difference {worst:.3e} (" + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items()) + f"; tol {EX_RTOL:g})"
+          f"{same_lams}, final nnz apart by " + ", ".join(
+              f"{k} {v}" for k, v in nnz.items()) + f" (tol {EX_NNZ_TOL}); "
+          f"card {card_s:.2f} s, CPU {cpu_s:.2f} s host clock (each beside "
+          f"the other: the CPU's in a worker); kernel launches on the card "
+          f"{launches or 'none'} [{smi}]")
+    require(worst <= EX_RTOL, f"{name}: card vs CPU {errs} > {EX_RTOL:g}")
+    require(max(nnz.values()) <= EX_NNZ_TOL,
+            f"{name}: final nnz apart by {nnz} > {EX_NNZ_TOL}")
+    return dict(p_star=card["p_star"], rel_err=errs, nnz_apart=nnz,
+                launches=launches, card_s=card_s, cpu_s=cpu_s), card, cpu
+
+
+def _probe_cut(args, dev, smi) -> dict:
+    """``lm_probe``'s pipeline on Qwen3-4B's published widths cut to
+    ``LM_CPU_LAYERS`` layers, held against the CPU: the weights drawn on
+    the card from --seed, warmed up ``EX_CUT_WARMUP`` steps there and
+    copied to the host; ``EX_CUT_BATCHES`` feature batches of
+    ``EX_CUT_ROWS`` rows featurized on both in f32 and bf16 (features to
+    ``LM_F32_TOL`` / ``LM_BF16_TOL`` of the largest, labels equal); then
+    the probe on the CPU's standardized bf16 features, solved on the card
+    and on the CPU on the same draws (F traces within ``EX_RTOL``)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.examples import lm_probe as LP
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as TS
+
+    full = (ARCHS[LM_ARCH].smoke_config() if LM_SMOKE
+            else ARCHS[LM_ARCH].CONFIG)
+    cut = dataclasses.replace(full, num_layers=LM_CPU_LAYERS)
+    t0 = time.perf_counter()
+    state = TS.init_train_state(cut, torch.Generator(dev).manual_seed(
+        args.seed))
+
+    def loader(where):
+        return TokenLoader(LoaderConfig(vocab_size=cut.vocab_size,
+                                        global_batch=EX_CUT_ROWS,
+                                        seq_len=LP.SEQ), device=where)
+
+    state, loss = LP.warm_up(cut, state, loader(dev), EX_CUT_WARMUP)
+    host = M.to_device(state.params, "cpu")
+    out = dict(layers=cut.num_layers, d_model=cut.d_model,
+               warmup_loss=float(loss))
+    feats = {}
+    for tag, dtype, tol in (("f32", torch.float32, LM_F32_TOL),
+                            ("bf16", torch.bfloat16, LM_BF16_TOL)):
+        cfg = dataclasses.replace(cut, compute_dtype=dtype)
+        A, y = LP.featurize(cfg, state.params, loader(dev), EX_CUT_BATCHES)
+        hA, hy = LP.featurize(cfg, host, loader("cpu"), EX_CUT_BATCHES)
+        err = _rel(A, hA)
+        same = bool(torch.equal(y.cpu(), hy))
+        print(f"lm_probe cut {cut.num_layers} layers, d_model "
+              f"{cut.d_model}, {tag}: {EX_CUT_BATCHES} x {EX_CUT_ROWS} rows "
+              f"of {LP.SEQ} tokens after {EX_CUT_WARMUP} warm-up steps on "
+              f"the card, card vs CPU features: max |diff| / max |feature| "
+              f"{err:.3e} (tol {tol:g}), labels equal {same} [{smi}]")
+        require(math.isfinite(err) and err <= tol and same,
+                f"lm_probe cut {tag}: features {err:.3e} > {tol:g} or "
+                f"labels differ ({same})")
+        out[f"{tag}_rel_err"] = err
+        feats[tag] = (hA, hy)
+    del state, host
+    hA, hy = feats["bf16"]
+    hA = LP.standardize(hA)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        prob, ps, P, u = LP.probe_problem(hA.to(where), hy.to(where),
+                                          EX_CUT_ROUNDS)
+        runs[where.type] = (ps, P, LP.probe(prob, P, u))
+    (ps, P, res), (cps, cP, cres) = runs[dev.type], runs["cpu"]
+    require((ps, P) == (cps, cP), f"lm_probe cut: P*, P ({ps}, {P}) on the "
+            f"card, ({cps}, {cP}) on the CPU")
+    F, cF = res.trace.objective.cpu(), cres.trace.objective
+    err = trace_rel(F, cF)
+    print(f"lm_probe cut: Shotgun-CDN on the CPU's standardized bf16 "
+          f"features ({hA.shape[0]} x {hA.shape[1]}, P* {ps}, P {P}, "
+          f"{EX_CUT_ROUNDS} rounds, the same draws) card vs CPU F trace "
+          f"{err:.3e} (tol {EX_RTOL:g}); the cut {time.perf_counter() - t0:.1f}"
+          f" s [{smi}]")
+    require(bool(torch.isfinite(F).all()) and err <= EX_RTOL,
+            f"lm_probe cut: CDN trace {err:.3e} > {EX_RTOL:g}")
+    out.update(cdn_rel_err=err, p_star=ps, P=P,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def examples_leg(args) -> dict:
+    """The five example programs (``repro_torch.examples``), in one
+    process, each through its ``main`` as a user calls it.
+
+    1. ``lm_probe --full``: Qwen3-4B at full width and depth warmed up,
+       featurized and probed by Shotgun-CDN on the card (its F trace
+       finite and falling: no round rises by more than ``EX_RISE`` of F,
+       the rounding of a refused step's recomputed F), then its 2-layer
+       cut against the CPU (``_probe_cut``); nothing else runs beside it.
+    2. ``train_lm`` at the smoke size: ``EX_TRAIN_STEPS`` steps saving
+       every ``EX_SAVE_EVERY``; the same run stopped after ``EX_FAIL_AT``
+       steps and called again, resuming: its last loss equals the
+       uninterrupted run's bit for bit (deterministic algorithms on the
+       card), and the resumed losses that differ in any bit are counted.
+    3. ``quickstart``, ``lasso_paths`` and ``distributed_shotgun`` (one
+       NCCL rank) at their own sizes on the card, each against its CPU
+       run, made in a worker process from the end of 1 on
+       (``_cpu_example``, ``_example_twins``), the launches of kernels
+       #1, #3 and #4 by the block solves of ``distributed_shotgun``
+       counted from 0; the examples' own claims, on the card and on the
+       CPU: Shotgun reaches 0.5% of F* in fewer rounds than Shooting, the
+       block and fused solves agree to ``EX_GAP``."""
+    import concurrent.futures
+    import multiprocessing
+
+    t_leg = time.perf_counter()
+    dev = torch.device(DEVICE)
+    smi = nvidia_smi_line() if dev.type == "cuda" else "cpu"
+    out = {"lm_probe": _probe_full(args, dev, smi)}
+    # the solver examples' CPU twins, in a worker from here on
+    twins = ("quickstart", "lasso_paths", "distributed_shotgun")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = {name: pool.submit(_cpu_example, name) for name in twins}
+        out.update(_examples_on_card(dev, smi, cpu))
+    out["wall_s"] = time.perf_counter() - t_leg
+    print(f"examples leg body: {out['wall_s']:.1f} s wall [{smi}]")
+    return out
+
+
+def _probe_full(args, dev, smi) -> dict:
+    """``examples_leg``'s part 1: ``lm_probe`` (``--full`` on the card),
+    then its cut against the CPU; the card's cache emptied after each."""
+    import gc
+
+    from repro_torch.examples import lm_probe
+
+    card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    argv = ["--device", DEVICE] + ([] if LM_SMOKE else ["--full"])
+    probe = lm_probe.main(argv)
+    F = probe.pop("F")
+    # a round's F is its accepted trial's, or the recomputed F of the
+    # start point when none is accepted: the two may differ by rounding
+    rise = float(np.max(np.diff(F) / np.abs(F[1:]))) if F.size > 1 else 0.0
+    require(np.all(np.isfinite(F)) and rise <= EX_RISE and F[-1] < F[0],
+            f"lm_probe: F trace not finite and falling (largest rise "
+            f"{rise:.3e}): {F[:3]} ... {F[-3:]}")
+    probe.update(F_first=float(F[0]), F_last=float(F[-1]), F_rise=rise,
+                 wall_s=time.perf_counter() - t0)
+    print(f"lm_probe {probe['config']}, {probe['layers']} layers, d_model "
+          f"{probe['d_model']}: warm-up ({lm_probe.ROWS} x {lm_probe.SEQ} "
+          f"tokens a step) first step {probe['warmup_first_ms']:.1f} ms, "
+          f"then {probe['warmup_ms_a_step']:.1f} ms a step (mean of "
+          f"{lm_probe.WARMUP_STEPS - 1}), featurize "
+          f"{probe['featurize_ms']:.1f} ms ({probe['n']} rows), Shotgun-CDN "
+          f"{probe['cdn_ms_a_round']:.4f} ms a round (P {probe['P']}, P* "
+          f"{probe['p_star']}), F {probe['F_first']:.3f} -> "
+          f"{probe['F_last']:.3f} (largest rise of a round {rise:.2e} of F,"
+          f" tol {EX_RISE:g}), train accuracy {probe['accuracy']:.3f}, "
+          f"nnz {probe['nnz']}/{probe['d']}, peak "
+          + (f"{probe['peak_gib']:.2f} GiB" if card else "not measured")
+          + f"; {probe['wall_s']:.1f} s, nothing else running [{smi}]")
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    probe["cut"] = _probe_cut(args, dev, smi)
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    return probe
+
+
+def _examples_on_card(dev, smi, cpu) -> dict:
+    """``examples_leg``'s parts 2 and 3, with the CPU twins' futures
+    ``cpu``."""
+    import tempfile
+
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.train import SimulatedFailure
+
+    card = dev.type == "cuda"
+    out = {}
+
+    # 2. train_lm: uninterrupted, then stopped and resumed
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--device", DEVICE, "--steps", str(EX_TRAIN_STEPS),
+                "--save-every", str(EX_SAVE_EVERY)]
+        whole = train_lm.main(base + ["--ckpt-dir", f"{tmp}/whole"])
+        stopped = False
+        try:
+            train_lm.main(base + ["--ckpt-dir", f"{tmp}/cut",
+                                  "--simulate-failure-at", str(EX_FAIL_AT)])
+        except SimulatedFailure:
+            stopped = True
+        resumed = train_lm.main(base + ["--ckpt-dir", f"{tmp}/cut"])
+    tail = whole["losses"][-len(resumed["losses"]):]
+    differ = sum(a != b for a, b in zip(resumed["losses"], tail))
+    print(f"train_lm: {whole['params']} parameters, {EX_TRAIN_STEPS} steps "
+          f"at the example's batch and sequence (8 x 128 tokens), loss {whole['losses'][0]:.4f} -> "
+          f"{whole['losses'][-1]:.4f}; stopped after {EX_FAIL_AT} "
+          f"({stopped}) and resumed from step "
+          f"{EX_TRAIN_STEPS - len(resumed['losses'])}: last loss "
+          f"{resumed['losses'][-1]!r} (uninterrupted {tail[-1]!r}), "
+          f"{differ} of {len(tail)} resumed losses differ in any bit; "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    # bit for bit under the card's deterministic algorithms; a CPU
+    # rehearsal's reductions round by their operands' alignment
+    same = (resumed["losses"][-1] == tail[-1] if card else
+            abs(resumed["losses"][-1] - tail[-1]) <= 1e-6 * abs(tail[-1]))
+    require(stopped and same and len(resumed["losses"]) < EX_TRAIN_STEPS,
+            f"train_lm resume: stopped {stopped}, {resumed['losses'][-3:]} "
+            f"vs {tail[-3:]}")
+    out["train_lm"] = dict(params=whole["params"], steps=EX_TRAIN_STEPS,
+                           first_loss=whole["losses"][0],
+                           last_loss=whole["losses"][-1],
+                           resumed_steps=len(resumed["losses"]),
+                           resumed_losses_differ=differ,
+                           seconds=time.perf_counter() - t0)
+
+    # 3. the solver examples, card against CPU
+    out["quickstart"], q, cq = _example_twins(
+        "quickstart", cpu["quickstart"], (), smi)
+    rounds = {where: (r["shooting_rounds_to_tol"],
+                      r["shotgun_rounds_to_tol"])
+              for where, r in (("card", q), ("cpu", cq))}
+    print(f"quickstart: rounds to 0.5% of F* (F* {q['fstar']:.6f} on the "
+          f"card, {cq['fstar']:.6f} on the CPU), Shooting / Shotgun: card "
+          f"{rounds['card'][0]} / {rounds['card'][1]}, CPU "
+          f"{rounds['cpu'][0]} / {rounds['cpu'][1]}")
+    require(all(shotgun < shooting for shooting, shotgun in rounds.values()),
+            f"quickstart: Shooting / Shotgun rounds to 0.5% of F* {rounds}")
+    out["quickstart"].update(
+        rho=q["rho"], P=q["P"], shooting_rounds=rounds["card"][0],
+        shotgun_rounds=rounds["card"][1], cpu_shooting_rounds=rounds["cpu"][0],
+        cpu_shotgun_rounds=rounds["cpu"][1], final_F=q["final_F"],
+        fstar=q["fstar"], cpu_fstar=cq["fstar"])
+    out["lasso_paths"], lp, _ = _example_twins(
+        "lasso_paths", cpu["lasso_paths"], (), smi)
+    out["lasso_paths"].update(path_F=lp["path_F"],
+                              cold_F=float(lp["cold_F"][-1]))
+    out["distributed_shotgun"], ds, cds = _example_twins(
+        "distributed_shotgun", cpu["distributed_shotgun"],
+        ("fused_shotgun_rounds", "gather_block_matvec",
+         "scatter_block_update"), smi)
+    gaps = (ds["block_fused_gap"], cds["block_fused_gap"])
+    require(max(gaps) <= EX_GAP,
+            f"distributed_shotgun: block vs fused {gaps} (card, CPU) > "
+            f"{EX_GAP:g}")
+    out["distributed_shotgun"].update(
+        K=ds["K"], P_local=ds["P_local"], block_fused_gap=ds["block_fused_gap"],
+        cpu_block_fused_gap=cds["block_fused_gap"],
+        sharded_F=float(ds["sharded_F"][-1]), fused_F=float(ds["fused_F"][-1]),
+        scalar_F=float(ds["scalar_F"][-1]))
+    return out
+
+
 def shard_leg_child(args) -> dict:
     """The shard leg, one child process a part of ``SHARD_PARTS``
     (``chip_smoke.py --leg shard --part P``), with cuBLAS's deterministic
     workspace in its environment: the dry-run beside the one-rank part,
     then the four ranks.  Echoes each child's lines, raises (stopping the
     others) if one failed, returns {"shard": {part: its JSON}}."""
-    script = str(pathlib.Path(__file__).resolve())
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_CONFIG)
     found, t_leg = {}, time.perf_counter()
 
     def start(part):
-        return part, time.perf_counter(), subprocess.Popen(
-            [sys.executable, script, "--leg", "shard", "--part", part,
-             "--seed", str(args.seed)], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True, env=env)
+        return part, time.perf_counter(), _leg_start(
+            "shard", "--part", part, seed=args.seed, deterministic=True)
 
     # the dry-run (host only) beside the one-rank part (the card); the
     # four ranks, which take every host core, after them
@@ -3905,13 +4283,7 @@ def shard_leg_child(args) -> dict:
         runs = [start(part) for part in group]
         try:
             for part, t0, proc in runs:
-                stdout, stderr = proc.communicate(timeout=900)
-                lines = stdout.splitlines()
-                for ln in lines[:-1]:
-                    print(f"shard {part}: {ln}")
-                require(proc.returncode == 0 and lines, f"shard {part}: "
-                        f"exit {proc.returncode}: {stderr[-3000:]}")
-                found[part] = json.loads(lines[-1])
+                found[part] = _leg_result(f"shard {part}", proc, 900)
                 found[part]["wall_s"] = time.perf_counter() - t0
         finally:
             for _, _, proc in runs:
@@ -4044,7 +4416,9 @@ def _place_leafwise(tree, specs, mesh):
 
 
 def shard_one(args) -> dict:
-    """Part b: Qwen3-4B at full width and depth on one NCCL rank, a (1, 1)
+    """Part b: Qwen3-4B at full width, cut to ``SH1_LAYERS`` of its 36
+    layers (the script's time limit; each layer is alike), on one NCCL
+    rank, a (1, 1)
     mesh, every parameter, state, batch and cache leaf a DTensor placed
     by the rules, against the same model with plain tensors on the card:
     a ``SH1_PROMPT``-token prefill of ``SH1_SLOTS`` rows into
@@ -4073,7 +4447,7 @@ def shard_one(args) -> dict:
     card = dev.type == "cuda"
     smi = nvidia_smi_line() if card else "cpu"
     base = ARCHS[LM_ARCH].smoke_config() if LM_SMOKE else \
-        ARCHS[LM_ARCH].CONFIG
+        dataclasses.replace(ARCHS[LM_ARCH].CONFIG, num_layers=SH1_LAYERS)
     pol, out = SH.ShardingPolicy(), {}
     backend = ONE_RANK_BACKEND if card else "gloo"
     with ranks.one_rank(backend):
@@ -4293,8 +4667,9 @@ def gloo_card_collectives() -> dict:
 
 
 def shard_four(args) -> dict:
-    """Part c: Granite-MoE-1B at full width and depth on four gloo ranks
-    sharing the card, a (data=2, model=2) mesh: its experts placed by the
+    """Part c: Granite-MoE-1B at full width, cut to ``SH4_LAYERS`` of its
+    24 layers (the script's time limit; each layer is alike), on four gloo
+    ranks sharing the card, a (data=2, model=2) mesh: its experts placed by the
     rules (``wo`` over the experts on model, ``wi``/``wg`` over D on
     model), FSDP on data.  Gloo on card tensors is probed first for each
     collective DTensor issues (``gloo_card_collectives``); if one is
@@ -4379,7 +4754,8 @@ def _four_rank_main(rank, world, store, conf_json):
     ranks.join_group(rank, world, store, timeout_s=900)
     smi = nvidia_smi_line() if card.type == "cuda" else "cpu"
     base = (ARCHS[SH4_ARCH].smoke_config() if conf["smoke"]
-            else ARCHS[SH4_ARCH].CONFIG)
+            else dataclasses.replace(ARCHS[SH4_ARCH].CONFIG,
+                                     num_layers=SH4_LAYERS))
     f32 = dataclasses.replace(base, compute_dtype=torch.float32,
                               cache_dtype=torch.float32)
     # the same weights and tokens on every rank, drawn on the CPU

@@ -17,7 +17,8 @@ The active-set heuristic down-weights coordinates at zero with
 |grad| < λ − ε in the draw (they cannot move), which "speeds up
 optimization, though it can limit parallelism by shrinking d".  Those draws
 depend on the iterate, so they come from a ``torch.Generator`` (Gumbel-max
-over the logits, as ``jax.random.categorical`` draws); with
+over the logits, as ``jax.random.categorical`` draws), or from an explicit
+(rounds, P, d) stream of the uniforms behind that noise; with
 ``active_set=False`` the draws are uniform with replacement, from the
 generator or an explicit (rounds, P) ``idx`` stream.  Dense designs only.
 """
@@ -71,20 +72,24 @@ def armijo_step(f0, decrease, f_t):
             torch.where(accept, f_j, f0))
 
 
-def _categorical(generator, logits, P: int) -> torch.Tensor:
-    """(P,) draws from softmax(logits) by Gumbel-max on ``generator``."""
-    u = torch.rand((P, logits.shape[0]), generator=generator,
-                   device=logits.device)
+def _categorical(generator, logits, P: int, u=None) -> torch.Tensor:
+    """(P,) draws from softmax(logits) by Gumbel-max on ``generator``, or
+    on the (P, d) uniforms ``u``."""
+    if u is None:
+        u = torch.rand((P, logits.shape[0]), generator=generator,
+                       device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     return torch.argmax(logits + gumbel, dim=1)
 
 
 def shotgun_cdn_solve(prob: Problem, generator: torch.Generator | None = None,
                       *, P: int, rounds: int, idx=None, x0=None,
-                      active_set: bool = True) -> Result:
+                      active_set: bool = True, uniforms=None) -> Result:
     """Shotgun-CDN: P Newton coordinate updates a round, one shared
-    backtracked step.  ``active_set=True`` draws from ``generator`` with
-    the shrinking logits refreshed every ``SHRINK_EVERY`` rounds;
+    backtracked step.  ``active_set=True`` draws from ``generator`` (or
+    from ``uniforms``, (rounds, P, d) in [0, 1), moved to A's device once:
+    a stream drawn on the CPU gives every device the same draws) with the
+    shrinking logits refreshed every ``SHRINK_EVERY`` rounds;
     ``active_set=False`` takes ``idx`` (rounds, P) or draws uniformly from
     ``generator``."""
     A, y, lam = obj.require_dense(prob.A, "CDN"), prob.y, prob.lam
@@ -93,12 +98,22 @@ def shotgun_cdn_solve(prob: Problem, generator: torch.Generator | None = None,
     if active_set:
         if idx is not None:
             raise ValueError("the active set draws from the iterate: pass "
-                             "a generator, or idx with active_set=False")
-        if generator is None:
-            raise ValueError("pass a torch.Generator for the active-set "
-                             "draws")
+                             "a generator or uniforms, or idx with "
+                             "active_set=False")
+        if uniforms is not None:
+            uniforms = torch.as_tensor(uniforms, dtype=torch.float32)
+            if tuple(uniforms.shape) != (rounds, P, d):
+                raise ValueError(f"uniforms shape {tuple(uniforms.shape)} "
+                                 f"!= (rounds, P, d) = {(rounds, P, d)}")
+            uniforms = uniforms.to(dev)
+        elif generator is None:
+            raise ValueError("pass a torch.Generator or uniforms for the "
+                             "active-set draws")
         stream = None
     else:
+        if uniforms is not None:
+            raise ValueError("uniforms feed the active-set draws: pass idx "
+                             "with active_set=False")
         stream = coord_stream(idx, generator, rounds, P, d, dev)
     x, z = _start(A, x0, d)
     logits = torch.zeros(d, dtype=torch.float32, device=dev)
@@ -107,8 +122,9 @@ def shotgun_cdn_solve(prob: Problem, generator: torch.Generator | None = None,
     fs, nnzs = [], []
     with torch.profiler.record_function(ROUNDS_RANGE):
         for t in range(rounds):
-            ii = (_categorical(generator, logits, P) if stream is None
-                  else stream[t])
+            ii = (stream[t] if stream is not None else _categorical(
+                generator, logits, P, None if uniforms is None
+                else uniforms[t]))
             Ap = A[:, ii]
             g, h = _newton_quantities(Ap, z, y, prob.loss)
             # Newton direction with L1: d_j = S(x_j − g_j/h_j, λ/h_j) − x_j

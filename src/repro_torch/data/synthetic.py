@@ -1,10 +1,12 @@
 """Synthetic dataset generators: the paper's Lasso categories
 (Sec. 4.1.3) and its logistic-regression regimes (Sec. 4.2.3).
 
-``sparco``, ``singlepixcam``, ``sparse_imaging``, ``large_sparse`` and
-``logistic_data`` are numpy copies of ``repro.data.synthetic``: the same
+``sparco``, ``singlepixcam``, ``sparse_imaging``, ``large_sparse``,
+``logistic_data`` and the LM token stream ``lm_token_batches`` are numpy
+copies of ``repro.data.synthetic``: the same
 seed gives bit-identical arrays, so the two packages can be fed the same
-problem.  Each returns (A, y, x_true) with columns NOT pre-normalized; use
+problem.  Each but the token stream returns (A, y, x_true) with columns
+NOT pre-normalized; use
 ``objectives.make_problem``.  The sparse categories and ``logistic_data``
 take ``layout="bcsc"`` and then pack the same matrix as a host (CPU)
 ``BlockedCSC`` — host data like the dense layout's numpy arrays;
@@ -111,6 +113,22 @@ def logistic_data(seed=0, n=4096, d=512, nnz_frac=0.05, flip=0.02,
     flips = rng.random(n) < flip
     y = np.where(flips, -y, y)
     return _maybe_bcsc(A, layout), y, x
+
+
+def lm_token_batches(seed, vocab_size, batch, seq_len, num_batches):
+    """Deterministic synthetic token stream (numpy (inputs, targets)
+    int32 pairs, bit-identical to the reference's for the same seed): a
+    Zipfian unigram model with a short induction pattern, so a small LM
+    measurably learns something."""
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / np.arange(1, vocab_size + 1)
+    probs /= probs.sum()
+    for _ in range(num_batches):
+        toks = rng.choice(vocab_size, size=(batch, seq_len + 1), p=probs)
+        # induction: token t repeats 8 steps later with probability 1/2
+        rep = rng.random((batch, seq_len + 1)) < 0.5
+        toks[:, 8:] = np.where(rep[:, 8:], toks[:, :-8], toks[:, 8:])
+        yield toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

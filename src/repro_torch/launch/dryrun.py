@@ -426,7 +426,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
 # 1-group and 2-group variants with grad_accum 1, fit cost = overhead +
 # G * per_group, and extrapolate to the real depth — exact for costs linear
 # in depth, which layer flops, bytes and collectives are (embed, head,
-# loss and optimizer live in the overhead term).
+# loss and optimizer live in the overhead term).  Every group costs the
+# same because the model pins the residual stream's layout at each group
+# boundary (``sharding.shard_btd``, where the reference's scan carry has one
+# sharding): a decode step's residual otherwise leaves the first group
+# Partial and enters every later group so, and the later groups' reductions
+# differ from the first's.
 # ---------------------------------------------------------------------------
 
 def _shallow(cfg, k: int):

@@ -472,5 +472,9 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
                             cache=cache["blocks"][layer], pos=pos,
                             enc_out=enc_out, positions3=positions3,
                             decode=spec.mixer == "mamba", rope=rope)
+        if (layer + 1) % len(cfg.pattern) == 0:
+            # the residual's layout pinned at each group boundary, as the
+            # reference's scan carry is: every group then costs the same
+            h = SH.shard_btd(h)
     logits, _ = _head(cfg, params, h, dtype)
     return logits, {"blocks": cache["blocks"], "enc_out": enc_out}

@@ -8,7 +8,8 @@
   (2, 4) fake mesh at the smoke size, with the argument bytes the specs
   give.
 - ``measure_cell``'s two-point extrapolation equals the full-depth count
-  of flops and collective bytes, as the costs are linear in depth.
+  of flops and collective bytes for a prefill and two decodes, as the
+  costs are linear in depth.
 - The CLI writes under ``build/dryrun/`` and nothing under
   ``benchmarks/``."""
 import dataclasses
@@ -71,15 +72,22 @@ def test_cells_run_on_a_fake_mesh(arch, shape, tmp_path, monkeypatch):
     assert (tmp_path / f"{arch}__{shape}__host__roofline.json").exists()
 
 
-def test_extrapolation_equals_the_full_depth_count(tmp_path, monkeypatch):
-    """A three-layer prefill (the decode step's collectives are not linear
-    in depth: DTensor's layouts after the first layer differ)."""
-    shape = "prefill_32k"
+@pytest.mark.parametrize("arch, shape, layers", [
+    ("qwen3-4b", "prefill_32k", 3), ("qwen3-4b", "decode_32k", 3),
+    ("jamba-1.5-large-398b", "decode_32k", None)])
+def test_extrapolation_equals_the_full_depth_count(arch, shape, layers,
+                                                   tmp_path, monkeypatch):
+    """The two-point fit equals the full-depth count exactly, for a
+    three-layer prefill and decode and Jamba's two-group smoke decode (the
+    decode step pins the residual's layout at each group boundary, so every
+    group costs the same)."""
     monkeypatch.setattr(D, "RESULTS", tmp_path)
-    cfg = dataclasses.replace(ARCHS["qwen3-4b"].smoke_config(), num_layers=3)
+    cfg = ARCHS[arch].smoke_config()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     kw = dict(device="cpu", cfg_override=cfg, mesh=HOST)
-    full = D.run_cell("qwen3-4b", shape, "host", **kw)
-    est = D.measure_cell("qwen3-4b", shape, "host", **kw)
+    full = D.run_cell(arch, shape, "host", **kw)
+    est = D.measure_cell(arch, shape, "host", **kw)
     assert full["status"] == est["status"] == "ok"
     assert est["hlo_flops_per_device"] == full["hlo_flops_per_device"]
     assert est["collectives"] == full["collectives"]
