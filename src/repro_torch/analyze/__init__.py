@@ -6,7 +6,8 @@ Every rule keeps the id of the reference rule whose job it does in torch:
   source (no execution)
     SL001  host sync inside a round    (reference: trace purity in jit,
            scan and kernel bodies)     ``.item()``, ``.cpu()``, ``print``,
-           host RNG ... inside ``record_function(<NAME>_RANGE)`` blocks
+           host RNG ... inside ``record_function(<NAME>_RANGE)`` and
+           ``obs.span(<NAME>_RANGE)`` blocks
     SL002  f32 accumulation            (reference: dtype accumulation)
            uncast matmuls in kernels/ and dist/, bf16 ``+=`` and bf16
            ``__shared__`` arrays in csrc/

@@ -9,10 +9,11 @@ anywhere in milliseconds.  Each keeps the id and the role of its rule in
                          ``random.*``: the port draws from an explicit
                          ``torch.Generator``) inside the body of a ``with
                          torch.profiler.record_function(<NAME>_RANGE)``
-                         block — the windows (``core/shotgun.py``
-                         ``ROUNDS_RANGE``, ``core/baselines/common.py``
-                         ``ITERS_RANGE``) inside which a solve must never
-                         wait on the card — and in defs nested there.
+                         or ``with obs.span(<NAME>_RANGE)`` block — the
+                         windows (``core/shotgun.py`` ``ROUNDS_RANGE``,
+                         ``core/baselines/common.py`` ``ITERS_RANGE``)
+                         inside which a solve must never wait on the card
+                         — and in defs nested there.
                          An AST walk cannot see every host read: a
                          ``float(t)``, an index assignment from a host
                          value into a card tensor (``stop[-1] = True``) or
@@ -70,6 +71,9 @@ SYNC_METHODS = ("item", "tolist", "cpu", "numpy")
 SYNC_CALLS_AST = ("torch.cuda.synchronize", "print")
 HOST_CALL_PREFIXES = ("time.", "np.random.", "numpy.random.", "random.")
 RANGE_SUFFIX = "_RANGE"
+# Besides torch's ``record_function``, the port's spans open a profiler
+# range (``repro_torch.obs.span``, called through the module or imported).
+RANGE_OPENERS = ("obs.span", "span")
 
 _MATMUL_CALLS = {f"torch.{f}" for f in ("matmul", "mm", "mv", "bmm", "einsum",
                                         "addmv", "addmm", "dot")}
@@ -164,14 +168,15 @@ def _is_range_item(item: ast.withitem) -> bool:
     call = item.context_expr
     if not isinstance(call, ast.Call) or not call.args:
         return False
-    if not dotted_name(call.func).endswith("record_function"):
+    name = dotted_name(call.func)
+    if not (name.endswith("record_function") or name in RANGE_OPENERS):
         return False
     return dotted_name(call.args[0]).rsplit(".", 1)[-1].endswith(RANGE_SUFFIX)
 
 
 def _collect_ranges(tree: ast.AST) -> set:
-    """The statements of every ``with record_function(<NAME>_RANGE)``
-    body."""
+    """The statements of every ``with record_function(<NAME>_RANGE)`` or
+    ``with obs.span(<NAME>_RANGE)`` body."""
     out: set = set()
     for node in ast.walk(tree):
         if isinstance(node, (ast.With, ast.AsyncWith)) and \

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core import health
 from repro_torch.core.objectives import Problem
 from repro_torch.core.shotgun import Result, Trace
@@ -352,6 +353,8 @@ class WarmStartCache:
         return sum(len(v) for v in self._store.values())
 
     def put(self, problem_id, lam, x, loss: str = "lasso") -> None:
+        if isinstance(x, torch.Tensor):
+            obs.count("serve.cache_host_bytes", x.nbytes)
         self._store.setdefault((problem_id, loss), {})[float(lam)] = _host(x)
 
     def get(self, problem_id, lam, loss: str = "lasso"):

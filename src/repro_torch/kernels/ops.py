@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core import health
 from repro_torch.core import objectives as obj
 from repro_torch.core.objectives import Problem
@@ -44,6 +45,15 @@ from repro_torch.kernels.shotgun_sparse import (block_delta,
                                                 sparse_gather_block_matvec,
                                                 sparse_scatter_block_update)
 
+# The spans of a solve (``obs``): the whole call, and its draws, padding
+# and launch loop (sentinel included).  The loop's span is not a
+# ``*_RANGE`` window: a guarded loop's ``health.init_guard_state`` copies
+# p_eff from the host, and that copy waits for the stream.
+SOLVE_SPAN = "repro_torch.solve"
+DRAWS_SPAN = "repro_torch.solve.draws"
+PAD_SPAN = "repro_torch.solve.pad"
+LAUNCHES_SPAN = "repro_torch.solve.launches"
+
 
 def pad_problem(A, y, block=BLOCK, tile_n=TILE_N):
     """Zero-pad A to (n % tile_n == 0, d % block == 0); returns (A, y, mask)
@@ -55,6 +65,8 @@ def pad_problem(A, y, block=BLOCK, tile_n=TILE_N):
         A = F.pad(A, (0, d_pad, 0, n_pad))
         y = F.pad(y, (0, n_pad))
     mask = F.pad(torch.ones(n, dtype=A.dtype, device=A.device), (0, n_pad))
+    obs.count("solver.pad_bytes",
+              obs.nbytes(A, y, mask) if n_pad or d_pad else mask.nbytes)
     return A, y, mask
 
 
@@ -142,35 +154,39 @@ def _launch_loop(launch, objective, x, z, blk_idx, guard):
     is discarded wholesale — iterate and margin roll back to the last-good
     snapshot, k_eff halves — all on the device.
     """
-    K = blk_idx.shape[2]
-    fs, nnzs = [], []
-    if guard is None:
+    obs.count("solver.launches", blk_idx.shape[0])
+    with obs.span(LAUNCHES_SPAN):
+        K = blk_idx.shape[2]
+        fs, nnzs = [], []
+        if guard is None:
+            for idx in blk_idx:
+                x, z, f, nz, _ = launch(z, x, idx, None, None)
+                fs.append(f)
+                nnzs.append(nz)
+            fs = torch.cat(fs)
+            return Result(x=x, z=z, trace=Trace(objective=fs,
+                                                nnz=torch.cat(nnzs)),
+                          status=health.status_from_trace(fs))
+
+        p_floor = max(1, min(guard.p_min, K))
+        gs = health.init_guard_state(x, z, objective(z, x), K)
         for idx in blk_idx:
-            x, z, f, nz, _ = launch(z, x, idx, None, None)
-            fs.append(f)
-            nnzs.append(nz)
+            x_new, z_new, f, nz, h = launch(
+                z, x, idx, gs.p_eff,
+                health.guard_threshold(gs.f_good, guard.factor))
+            x, z, f_rep, gs, bad = health.apply_sentinel(
+                gs, x_new, z_new, f[-1], factor=guard.factor,
+                p_floor=p_floor, health=h)
+            # A rolled-back launch reports the snapshot objective for all
+            # its rounds: the trace stays finite through a recovered
+            # divergence.
+            fs.append(torch.where(bad, f_rep.expand_as(f), f))
+            nnzs.append(torch.where(
+                bad, torch.sum(x != 0).to(torch.int32).expand_as(nz), nz))
         fs = torch.cat(fs)
         return Result(x=x, z=z, trace=Trace(objective=fs,
                                             nnz=torch.cat(nnzs)),
-                      status=health.status_from_trace(fs))
-
-    p_floor = max(1, min(guard.p_min, K))
-    gs = health.init_guard_state(x, z, objective(z, x), K)
-    for idx in blk_idx:
-        x_new, z_new, f, nz, h = launch(
-            z, x, idx, gs.p_eff,
-            health.guard_threshold(gs.f_good, guard.factor))
-        x, z, f_rep, gs, bad = health.apply_sentinel(
-            gs, x_new, z_new, f[-1], factor=guard.factor, p_floor=p_floor,
-            health=h)
-        # A rolled-back launch reports the snapshot objective for all its
-        # rounds: the trace stays finite through a recovered divergence.
-        fs.append(torch.where(bad, f_rep.expand_as(f), f))
-        nnzs.append(torch.where(
-            bad, torch.sum(x != 0).to(torch.int32).expand_as(nz), nz))
-    fs = torch.cat(fs)
-    return Result(x=x, z=z, trace=Trace(objective=fs, nnz=torch.cat(nnzs)),
-                  status=health.status_from_trace(fs, gs.backoffs))
+                      status=health.status_from_trace(fs, gs.backoffs))
 
 
 def _objective(y, mask, lam, loss: str):
@@ -331,6 +347,13 @@ def block_shotgun_solve(prob: Problem, generator: torch.Generator | None = None,
     sample padding (n is arbitrary), x kept in f32 at the padded width and
     sliced to d, z full length (n,).
     """
+    with obs.span(SOLVE_SPAN):
+        return _block_shotgun_solve(prob, generator, spec, blk_idx, x0,
+                                    rounds_per_launch)
+
+
+def _block_shotgun_solve(prob, generator, spec, blk_idx, x0,
+                         rounds_per_launch) -> Result:
     if spec is None:
         raise TypeError("block_shotgun_solve needs spec=SolverSpec(...); the "
                         "legacy (K, rounds) kwargs are not ported yet")
@@ -351,7 +374,8 @@ def block_shotgun_solve(prob: Problem, generator: torch.Generator | None = None,
         if x0 is not None:
             x0 = F.pad(torch.as_tensor(x0, dtype=torch.float32, device=dev),
                        (0, S.d_pad - prob.d))
-        idx = _block_stream(blk_idx, generator, rounds, K, S.nblk, dev)
+        with obs.span(DRAWS_SPAN):
+            idx = _block_stream(blk_idx, generator, rounds, K, S.nblk, dev)
         if spec.fused:
             res = _fused_sparse_solve(
                 S, prob.y, prob.lam, prob.beta,
@@ -362,13 +386,15 @@ def block_shotgun_solve(prob: Problem, generator: torch.Generator | None = None,
                                 prob.loss, x0=x0, guard=spec.guard)
         return Result(x=res.x[: prob.d], z=res.z, trace=res.trace,
                       status=res.status)
-    A, y, mask = pad_problem(prob.A, prob.y)
+    with obs.span(PAD_SPAN):
+        A, y, mask = pad_problem(prob.A, prob.y)
     dev = A.device
     if x0 is not None:
         x0 = F.pad(torch.as_tensor(x0, dtype=torch.float32, device=dev),
                    (0, A.shape[1] - prob.d))
-    idx = _block_stream(blk_idx, generator, rounds, K, A.shape[1] // BLOCK,
-                        dev)
+    with obs.span(DRAWS_SPAN):
+        idx = _block_stream(blk_idx, generator, rounds, K,
+                            A.shape[1] // BLOCK, dev)
     if spec.fused:
         res = _fused_solve(A, y, mask, prob.lam, prob.beta,
                            idx.reshape(rounds // rounds_per_launch,

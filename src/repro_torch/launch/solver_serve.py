@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core import objectives as obj
 from repro_torch.core.batched import (BatchMeta, SlotArrays, WarmStartCache,
                                       batch_meta_of, launch_converged,
@@ -59,6 +60,13 @@ from repro_torch.kernels.ops import _block_stream
 from repro_torch.launch.slots import SlotBoard
 
 GUARD_FACTOR = 10.0         # trip threshold: F > factor·|F_prev| + factor
+
+# The service's spans (``obs``): an admission and its phases, a scheduler
+# step (the batched launch, then the host read of f and health), and a
+# finalized request.
+ADMIT_SPAN = "repro_torch.serve.admit"
+LAUNCH_SPAN = "repro_torch.serve.launch"
+FINALIZE_SPAN = "repro_torch.serve.finalize"
 
 
 @dataclasses.dataclass
@@ -115,6 +123,7 @@ def _write_slot(stacked: SlotArrays, x, z, x_snap, z_snap, slot: int,
     and refresh that slot's rollback snapshot — IN PLACE: the stacked
     tensors belong to the service, and an admission copies one slot's
     worth instead of rebuilding all S."""
+    obs.count("serve.admit_bytes", obs.nbytes(*sa) + 2 * obs.nbytes(x0, z0))
     for full, v in zip(stacked, sa):
         if isinstance(full, ScatterOrder):
             for f, u in zip(full, v):
@@ -209,98 +218,120 @@ class SolverService:
                 f"mixed-loss stream: request {req.problem_id!r} carries "
                 f"loss {req.prob.loss!r} but this stream is admitted for "
                 f"loss {m.loss!r}")
-        sa = normalize_problem(req.prob, m)
-        x0 = self._warm_start(req)
+        with obs.span(ADMIT_SPAN, rid=req.rid):
+            with obs.span(ADMIT_SPAN + ".layout"):
+                sa = normalize_problem(req.prob, m)
+            with obs.span(ADMIT_SPAN + ".warm"):
+                x0 = self._to_canvas(self._warm_start(req))
+            mask = (sa.mask if m.layout == "dense"
+                    else torch.ones(m.n_pad, dtype=torch.float32,
+                                    device=dev))
+            built = obs.nbytes(*sa, x0)
+            with obs.span(ADMIT_SPAN + ".margin"):
+                if req.z_resume is not None:
+                    # deadline-evicted solve resuming mid-trajectory:
+                    # restore the kernel-accumulated margin exactly
+                    # (recomputing z = A·x0 would fork the fp trajectory —
+                    # determinism test)
+                    z0 = req.z_resume
+                    req.z_resume = None
+                else:
+                    z0 = (_sparse_margin(sa.rows, sa.vals, x0, m.n_pad)
+                          if m.layout == "bcsc" else _dense_margin(sa.A, x0))
+                    built += z0.nbytes
+            obs.count("serve.admit_bytes", built)
+            _write_slot(self.stacked, self.x, self.z, self.x_snap,
+                        self.z_snap, slot, sa, x0, z0)
+            if req.f_prev == float("inf"):
+                with obs.span(ADMIT_SPAN + ".objective"):
+                    req.f_prev = float(_slot_objective(z0, sa.y, mask,
+                                                       sa.lam, x0, m.loss))
+            req.k_eff = self.K if req.k_eff == 0 else req.k_eff
+            if req.sched is None:
+                # The request's whole draw schedule is fixed at first
+                # admission from ITS stream — independent of slot,
+                # co-tenants and eviction history, which makes the served
+                # stream deterministic.
+                if req.blk_sched is None and req.seed is None:
+                    raise ValueError(f"request {req.rid}: pass seed= or "
+                                     "blk_sched=")
+                gen = (None if req.blk_sched is not None else
+                       torch.Generator(device=dev).manual_seed(
+                           int(req.seed)))
+                rounds = self.max_launches * self.R
+                with obs.span(ADMIT_SPAN + ".draws"):
+                    req.sched = _block_stream(
+                        req.blk_sched, gen, rounds, self.K, m.nblk,
+                        dev).reshape(self.max_launches, self.R, self.K)
+            self.board.place(req, slot)
+
+    def _to_canvas(self, x0) -> torch.Tensor:
+        """A warm start (true-d, on the host or the card; None for cold)
+        as a padded f32 iterate on the service's device."""
+        m, dev = self.meta, self.device
         if x0 is None:
-            x0 = torch.zeros(m.d_pad, dtype=torch.float32, device=dev)
-        else:
-            x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
-            x0 = F.pad(x0, (0, m.d_pad - x0.shape[0]))
-        mask = (sa.mask if m.layout == "dense"
-                else torch.ones(m.n_pad, dtype=torch.float32, device=dev))
-        if req.z_resume is not None:
-            # deadline-evicted solve resuming mid-trajectory: restore the
-            # kernel-accumulated margin exactly (recomputing z = A·x0 would
-            # fork the fp trajectory — determinism test)
-            z0 = req.z_resume
-            req.z_resume = None
-        elif m.layout == "bcsc":
-            z0 = _sparse_margin(sa.rows, sa.vals, x0, m.n_pad)
-        else:
-            z0 = _dense_margin(sa.A, x0)
-        _write_slot(self.stacked, self.x, self.z, self.x_snap, self.z_snap,
-                    slot, sa, x0, z0)
-        if req.f_prev == float("inf"):
-            req.f_prev = float(_slot_objective(z0, sa.y, mask, sa.lam, x0,
-                                               m.loss))
-        req.k_eff = self.K if req.k_eff == 0 else req.k_eff
-        if req.sched is None:
-            # The request's whole draw schedule is fixed at first admission
-            # from ITS stream — independent of slot, co-tenants and
-            # eviction history, which makes the served stream
-            # deterministic.
-            if req.blk_sched is None and req.seed is None:
-                raise ValueError(f"request {req.rid}: pass seed= or "
-                                 "blk_sched=")
-            gen = (None if req.blk_sched is not None else
-                   torch.Generator(device=dev).manual_seed(int(req.seed)))
-            rounds = self.max_launches * self.R
-            req.sched = _block_stream(req.blk_sched, gen, rounds, self.K,
-                                      m.nblk, dev).reshape(
-                self.max_launches, self.R, self.K)
-        self.board.place(req, slot)
+            return torch.zeros(m.d_pad, dtype=torch.float32, device=dev)
+        if not (isinstance(x0, torch.Tensor) and x0.device == dev):
+            obs.count("serve.cache_host_bytes", x0.nbytes)
+        x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+        return F.pad(x0, (0, m.d_pad - x0.shape[0]))
 
     # -- the batched scheduler step ---------------------------------------
     def _launch_step(self) -> None:
-        S = len(self.board.slots)
-        idx = [self._idle_idx] * S
-        k_eff = np.zeros(S, np.float32)
-        guard = np.full(S, np.inf, np.float32)
-        for i, r in enumerate(self.board.slots):
-            if r is None or r.done:
-                continue
-            idx[i] = r.sched[r.launches]
-            k_eff[i] = r.k_eff
-            guard[i] = GUARD_FACTOR * abs(r.f_prev) + GUARD_FACTOR
-        self.x, self.z, fs, _, hlt = launch_rounds(
-            self.meta, self.stacked, self.z, self.x, torch.stack(idx),
-            torch.from_numpy(k_eff).to(self.device),
-            guard_f=torch.from_numpy(guard).to(self.device))
-        self.launch_count += 1
-        # the launch-boundary contract: one host read of f and health
-        fs_h, hlt_h = fs.cpu().numpy(), hlt.cpu().numpy()
-        for i, r in enumerate(self.board.slots):
-            if r is None or r.done:
-                continue
-            if hlt_h[i] > 0 or not np.isfinite(fs_h[i, -1]):
-                # in-kernel guard tripped: backoff at slot granularity —
-                # roll back to the admission snapshot, halve k_eff
-                if r.k_eff <= 1:
-                    self._finalize(i, r, "diverged")
+        with obs.span(LAUNCH_SPAN):
+            S = len(self.board.slots)
+            idx = [self._idle_idx] * S
+            k_eff = np.zeros(S, np.float32)
+            guard = np.full(S, np.inf, np.float32)
+            for i, r in enumerate(self.board.slots):
+                if r is None or r.done:
                     continue
-                r.k_eff = max(1, r.k_eff // 2)
-                _rollback_slot(self.x, self.z, self.x_snap, self.z_snap, i)
-                r.launches += 1    # burn the launch: draws stay scheduled
-                if r.launches >= self.max_launches:
-                    self._finalize(i, r, "diverged")
-                continue
-            r.launches += 1
-            r.rounds_used += self.R
-            done_budget = r.launches >= self.max_launches
-            r_converged = launch_converged(r.f_prev, fs_h[i], self.tol)
-            r.f_prev = float(fs_h[i, -1])
-            if r_converged or done_budget:
-                self._finalize(i, r, "ok")
+                idx[i] = r.sched[r.launches]
+                k_eff[i] = r.k_eff
+                guard[i] = GUARD_FACTOR * abs(r.f_prev) + GUARD_FACTOR
+            with obs.span(LAUNCH_SPAN + ".kernel"):
+                self.x, self.z, fs, _, hlt = launch_rounds(
+                    self.meta, self.stacked, self.z, self.x,
+                    torch.stack(idx), torch.from_numpy(k_eff).to(self.device),
+                    guard_f=torch.from_numpy(guard).to(self.device))
+            self.launch_count += 1
+            # the launch-boundary contract: one host read of f and health
+            with obs.span(LAUNCH_SPAN + ".read"):
+                fs_h, hlt_h = fs.cpu().numpy(), hlt.cpu().numpy()
+            for i, r in enumerate(self.board.slots):
+                if r is None or r.done:
+                    continue
+                if hlt_h[i] > 0 or not np.isfinite(fs_h[i, -1]):
+                    # in-kernel guard tripped: backoff at slot granularity
+                    # — roll back to the admission snapshot, halve k_eff
+                    if r.k_eff <= 1:
+                        self._finalize(i, r, "diverged")
+                        continue
+                    r.k_eff = max(1, r.k_eff // 2)
+                    _rollback_slot(self.x, self.z, self.x_snap, self.z_snap,
+                                   i)
+                    r.launches += 1    # burn the launch: draws stay scheduled
+                    if r.launches >= self.max_launches:
+                        self._finalize(i, r, "diverged")
+                    continue
+                r.launches += 1
+                r.rounds_used += self.R
+                done_budget = r.launches >= self.max_launches
+                r_converged = launch_converged(r.f_prev, fs_h[i], self.tol)
+                r.f_prev = float(fs_h[i, -1])
+                if r_converged or done_budget:
+                    self._finalize(i, r, "ok")
 
     def _finalize(self, slot: int, req: SolveRequest, status: str) -> None:
-        req.x = self.x[slot, : req.prob.d].clone()
-        req.f_final = req.f_prev
-        req.status = status
-        req.done = True
-        req.k_eff = 0
-        if status == "ok":
-            self.cache.put(req.problem_id, float(req.prob.lam), req.x,
-                           loss=req.prob.loss)
+        with obs.span(FINALIZE_SPAN, rid=req.rid):
+            req.x = self.x[slot, : req.prob.d].clone()
+            req.f_final = req.f_prev
+            req.status = status
+            req.done = True
+            req.k_eff = 0
+            if status == "ok":
+                self.cache.put(req.problem_id, float(req.prob.lam), req.x,
+                               loss=req.prob.loss)
 
     def _save_partials(self) -> None:
         """Before deadline eviction: stash each stale slot's iterate and
@@ -332,6 +363,9 @@ class SolverService:
             # evicted slots go empty → k_eff 0 next launch (exact no-op)
             self.board.evict_stale()
         out = self.board.drain()
+        # the board's list keeps the reference's semantics (it grows for
+        # the board's life); the service hands each call its own requests
+        self.board.finished = []
         for r in out:                 # give-ups keep their partial iterate
             if r.status == "":
                 r.x = r.x0 if r.x0 is not None else r.x

@@ -175,6 +175,26 @@ def test_sl001_flags_syncs_inside_a_range_block(tmp_path):
     assert sorted({f.line for f in fs}) == [11, 12, 13, 14, 15, 16, 19]
 
 
+@pytest.mark.parametrize("opener", ["obs.span", "span"])
+def test_sl001_flags_syncs_inside_an_obs_span_range(tmp_path, opener):
+    """A ``.cpu()`` seeded inside the port's own span of a ``*_RANGE``
+    window is flagged; the same read in a span of another name is not."""
+    fs = lint(tmp_path, f"""
+        from repro_torch import obs
+        from repro_torch.obs import span
+        LOOP_RANGE = "repro_torch.loop"
+
+        def loop(x, launches):
+            with {opener}(LOOP_RANGE):
+                for _ in range(launches):
+                    h = x.cpu()                           # flagged
+            with {opener}("repro_torch.serve.launch.read"):
+                h = x.cpu()
+            return x, h
+    """)
+    assert [(f.rule, f.line) for f in fs] == [("SL001", 9)]
+
+
 def test_sl001_ignores_syncs_outside_range_blocks(tmp_path):
     fs = lint(tmp_path, """
         import time

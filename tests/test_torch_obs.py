@@ -1,0 +1,177 @@
+"""The port's spans and counters (``repro_torch.obs``) on the CPU: nothing
+is recorded without a profiler; under one, the spans nest with the right
+parents and request ids, self time is inclusive time less the children's,
+the profiler's timeline holds each span around the host ops of its call,
+and the byte counters of a tiny solve and a tiny served job equal the
+sizes counted here from the shapes."""
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import obs
+from repro_torch.core import objectives as obj
+from repro_torch.core.batched import batch_meta_of
+from repro_torch.core.spec import SolverSpec
+from repro_torch.kernels import ops
+from repro_torch.launch import solver_serve as serve
+
+N, D = 100, 300      # a solve, padded to (512, 384): TILE_N rows, blocks
+SN, SD = 256, 500    # a served design, padded to (512, 512)
+SPEC = SolverSpec(P=256, rounds=8, fused=True)
+
+
+@pytest.fixture(autouse=True)
+def clean_tally():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    obs.reset()
+    yield
+    obs.reset()
+    torch.set_num_threads(n)
+
+
+def _problem():
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((N, D)).astype(np.float32) / np.sqrt(N)
+    y = A[:, :5].sum(axis=1).astype(np.float32)
+    return obj.make_problem(A, y, lam=0.05, device="cpu")
+
+
+def _solve(prob):
+    return ops.block_shotgun_solve(prob, torch.Generator().manual_seed(1),
+                                   spec=SPEC, rounds_per_launch=4)
+
+
+def _service_and_stream(requests=4):
+    """Two designs, the second half of the stream repeating the first (so
+    warm starts hit the cache), served on two slots."""
+    reqs = serve.make_stream(SN, SD, requests=requests, repeat_frac=0.5,
+                             lam=2.0, device="cpu")
+    svc = serve.SolverService(batch_meta_of(reqs[0].prob), slots=2, K=1,
+                              max_rounds=32, rounds_per_launch=8, tol=1e-4,
+                              device="cpu")
+    return svc, reqs
+
+
+def _profiled(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof.events()
+
+
+def test_nothing_is_recorded_without_a_profiler():
+    assert not obs.enabled()
+    _solve(_problem())
+    svc, reqs = _service_and_stream()
+    assert len(svc.serve(reqs)) == len(reqs)
+    assert obs.totals() == {"spans": {}, "counters": {}, "dropped": 0}
+    assert obs.spans() == []
+
+
+def _children(records, i):
+    return [r for r in records if r.parent == i]
+
+
+def test_solve_spans_nest_and_lie_on_the_profilers_timeline():
+    prob = _problem()
+    _, events = _profiled(lambda: _solve(prob))
+    recs = obs.spans()
+    assert [r.name for r in recs] == [
+        ops.SOLVE_SPAN, ops.PAD_SPAN, ops.DRAWS_SPAN, ops.LAUNCHES_SPAN]
+    assert [r.parent for r in recs] == [-1, 0, 0, 0]
+    assert all(r.rid is None for r in recs)
+    top = recs[0]
+    assert all(top.start_ns <= r.start_ns <= r.end_ns <= top.end_ns
+               for r in recs[1:])
+    t = obs.totals()
+    kids = sum(r.end_ns - r.start_ns for r in recs[1:])
+    assert t["spans"][ops.SOLVE_SPAN]["self_seconds"] == pytest.approx(
+        (top.end_ns - top.start_ns - kids) / 1e9, abs=1e-12)
+    for r in recs[1:]:
+        s = t["spans"][r.name]
+        assert s["calls"] == 1 and s["self_seconds"] == s["seconds"]
+    assert t["counters"]["solver.launches"] == SPEC.rounds // 4
+
+    # one timeline: the profiler holds each span, and every host op of
+    # the call starts inside the solve's range; the draws' sort inside
+    # the draws' range
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = {e.name: e.time_range for e in cpu if e.name.startswith(
+        "repro_torch.")}
+    assert set(ranges) == {r.name for r in recs}
+    solve = ranges[ops.SOLVE_SPAN]
+    ops_ = [e for e in cpu if e.name.startswith("aten::")]
+    assert ops_ and all(solve.start <= e.time_range.start <= solve.end
+                        for e in ops_)
+    draws = ranges[ops.DRAWS_SPAN]
+    sorts = [e for e in ops_ if e.name in ("aten::argsort", "aten::sort")]
+    assert sorts and all(draws.start <= e.time_range.start <= draws.end
+                         for e in sorts)
+
+
+def test_served_job_spans_carry_request_ids():
+    svc, reqs = _service_and_stream()
+    done, events = _profiled(lambda: svc.serve(reqs))
+    recs = obs.spans()
+    names = {r.name for r in recs}
+    admit, launch = serve.ADMIT_SPAN, serve.LAUNCH_SPAN
+    assert names == {admit, admit + ".layout", admit + ".warm",
+                     admit + ".margin", admit + ".objective",
+                     admit + ".draws", launch, launch + ".kernel",
+                     launch + ".read", serve.FINALIZE_SPAN}
+    assert names <= {e.name for e in events}
+    rids = sorted(r.rid for r in recs if r.name == admit)
+    assert rids == sorted(r.rid for r in reqs)
+    assert sorted(r.rid for r in recs if r.name == serve.FINALIZE_SPAN) \
+        == sorted(r.rid for r in done)
+    for i, r in enumerate(recs):
+        if r.name.startswith(admit + "."):
+            assert recs[r.parent].name == admit and r.rid is None
+        elif r.name.startswith(launch + "."):
+            assert recs[r.parent].name == launch
+        elif r.name == serve.FINALIZE_SPAN:
+            assert recs[r.parent].name == launch    # finalized at a step
+        else:
+            assert r.parent == -1
+        kids = _children(recs, i)
+        assert all(r.start_ns <= k.start_ns <= k.end_ns <= r.end_ns
+                   for k in kids)
+    t = obs.totals()["spans"]
+    for name, s in t.items():
+        inc = sum(r.end_ns - r.start_ns for r in recs if r.name == name)
+        kids = sum(k.end_ns - k.start_ns for i, r in enumerate(recs)
+                   if r.name == name for k in _children(recs, i))
+        assert s["calls"] == sum(r.name == name for r in recs)
+        assert s["seconds"] == pytest.approx(inc / 1e9, abs=1e-12)
+        assert s["self_seconds"] == pytest.approx((inc - kids) / 1e9,
+                                                  abs=1e-12)
+
+
+def test_pad_bytes_of_a_dense_solve():
+    _profiled(lambda: _solve(_problem()))
+    n_pad, d_pad = 512, 384
+    want = n_pad * d_pad * 4 + n_pad * 4 + n_pad * 4    # A, y, mask
+    assert obs.totals()["counters"]["solver.pad_bytes"] == want
+
+
+def test_admission_and_cache_bytes_of_a_served_job():
+    svc, reqs = _service_and_stream()
+    done, _ = _profiled(lambda: svc.serve(reqs))
+    n_pad, d_pad = 512, 512
+    assert (svc.meta.n_pad, svc.meta.d_pad) == (n_pad, d_pad)
+    # normalized A, y, mask, λ, β; x0; z0
+    arrays = n_pad * d_pad * 4 + 2 * n_pad * 4 + 2 * 4
+    x0, z0 = d_pad * 4, n_pad * 4
+    # built once, then copied into the slot (x0 and z0 twice: the
+    # iterate and its rollback snapshot)
+    per_admission = (arrays + x0 + z0) + (arrays + 2 * x0 + 2 * z0)
+    c = obs.totals()["counters"]
+    assert c["serve.admit_bytes"] == len(reqs) * per_admission
+    st = svc.cache.stats
+    assert st.hits_exact + st.hits_near == 2 and st.misses == 2
+    puts = sum(r.status == "ok" for r in done)
+    assert puts == len(reqs)
+    # each put's x (true d) to the host, each hit's x0 back
+    assert c["serve.cache_host_bytes"] == (puts + 2) * SD * 4

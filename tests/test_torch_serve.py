@@ -177,6 +177,19 @@ def test_warm_cache_hit_skips_half_the_cold_rounds():
     assert 0.0 < svc.slot_occupancy <= 1.0
 
 
+def test_a_second_serve_returns_only_its_own_requests():
+    """``serve`` hands back the requests of its own call: the service
+    keeps no finished request (each holds x on the device) past it."""
+    reqs = make_stream(256, 512, requests=6, lam=2.0, seed=0, device="cpu")
+    svc = SolverService(batch_meta_of(reqs[0].prob), slots=2, K=1,
+                        max_rounds=16, rounds_per_launch=8, device="cpu")
+    first = svc.serve(reqs[:4])
+    second = svc.serve(reqs[4:])
+    assert sorted(r.rid for r in first) == [0, 1, 2, 3]
+    assert sorted(r.rid for r in second) == [4, 5]
+    assert svc.board.finished == []
+
+
 def test_admission_writes_the_slots_range_table():
     """Admitting a design into a slot writes that slot's range-start table
     (the fused kernel's row ranges) with the design's own, also when the
