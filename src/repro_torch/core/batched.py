@@ -8,10 +8,11 @@ on a leading *slot* axis and drives the batched fused kernels
 
   * ``BatchMeta`` / ``normalize_problem`` — the admission contract: every
     request is zero-padded to ONE canonical stacked shape (dense: sample and
-    block padding as ``ops.pad_problem``; BlockedCSC: block padding with
-    ``data.sparse.pad_feature_blocks`` and tile-axis padding with (row 0,
-    value 0) slots, the slot's ``ScatterOrder`` and range-start table built
-    on the padded tiles),
+    block padding as ``ops.pad_problem``; BlockedCSC: block padding and
+    tile-axis padding with (row 0, value 0) slots by
+    ``BlockedCSC.on_canvas``, the slot's ``ScatterOrder`` and range-start
+    table those the padded design caches, so a design served many times
+    builds them once),
     so a whole request stream runs one compiled kernel, chosen by (A's
     dtype, loss, batched) and never re-selected on refill or backoff.
     Padded rows and columns are fixed points of the update, so a slot's
@@ -46,9 +47,7 @@ from repro_torch.core import health
 from repro_torch.core.objectives import Problem
 from repro_torch.core.shotgun import Result, Trace
 from repro_torch.core.spec import SolverSpec
-from repro_torch.data.sparse import (BlockedCSC, ScatterOrder, bcsc_matvec,
-                                     pad_feature_blocks, range_starts,
-                                     scatter_order)
+from repro_torch.data.sparse import BlockedCSC, ScatterOrder, bcsc_matvec
 from repro_torch.device import exact_f32_matmul
 from repro_torch.kernels.batched import (batched_fused_shotgun_rounds,
                                          batched_fused_sparse_shotgun_rounds)
@@ -119,7 +118,10 @@ def normalize_problem(prob: Problem, meta: BatchMeta) -> SlotArrays:
     """Admission shape-normalization: zero-pad ``prob`` onto the stream's
     canonical canvas, on the problem's device.  Raises when the problem
     cannot fit (larger than the canvas, mismatched loss/layout/samples) —
-    admission never grows the canvas."""
+    admission never grows the canvas.  A BlockedCSC's slot arrays are the
+    design's own (or its cached canvas copy's) tiles and layouts, not
+    copies: the layouts live as long as the container, which must not be
+    changed in place after its first use."""
     sparse = isinstance(prob.A, BlockedCSC)
     layout = "bcsc" if sparse else "dense"
     if layout != meta.layout:
@@ -142,14 +144,12 @@ def normalize_problem(prob: Problem, meta: BatchMeta) -> SlotArrays:
                              "denser than the stream canvas admits")
         if S.d_pad > meta.d_pad:
             raise ValueError(f"d_pad={S.d_pad} > stream d_pad={meta.d_pad}")
-        S = pad_feature_blocks(S, meta.nblk)       # right-pad zero blocks
-        pad = (0, 0, 0, meta.tile - S.tile)        # pad the nnz-tile axis:
-        rows = F.pad(S.rows, pad)                  # (row 0, val 0) slots are
-        vals = F.pad(S.vals, pad).to(torch.float32)   # additive identities
-        order = scatter_order(rows, vals)
-        return SlotArrays(A=None, rows=rows, vals=vals, y=y, mask=None,
-                          lam=lam, beta=beta, order=order,
-                          rstart=range_starts(rows, order, meta.n_pad))
+        # zero blocks and (row 0, value 0) slots are additive identities;
+        # the padded copy and the layouts are cached on the design
+        S = S.on_canvas(meta.nblk, meta.tile)
+        return SlotArrays(A=None, rows=S.rows, vals=S.vals, y=y, mask=None,
+                          lam=lam, beta=beta, order=S.scatter_order(),
+                          rstart=S.range_starts())
     n, d = prob.A.shape
     if d > meta.d_pad:
         raise ValueError(f"d={d} > stream d_pad={meta.d_pad}")

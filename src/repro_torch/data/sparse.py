@@ -28,6 +28,11 @@ by ``scale_cols``/``astype`` builds its own):
                        ``torch.sum`` (``index_add_`` on CUDA adds with float
                        atomics, in an order that changes from run to run).
 
+``on_canvas(nblk, tile)`` gives the container padded to more blocks or a
+deeper tile, with float32 values, as a stream of stacked problems needs
+it; a copy it has to make is cached here too, so its layouts are built
+once as well.
+
 A padding slot contributes 0·v to row 0: nothing for a finite v, NaN for a
 non-finite one.  Both layouts keep that: the flag carries it.
 """
@@ -249,6 +254,34 @@ class BlockedCSC:
         if "rows" not in self._cache:
             self._cache["rows"] = row_table(self.rows, self.vals, self.n)
         return self._cache["rows"]
+
+    def on_canvas(self, nblk: int, tile: int) -> "BlockedCSC":
+        """This design at ``nblk`` blocks of ``tile`` slots with float32
+        values: itself when it has that shape already, else a copy padded
+        with all-zero blocks and (row 0, value 0) slots, built at first use
+        and cached here by (nblk, tile)."""
+        S = self._canvas(nblk, tile)
+        if S is None:
+            P = pad_feature_blocks(self, nblk)
+            pad = (0, 0, 0, tile - self.tile)
+            S = self._cache[("canvas", nblk, tile)] = BlockedCSC(
+                rows=torch.nn.functional.pad(P.rows, pad),
+                vals=torch.nn.functional.pad(P.vals, pad).to(torch.float32),
+                n=self.n, d=self.d, block=self.block)
+        return S
+
+    def has_layouts(self, nblk: int, tile: int) -> bool:
+        """Whether ``on_canvas(nblk, tile)`` is cached with all three
+        derived layouts (a check that builds nothing)."""
+        S = self._canvas(nblk, tile)
+        return S is not None and {"scatter", "rstart",
+                                  "rows"} <= S._cache.keys()
+
+    def _canvas(self, nblk: int, tile: int) -> "BlockedCSC | None":
+        if (self.nblk, self.tile, self.vals.dtype) == (nblk, tile,
+                                                       torch.float32):
+            return self
+        return self._cache.get(("canvas", nblk, tile))
 
     # ---- linear ops ------------------------------------------------------
 

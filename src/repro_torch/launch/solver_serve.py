@@ -52,7 +52,7 @@ from repro_torch.core.batched import (BatchMeta, SlotArrays, WarmStartCache,
                                       batch_meta_of, launch_converged,
                                       launch_rounds, normalize_problem)
 from repro_torch.core.objectives import Problem
-from repro_torch.data.sparse import ScatterOrder, bcsc_matvec
+from repro_torch.data.sparse import BlockedCSC, ScatterOrder
 from repro_torch.device import exact_f32_matmul, resolve_device
 from repro_torch.kernels.batched import (stacked_range_starts,
                                          stacked_scatter_order)
@@ -113,8 +113,21 @@ def _dense_margin(A, x0):
     return A.to(torch.float32) @ x0
 
 
-def _sparse_margin(rows, vals, x0, n):
-    return bcsc_matvec(rows, vals, x0, n)
+def _built_bytes(sa: SlotArrays, A, meta: BatchMeta, reused: bool) -> int:
+    """Bytes of the slot arrays an admission builds: every normalized
+    array of a dense problem; of a BlockedCSC problem its y, λ and β, and
+    its layouts (the canvas copy of its tiles where it needs one, the
+    scatter order, the range starts, the row table) only when the
+    admission built them."""
+    if meta.layout == "dense":
+        return obs.nbytes(*sa)
+    built = obs.nbytes(sa.y, sa.lam, sa.beta)
+    if not reused:
+        design = A.on_canvas(meta.nblk, meta.tile)
+        built += obs.nbytes(*sa.order, sa.rstart, design.row_table())
+        if design is not A:
+            built += obs.nbytes(design.rows, design.vals)
+    return built
 
 
 def _write_slot(stacked: SlotArrays, x, z, x_snap, z_snap, slot: int,
@@ -218,15 +231,19 @@ class SolverService:
                 f"mixed-loss stream: request {req.problem_id!r} carries "
                 f"loss {req.prob.loss!r} but this stream is admitted for "
                 f"loss {m.loss!r}")
+        sparse = m.layout == "bcsc"
         with obs.span(ADMIT_SPAN, rid=req.rid):
             with obs.span(ADMIT_SPAN + ".layout"):
+                # a BlockedCSC design served before brings its canvas and
+                # layouts cached on its container
+                reused = (sparse and isinstance(req.prob.A, BlockedCSC)
+                          and req.prob.A.has_layouts(m.nblk, m.tile))
                 sa = normalize_problem(req.prob, m)
             with obs.span(ADMIT_SPAN + ".warm"):
                 x0 = self._to_canvas(self._warm_start(req))
             mask = (sa.mask if m.layout == "dense"
                     else torch.ones(m.n_pad, dtype=torch.float32,
                                     device=dev))
-            built = obs.nbytes(*sa, x0)
             with obs.span(ADMIT_SPAN + ".margin"):
                 if req.z_resume is not None:
                     # deadline-evicted solve resuming mid-trajectory:
@@ -235,11 +252,17 @@ class SolverService:
                     # determinism test)
                     z0 = req.z_resume
                     req.z_resume = None
+                    made = (x0,)
                 else:
-                    z0 = (_sparse_margin(sa.rows, sa.vals, x0, m.n_pad)
-                          if m.layout == "bcsc" else _dense_margin(sa.A, x0))
-                    built += z0.nbytes
-            obs.count("serve.admit_bytes", built)
+                    z0 = (req.prob.A.on_canvas(m.nblk, m.tile).matvec(x0)
+                          if sparse else _dense_margin(sa.A, x0))
+                    made = (x0, z0)
+            if obs.enabled():
+                if sparse:
+                    obs.count("serve.layout_hits" if reused
+                              else "serve.layout_builds", 1)
+                obs.count("serve.admit_bytes", obs.nbytes(*made)
+                          + _built_bytes(sa, req.prob.A, m, reused))
             _write_slot(self.stacked, self.x, self.z, self.x_snap,
                         self.z_snap, slot, sa, x0, z0)
             if req.f_prev == float("inf"):

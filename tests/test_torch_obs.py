@@ -2,8 +2,9 @@
 is recorded without a profiler; under one, the spans nest with the right
 parents and request ids, self time is inclusive time less the children's,
 the profiler's timeline holds each span around the host ops of its call,
-and the byte counters of a tiny solve and a tiny served job equal the
-sizes counted here from the shapes."""
+the byte counters of a tiny solve and of tiny served jobs equal the sizes
+counted here from the shapes, and a BlockedCSC job's layout hits and
+builds add up to its admissions."""
 import numpy as np
 import pytest
 import torch
@@ -175,3 +176,73 @@ def test_admission_and_cache_bytes_of_a_served_job():
     assert puts == len(reqs)
     # each put's x (true d) to the host, each hit's x0 back
     assert c["serve.cache_host_bytes"] == (puts + 2) * SD * 4
+
+
+def _sparse_designs():
+    """Two BlockedCSC designs of 300 × 640 with tiles 24 and 32, so the
+    first is padded to the canvas of the second."""
+    from repro_torch.data import synthetic as syn
+    designs = []
+    for seed, dens in ((0, 0.02), (1, 0.05)):
+        A, y, _ = syn.large_sparse(seed=seed, n=300, d=640, density=dens,
+                                   layout="bcsc")
+        designs.append(obj.make_problem(A, y, 0.1, device="cpu"))
+    return designs
+
+
+def _sparse_service_and_stream(designs):
+    """Each design asked for twice, served on two slots."""
+    reqs = serve.stream_over(designs, requests=4, repeat_frac=0.5, lam=1.0,
+                             seed=0)
+    svc = serve.SolverService(batch_meta_of(designs[1]), slots=2, K=1,
+                              max_rounds=32, rounds_per_launch=8, tol=1e-4,
+                              device="cpu")
+    return svc, reqs
+
+
+def test_layout_counters_add_up_to_the_admissions():
+    """Each BlockedCSC admission counts one layout hit or one build: a
+    design's first admission builds, its later ones (in this job or the
+    next) hit; a dense stream counts neither."""
+    designs = _sparse_designs()
+    svc, reqs = _sparse_service_and_stream(designs)
+    _profiled(lambda: svc.serve(reqs))
+    t = obs.totals()
+    c = t["counters"]
+    assert t["spans"][serve.ADMIT_SPAN]["calls"] == len(reqs)
+    assert (c["serve.layout_builds"], c["serve.layout_hits"]) == \
+        (len(designs), len(reqs) - len(designs))
+    obs.reset()
+    svc, reqs = _sparse_service_and_stream(designs)     # a second job
+    _profiled(lambda: svc.serve(reqs))
+    c = obs.totals()["counters"]
+    assert "serve.layout_builds" not in c
+    assert c["serve.layout_hits"] == len(reqs)
+    obs.reset()
+    svc, reqs = _service_and_stream()
+    _profiled(lambda: svc.serve(reqs))
+    c = obs.totals()["counters"]
+    assert "serve.layout_hits" not in c and "serve.layout_builds" not in c
+
+
+def test_admission_bytes_of_a_served_sparse_job():
+    """A BlockedCSC admission counts y, λ, β, x0 and z0, the layouts only
+    when it builds them (with the canvas copy of a design that needs one),
+    then the slot write."""
+    designs = _sparse_designs()
+    svc, reqs = _sparse_service_and_stream(designs)
+    _profiled(lambda: svc.serve(reqs))
+    m = svc.meta
+    n, d_pad, slots = m.n_pad, m.d_pad, m.nblk * m.tile * m.block
+    assert designs[1].A.on_canvas(m.nblk, m.tile) is designs[1].A
+    request = n * 4 + 2 * 4 + d_pad * 4 + n * 4      # y, λ, β, x0, z0
+    layouts = (slots * 4 + m.nblk * 4 + m.nblk * m.block     # the order
+               + m.nblk * (-(-n // 128) + 1) * 4)            # range starts
+    tables = sum(D.A.on_canvas(m.nblk, m.tile).row_table().nbytes
+                 for D in designs)
+    canvas = 2 * slots * 4                      # the first design's copy
+    # the slot write: tiles, y, λ, β, layouts; x0 and z0 twice
+    write = 2 * slots * 4 + n * 4 + 2 * 4 + layouts + 2 * (d_pad + n) * 4
+    want = len(reqs) * (request + write) + len(designs) * layouts \
+        + tables + canvas
+    assert obs.totals()["counters"]["serve.admit_bytes"] == want

@@ -32,7 +32,8 @@ from repro_torch.core.batched import WarmStartCache, batch_meta_of  # noqa: E402
 from repro_torch.launch import solver_serve as tserve  # noqa: E402
 from repro_torch.launch.solver_serve import (SolveRequest,  # noqa: E402
                                              SolverService, make_stream,
-                                             solve_queue_sequential)
+                                             solve_queue_sequential,
+                                             stream_over)
 
 KW = dict(K=1, max_rounds=24, rounds_per_launch=8)
 
@@ -213,6 +214,102 @@ def test_admission_writes_the_slots_range_table():
     assert torch.equal(svc.stacked.rstart[1], probs[1].A.range_starts())
     assert not torch.equal(probs[0].A.range_starts(),
                            probs[1].A.range_starts())
+
+
+def _sparse_pair():
+    """Two BlockedCSC Lasso designs of 300 × 640 whose tiles differ (24 and
+    32), so a canvas of the deeper tile pads the first."""
+    from repro_torch.core import objectives as tobj
+    from repro_torch.data import synthetic as tsyn
+    probs = []
+    for seed, dens in ((0, 0.02), (1, 0.05)):
+        A, y, _ = tsyn.large_sparse(seed=seed, n=300, d=640, density=dens,
+                                    layout="bcsc")
+        probs.append(tobj.make_problem(A, y, 0.1, device="cpu"))
+    assert probs[0].A.tile < probs[1].A.tile
+    return probs
+
+
+def _uncached(A):
+    """A copy of a BlockedCSC that shares nothing with it, its layout cache
+    included."""
+    return type(A)(rows=A.rows.clone(), vals=A.vals.clone(), n=A.n, d=A.d,
+                   block=A.block)
+
+
+@pytest.mark.parametrize("case", ["fits", "tile-padded", "bfloat16"])
+def test_admission_builds_a_designs_layouts_once(case, monkeypatch):
+    """Admitting one BlockedCSC design into slots 0, 1, then 0 again builds
+    each of its layouts once (the padded or cast canvas copy too, cached on
+    the design), and every slot array, iterate and margin equals what the
+    same admissions of an uncached copy of the design write."""
+    from repro_torch.data import sparse as tsp
+    small, deep = _sparse_pair()
+    prob = {"fits": small, "tile-padded": small,
+            "bfloat16": small._replace(A=small.A.astype(torch.bfloat16))
+            }[case]
+    meta = batch_meta_of(small)
+    if case == "tile-padded":
+        meta = meta._replace(tile=deep.A.tile)
+    x0 = torch.rand(prob.d, generator=torch.Generator().manual_seed(3))
+
+    def admitted(design, count=None):
+        svc = SolverService(meta, slots=2, device="cpu", **KW)
+        for rid, slot in enumerate((0, 1, 0)):
+            svc._admit(SolveRequest(rid=rid, problem_id=0, x0=x0, seed=rid,
+                                    prob=prob._replace(A=design)), slot)
+            if count is not None:
+                assert count == {"row_table": 1, "scatter_order": 1,
+                                 "range_starts": 1}, (rid, count)
+        return svc
+
+    count = {}
+    for name in ("row_table", "scatter_order", "range_starts"):
+        def spy(*a, _inner=getattr(tsp, name), _name=name):
+            count[_name] = count.get(_name, 0) + 1
+            return _inner(*a)
+        monkeypatch.setattr(tsp, name, spy)
+    got = admitted(prob.A, count)
+    assert prob.A.has_layouts(meta.nblk, meta.tile)
+    assert (prob.A.on_canvas(meta.nblk, meta.tile) is prob.A) == \
+        (case == "fits")
+    monkeypatch.undo()
+    want = admitted(_uncached(prob.A))
+    for a, b in zip(got.stacked, want.stacked):
+        for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert (u is None) == (v is None)
+            assert u is None or torch.equal(u, v)
+    for name in ("x", "z", "x_snap", "z_snap"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert bool(torch.any(got.z != 0))
+
+
+def test_served_sparse_stream_equals_one_that_reuses_nothing():
+    """A BlockedCSC stream over two designs, each served four times (one
+    padded to the other's tile), equals the same stream whose every request
+    carries an uncached copy of its design: the same x, objective, status,
+    launches, rounds and cache verdict, bit for bit."""
+    probs = _sparse_pair()
+    meta = batch_meta_of(probs[1])
+
+    def served(copy):
+        reqs = stream_over(probs, requests=8, repeat_frac=0.5, lam=1.0,
+                           seed=0)
+        for r in reqs:
+            if copy:
+                r.prob = r.prob._replace(A=_uncached(r.prob.A))
+        svc = SolverService(meta, slots=3, K=1, max_rounds=32,
+                            rounds_per_launch=8, tol=1e-4, device="cpu")
+        return {r.rid: r for r in svc.serve(reqs)}
+
+    reused, fresh = served(False), served(True)
+    assert sorted(reused) == sorted(fresh) == list(range(8))
+    assert {r.warm for r in reused.values()} >= {"miss", "exact"}
+    for rid, a in reused.items():
+        b = fresh[rid]
+        assert torch.equal(a.x, b.x), rid
+        assert (a.f_final, a.status, a.launches, a.rounds_used, a.warm) == \
+            (b.f_final, b.status, b.launches, b.rounds_used, b.warm), rid
 
 
 def test_mixed_loss_request_raises():
