@@ -23,6 +23,13 @@ port's main path — ``block_shotgun_solve`` — on two legs:
           two-kernel rounds, f32 and bf16 values) and rcv1.binary (S2:
           logistic with per-block Newton and the guard, n = 20,242,
           d = 47,236, density 0.16%), never densified;
+  ovf     (``--leg ovf`` runs it alone) kernel #2's overflow
+          instantiation on a ``BlockedCSC.from_csc`` design of LIBSVM
+          url_combined's shape (n = 2,396,130, d = 3,231,961, 277.1 M
+          nonzeros, tile 64, heavy-tailed columns): against its plain
+          version on the card, repeated bit for bit, timed beside its
+          byte bound and the plain version, then a guarded Newton solve
+          through ``block_shotgun_solve`` with its launches counted;
   sharded ``shotgun_sharded_solve`` on one NCCL rank and on two gloo
           ranks sharing the card;
   serve   the batched kernels on stacked slots at the same widths (held
@@ -504,7 +511,8 @@ def queued_ms(fn, iters: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--leg", choices=["lm", "train", "shard", "examples"],
+    ap.add_argument("--leg", choices=["lm", "train", "shard", "examples",
+                                      "ovf"],
                     default=None,
                     help="run only this leg (no build) and print its JSON")
     ap.add_argument("--arch", choices=LM_FAMILIES, default=LM_ARCH,
@@ -534,6 +542,12 @@ def main() -> int:
         return 0
     if args.leg == "examples":
         print(json.dumps(examples_leg(args)))
+        return 0
+    if args.leg == "ovf":
+        ovf_kernels, ovf_json = ovf_leg(args)
+        print(json.dumps(ovf_json))
+        print(json.dumps({"kernels": ovf_kernels}))
+        print(nvidia_smi_line())
         return 0
     from repro_torch.kernels import _build
 
@@ -581,6 +595,7 @@ def main() -> int:
     lint_json = lint_leg()
     dense_kernels, dense_json, dense_data = dense_leg(args)
     sparse_kernels, sparse_json, sparse_data = sparse_leg(args)
+    ovf_kernels, ovf_json = ovf_leg(args)
     sharded_kernels, sharded_json = sharded_leg(args, dense_data, sparse_data,
                                                 dense_json, sparse_json)
     serve_kernels, serve_json = serve_leg(args, dense_data, sparse_data)
@@ -594,13 +609,13 @@ def main() -> int:
     shard_json = shard_leg_child(args)
 
     # ---- report -----------------------------------------------------------
-    print(json.dumps({**lint_json, **dense_json, **sparse_json,
+    print(json.dumps({**lint_json, **dense_json, **sparse_json, **ovf_json,
                       **sharded_json, **serve_json, **scalar_json,
                       **baselines_json, **lm_json, **train_json,
                       **examples_json, **shard_json}))
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": dense_kernels + sparse_kernels
-                      + sharded_kernels + serve_kernels}))
+                      + ovf_kernels + sharded_kernels + serve_kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1451,6 +1466,186 @@ def sparse_leg(args):
     data = dict(s1=s1, s2=s2, s1_16=s1_16, s2_16=s2_16, K1=K1, K2=K2,
                 s1_idx=s1_idx, pstar=pstar_of)
     return kernels, extra, data
+
+
+# ---------------------------------------------------------------------------
+# The overflow leg: kernel #2's overflow instantiation at url_combined's shape
+# ---------------------------------------------------------------------------
+
+# LIBSVM url_combined (Ma, Saul, Savage & Voelker, ICML 2009): rows, columns,
+# nonzeros; the tile of the url-logreg cell, its K and rounds.
+URL_N, URL_D, URL_NNZ, URL_TILE = 2_396_130, 3_231_961, 277.1e6, 64
+URL_K, URL_ROUNDS, URL_R = 32, 256, 32
+
+
+def url_csc(seed: int, dev):
+    """(col_ptr, rows, vals, n, d): url's shape under the assumed degree
+    law.  Row j lies in column c with probability p_c = min(1, a / rank(c)),
+    rank a seeded permutation of 1..d, ``a`` fitted by bisection so that
+    n·Σ p_c = URL_NNZ; columns with p_c ≥ 1/64 draw a mask over every row,
+    the others a Binomial(n, p_c) count of uniform rows (repeats kept
+    once).  Values 1.0 where p_c < 0.1, N(0, 1) above."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, d = URL_N, URL_D
+
+    def harmonic(m):
+        if m < 1000:
+            return sum(1.0 / r for r in range(1, m + 1))
+        return (math.log(m) + 0.5772156649015329 + 1 / (2 * m)
+                - 1 / (12 * m * m))
+    lo, hi = 1e-9, float(d)
+    for _ in range(200):
+        a = 0.5 * (lo + hi)
+        m = min(d, int(a))
+        lo, hi = ((a, hi) if n * (m + a * (harmonic(d) - harmonic(m)))
+                  < URL_NNZ else (lo, a))
+    rank = torch.randperm(d, generator=g, device=dev) + 1
+    p = torch.clamp_max(a / rank.double(), 1.0)
+    keys = []
+    dense = torch.nonzero(p >= 1 / 64).reshape(-1)
+    per = max(1, (1 << 27) // n)
+    for c0 in range(0, dense.numel(), per):
+        cs = dense[c0:c0 + per]
+        hit = torch.nonzero(torch.rand(cs.numel(), n, generator=g,
+                                       device=dev) < p[cs, None].float())
+        keys.append(cs[hit[:, 0]] * n + hit[:, 1])
+    sparse = torch.nonzero(p < 1 / 64).reshape(-1)
+    count = torch.binomial(torch.full((sparse.numel(),), float(n),
+                                      device=dev),
+                           p[sparse].float(), generator=g).long()
+    col = torch.repeat_interleave(sparse, count)
+    keys.append(torch.unique(col * n + torch.randint(
+        0, n, (col.numel(),), generator=g, device=dev)))
+    key = torch.sort(torch.cat(keys))[0]
+    del keys, col
+    col, row = key // n, (key % n).to(torch.int32)
+    col_ptr = torch.cat([col.new_zeros(1),
+                         torch.cumsum(torch.bincount(col, minlength=d), 0)])
+    vals = torch.where(p[col] >= 0.1, torch.randn(
+        row.numel(), generator=g, device=dev), 1.0).float()
+    return col_ptr, row, vals, n, d
+
+
+def ovf_leg(args):
+    """Kernel #2's overflow instantiation (``fused_sparse_ovf_kernel``) on a
+    ``from_csc`` design of url's shape: held against its plain version on
+    the same card tensors (logistic and Newton, k_eff K and K − 1, a
+    duplicate draw), repeated bit for bit, timed beside its bound (the
+    drawn blocks' true nonzeros × 8 B a round, spilled ones included, and
+    the vectors) and the plain version, then the url-logreg cell's
+    guarded Newton solve through ``block_shotgun_solve``, its launches
+    counted from zero."""
+    from repro_torch.core import objectives as obj
+    from repro_torch.core.health import GuardConfig
+    from repro_torch.core.spec import SolverSpec
+    from repro_torch.data.sparse import BlockedCSC
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import shotgun_sparse as ss
+
+    dev = torch.device(DEVICE)
+    B, R, K = 128, 8, URL_K
+    name = "fused_sparse_shotgun_rounds.ovf"
+    t0 = time.perf_counter()
+    col_ptr, rows, vals, n, d = url_csc(args.seed + 30, dev)
+    S = BlockedCSC.from_csc(col_ptr, rows, vals, n, d, tile=URL_TILE,
+                            device=dev)
+    nnz = int(col_ptr[-1])
+    per_col = torch.nn.functional.pad(col_ptr[1:] - col_ptr[:-1],
+                                      (0, S.d_pad - d))
+    nnz_blk = per_col.reshape(S.nblk, B).sum(1)
+    del col_ptr, rows, vals, per_col
+    g = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    x_true = torch.zeros(S.d_pad, device=dev)
+    pick = torch.randperm(d, generator=g, device=dev)[: d // 200]
+    x_true[pick] = 2 * torch.randn(pick.numel(), generator=g, device=dev)
+    y = torch.where(torch.rand(n, generator=g, device=dev)
+                    < torch.sigmoid(S.matvec(x_true)), 1.0, -1.0)
+    prob = obj.make_problem(S, y, 1.0, loss="logistic", device=dev)
+    prob = prob._replace(lam=0.1 * obj.lambda_max(prob.A, prob.y,
+                                                  "logistic"))
+    A, o = prob.A, prob.A.ovf
+    require(o is not None, "url design: no overflow store")
+    od, rs = A.scatter_order(), A.range_starts()
+    torch.cuda.synchronize()
+    spilled = o.rows.numel()
+    print(f"ovf: url design n {n} d {d} nnz {nnz}, {spilled} spilled "
+          f"({spilled / nnz:.1%}), deepest column {URL_TILE + o.depth}, "
+          f"{o.seg_slots} segment slots a block; tiles "
+          f"{A.rows.nbytes + A.vals.nbytes} B, store {o.nbytes} B; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    sk = dict(order=od, rstart=rs, ovf=o)
+    for loss in ("logistic", "logistic_newton"):
+        idx = draws(R, K, A.nblk, g)
+        x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
+        x0[A.d:] = 0.0
+        z0 = A.matvec(x0)
+        for k_eff in (None, K - 1):
+            t = f"{loss} url f32 K={K} R={R} k_eff={k_eff}"
+            fargs = (A.rows, A.vals, z0, x0, idx, prob.lam, prob.beta,
+                     prob.y)
+            got = ss.fused_sparse_shotgun_rounds(*fargs, loss=loss,
+                                                 k_eff=k_eff, **sk)
+            want = ss.fused_sparse_shotgun_rounds_plain(
+                *fargs, loss=loss, k_eff=k_eff, ovf=o)
+            check(name, t, [("x", got[0], want[0], 1.0),
+                            ("z", got[1], want[1], 0.0),
+                            ("f", got[2], want[2], 0.0)],
+                  nnz_pair=(got[3], want[3]),
+                  health_pair=(got[4], want[4]))
+            require_repeat(lambda: ss.fused_sparse_shotgun_rounds(
+                *fargs, loss=loss, k_eff=k_eff, **sk), f"{name} [{t}]")
+
+    idx = draws(R, K, A.nblk, g, dup=False)
+    zero_x, zero_z = torch.zeros(A.d_pad, device=dev), torch.zeros(n,
+                                                                    device=dev)
+    fargs = (A.rows, A.vals, zero_z, zero_x, idx, prob.lam, prob.beta,
+             prob.y)
+    fused = lambda: ss.fused_sparse_shotgun_rounds(
+        *fargs, loss="logistic_newton", **sk)
+    drawn_nnz = int(nnz_blk[idx.long()].sum())
+    t = dict(ms=time_ms(fused, 10),
+             plain_ms=time_ms(lambda: ss.fused_sparse_shotgun_rounds_plain(
+                 *fargs, loss="logistic_newton", ovf=o), 2, warmup=1),
+             device_ms=device_ms(fused, ("fused_sparse_ovf_kernel",), 10),
+             bound=bound(drawn_nnz * 8 + 4 * (3 * n + 2 * A.d_pad) + 8 * R,
+                         R * ((K + 10) * n + 2 * A.d_pad)
+                         + 7 * drawn_nnz))
+    print(f"time {name} [logistic_newton url K={K} R={R}]: {t['ms']:.4f} "
+          f"ms, device {t['device_ms']:.4f} ms, bound {t['bound'][0]:.4f} "
+          f"ms ({t['bound'][1]}; {drawn_nnz} drawn nonzeros), plain "
+          f"{t['plain_ms']:.4f} ms")
+
+    spec = SolverSpec(loss="logistic", P=K * B, rounds=URL_ROUNDS,
+                      fused=True, newton=True,
+                      guard=GuardConfig(factor=10.0, p_min=1))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 32)
+    ops.block_shotgun_solve(prob, gen, spec=spec, rounds_per_launch=URL_R)
+    ss.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ops.block_shotgun_solve(prob, gen, spec=spec,
+                                  rounds_per_launch=URL_R)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    launches = ss.LAUNCHES["fused_sparse_shotgun_rounds"]
+    f = res.trace.objective
+    f0 = float(obj.objective(torch.zeros(A.d, device=dev), prob))
+    print(f"ovf main path: guarded Newton solve of {URL_ROUNDS} rounds, "
+          f"{launches} launches, {solve_ms:.2f} ms, F {f0:.6g} -> "
+          f"{float(f[-1]):.6g}")
+    require(launches == URL_ROUNDS // URL_R,
+            f"{name}: {launches} launches, want {URL_ROUNDS // URL_R}")
+    require(bool(torch.isfinite(f).all()) and float(f[-1]) < f0,
+            f"{name}: the solve did not descend")
+    shape = (f"url logistic_newton f32 n={n} d={d} nnz={nnz} "
+             f"tile={URL_TILE} K={K} R={R}")
+    entry = kernel_entry(name, "src/repro_torch/csrc/shotgun_sparse.cu",
+                         "src/repro/kernels/shotgun_sparse.py:389", launches,
+                         t, shape)
+    peak = torch.cuda.max_memory_allocated()
+    return [entry], {"ovf": dict(solve_ms=solve_ms, spilled=spilled,
+                                 nnz=nnz, peak_bytes=peak)}
 
 
 # ---------------------------------------------------------------------------

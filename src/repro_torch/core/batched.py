@@ -137,6 +137,10 @@ def normalize_problem(prob: Problem, meta: BatchMeta) -> SlotArrays:
     y = prob.y.to(torch.float32)
     if sparse:
         S = prob.A
+        if S.ovf is not None:
+            raise ValueError("the batched kernels read the tiles only: a "
+                             "design with an overflow store (columns deeper "
+                             f"than tile {S.tile}) cannot be served")
         if S.block != meta.block:
             raise ValueError(f"block={S.block} != stream block={meta.block}")
         if S.tile > meta.tile:

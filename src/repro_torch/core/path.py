@@ -143,7 +143,9 @@ def solve_path(prob: obj.Problem, generator: torch.Generator | None = None,
                *, lam_target: float, spec: SolverSpec | None = None,
                num_lambdas: int = 10, solver: str | Callable | None = None,
                validate_p: bool = True, cache=None, problem_id=None,
-               tol: float = 1e-4, draws=None, **solver_kwargs) -> PathResult:
+               tol: float = 1e-4, draws=None,
+               rounds_per_launch: int | None = None,
+               **solver_kwargs) -> PathResult:
     """Warm-started λ-continuation around any Shotgun-family solver.
 
     ``spec=SolverSpec(...)`` gives P = spec.P and rounds_per_lambda =
@@ -167,6 +169,12 @@ def solve_path(prob: obj.Problem, generator: torch.Generator | None = None,
     (problem_id, λ grid) takes fewer rounds.  With a cache the per-λ budget
     is a cap and ``PathResult.rounds`` reports the rounds spent per λ;
     ``cache=None`` keeps the fixed budget and one solver call per λ.
+
+    ``rounds_per_launch`` (the fused block solvers) is the launch length,
+    handed to a registry solver; under a cache it is also the chunk after
+    which a λ checks convergence, so each chunk is one launch.  It must
+    divide the per-λ budget.  None keeps the largest divisor of the budget
+    up to 8.
     """
     if spec is None:
         raise TypeError("solve_path needs spec=SolverSpec(...); the legacy "
@@ -184,7 +192,14 @@ def solve_path(prob: obj.Problem, generator: torch.Generator | None = None,
                 f"P*={ps} for this design; clamping to P*={ps} "
                 f"(pass validate_p=False to override)", stacklevel=2)
             P = ps
+    chunk = (_largest_divisor_leq(rounds_per_lambda, 8)
+             if rounds_per_launch is None else int(rounds_per_launch))
+    if chunk < 1 or rounds_per_lambda % chunk:
+        raise ValueError(f"rounds_per_launch={rounds_per_launch} must divide "
+                         f"the rounds a λ, {rounds_per_lambda}")
     if isinstance(solver, str):
+        if rounds_per_launch is not None:
+            solver_kwargs["rounds_per_launch"] = chunk
         solver = _solver_by_name(solver, **solver_kwargs)
     elif solver_kwargs:
         raise ValueError(
@@ -218,7 +233,6 @@ def solve_path(prob: obj.Problem, generator: torch.Generator | None = None,
 
     from repro_torch.core.batched import launch_converged
     pid = "path" if problem_id is None else problem_id
-    chunk = _largest_divisor_leq(rounds_per_lambda, 8)
     rounds_used = []
     for lam in lams:
         p_i = lam_problem(lam)

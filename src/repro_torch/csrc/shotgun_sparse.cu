@@ -49,6 +49,12 @@ constexpr int RANGE_STAGE = 1024;
 constexpr int FUSED_ROWS = 2 * RANGE_ROWS;
 constexpr int FUSED_KC = 32;
 constexpr int FUSED_STAGE = 512;
+// Overflow store (data/sparse.py::Overflow): spilled entries per segment
+// (data/sparse.py::SEG), entries a lane loads per pass, and the most drawn
+// blocks a round of the OVF launch (one prefix slot a thread).
+constexpr int SEG = 256;
+constexpr int SEG_U = SEG / 32;
+constexpr int OVF_KMAX = THREADS;
 
 // Fixed-order block-wide sum (valid in thread 0).  Every thread calls it.
 __device__ __forceinline__ float block_sum(float v, float* s) {
@@ -217,7 +223,8 @@ __device__ __forceinline__ float load_delta(const float* p) {
 }
 
 // The shared arrays of one row-range item: part (KC·ROWS), sv/sd/skey
-// (STAGE), sblk/slo (KC), soff (KC + 1), wsum (WARPS), carry.
+// (STAGE), sblk/slo (KC), soff (KC + 1), wsum (WARPS), carry; with an
+// overflow store also srun (KC).
 struct RangeBufs {
   float* part;
   float* sv;
@@ -228,6 +235,16 @@ struct RangeBufs {
   int* soff;
   int* wsum;
   int* carry;     // key of the previous window's last slot
+  long long* srun;  // OVF: where each chunk block's run starts in `order`
+};
+
+// A design's overflow store as the scatter reads it: block b's local slots
+// tile·128 + e' are its spilled entries ptr[b·128] + e'.
+struct OvfStore {
+  const int* rows;
+  const void* vals;
+  const unsigned char* cols;
+  const long long* ptr;
 };
 
 // acc + s_0(i) + … + s_{K−1}(i) in k order for the owner of row i, where
@@ -244,14 +261,19 @@ struct RangeBufs {
 // `first`: the CTA owns row 0 and sets `bad` (block-wide) when a δ_k,c of
 // a column with a padding slot is non-finite: row 0's K padding terms then
 // add up to NaN, else to +0.  Every thread of the CTA calls it.
-template <typename TV, int ROWS, int KC, int STAGE, bool CG>
+//
+// OVF: `order` and `rstart` are overflow_layouts' (data/sparse.py): block
+// b's run of the flat order starts at b·tslots + ptr[b·128] and holds its
+// tile slots and spilled entries (local slots >= tslots) sorted by row
+// together, so a row's run sums both kinds in slot order.
+template <typename TV, int ROWS, int KC, int STAGE, bool CG, bool OVF = false>
 __device__ __forceinline__ float range_sums(
     const int* __restrict__ rows, const TV* __restrict__ vals,
     const int* __restrict__ order, const int* __restrict__ rstart,
     const unsigned char* __restrict__ zmask, const int* __restrict__ idx,
     const float* __restrict__ delta, long long nq1, long long tslots, int K,
     int c0, int dc, int row0, bool first, bool owner, float acc,
-    const RangeBufs& m, bool& bad_out) {
+    const RangeBufs& m, bool& bad_out, const OvfStore& ov = OvfStore{}) {
   bool bad = false;                      // first: a padding term is NaN
   for (int k0 = 0; k0 < K; k0 += KC) {
     const int nk = min(KC, K - k0);
@@ -263,6 +285,8 @@ __device__ __forceinline__ float range_sums(
       len = rs[dc] - lo;
       m.sblk[threadIdx.x] = b;
       m.slo[threadIdx.x] = lo;
+      if constexpr (OVF)
+        m.srun[threadIdx.x] = b * tslots + ov.ptr[(long long)b * BLOCK];
     }
     int total;
     const int off = block_exclusive_scan(len, m.wsum, total);
@@ -294,13 +318,35 @@ __device__ __forceinline__ float range_sums(
             const int mid = (lo + hi) >> 1;
             if (m.soff[mid] <= f) lo = mid; else hi = mid;
           }
-          const long long bo = m.sblk[lo] * tslots;
-          const int s = order[bo + m.slo[lo] + (f - m.soff[lo])];
-          const int row = rows[bo + s];
-          m.skey[e] = lo * ROWS + (row - row0);
-          m.sv[e] = to_f32(vals[bo + s]);
-          m.sd[e] = load_delta<CG>(delta + (long long)(k0 + lo) * BLOCK
-                                   + (s & (BLOCK - 1)));
+          if constexpr (OVF) {
+            const long long bo = m.sblk[lo] * tslots;
+            const long long run = m.srun[lo];
+            const int s = order[run + m.slo[lo] + (f - m.soff[lo])];
+            int row, col;
+            float v;
+            if (s < tslots) {
+              row = rows[bo + s];
+              v = to_f32(vals[bo + s]);
+              col = s & (BLOCK - 1);
+            } else {
+              const long long q = run - bo + (s - tslots);
+              row = ov.rows[q];
+              v = to_f32(static_cast<const TV*>(ov.vals)[q]);
+              col = ov.cols[q];
+            }
+            m.skey[e] = lo * ROWS + (row - row0);
+            m.sv[e] = v;
+            m.sd[e] = load_delta<CG>(delta + (long long)(k0 + lo) * BLOCK
+                                     + col);
+          } else {
+            const long long bo = m.sblk[lo] * tslots;
+            const int s = order[bo + m.slo[lo] + (f - m.soff[lo])];
+            const int row = rows[bo + s];
+            m.skey[e] = lo * ROWS + (row - row0);
+            m.sv[e] = to_f32(vals[bo + s]);
+            m.sd[e] = load_delta<CG>(delta + (long long)(k0 + lo) * BLOCK
+                                     + (s & (BLOCK - 1)));
+          }
         }
       }
       __syncthreads();
@@ -466,6 +512,15 @@ struct SparseArgs {
                       //   gains a leading slot axis
   long long t_stride; // BATCHED: elements from one slot's rows/vals/order
                       //   to the next (nblk·tile·128, 0 for a shared design)
+  // OVF: the overflow store (data/sparse.py::Overflow) and its workspaces.
+  OvfStore ovf;       // spilled rows, vals, columns in block, column ptr
+  const int* oseg;    // (d_pad + 1,) column j's segments
+  const unsigned char* oseg_col;  // (G,) each segment's column in block
+  float* gpart;       // (K, seg_slots) each drawn block's segment sums of g
+  float* hpart;       // (K, seg_slots) Newton: of h
+  float* gt;          // (K, 128) the tile sums of g
+  float* ht;          // (K, 128) Newton: of h
+  int seg_slots;      // the most segments a block holds (host-sized)
 };
 
 // Scalar j (0 lam, 1 beta, 2 k_eff, 3 guard_f) of slot so.
@@ -551,13 +606,120 @@ __device__ __forceinline__ void finish_round(const SparseArgs& a, int rd,
   }
 }
 
-// Two CTAs per SM (the cooperative grid, sparse_coop_blocks): up to 128
-// registers a thread.  Without the bound ptxas kept the unbatched
-// instantiations at 48–64 registers and spilled in the delta ones.
-template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED>
-__global__ void __launch_bounds__(THREADS, 2)
-fused_sparse_kernel(SparseArgs a) {
+// OVF, phase A: warp `warp` of the item takes the round's spilled segment
+// f (the K drawn blocks' segments laid end to end, kpre their offsets) and
+// sums its ≤ SEG entries' v·r[row] (and v²·w[row]): lane l takes entries
+// l, l + 32, …, in order, then a fixed xor tree.  Its partial goes to slot
+// s of block k's row of gpart (hpart).
+template <typename TV, bool NEWTON>
+__device__ __forceinline__ void ovf_segment(const SparseArgs& a,
+                                            const int* idx, const int* kpre,
+                                            int K, int f) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = K;                   // kpre[lo] <= f < kpre[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (kpre[mid] <= f) lo = mid; else hi = mid;
+  }
+  const int s = f - kpre[lo];
+  const long long b = idx[lo];
+  const int g = a.oseg[b * BLOCK] + s;
+  const long long cj = b * BLOCK + a.oseg_col[g];
+  const long long e0 = a.ovf.ptr[cj] + (long long)(g - a.oseg[cj]) * SEG;
+  const long long e1 = min(e0 + SEG, a.ovf.ptr[cj + 1]);
+  const TV* ov = static_cast<const TV*>(a.ovf.vals);
+  int ri[SEG_U];
+  float v[SEG_U];
+#pragma unroll
+  for (int u = 0; u < SEG_U; ++u) {
+    const long long e = e0 + u * 32 + lane;
+    ri[u] = e < e1 ? a.ovf.rows[e] : -1;
+    v[u] = e < e1 ? to_f32(ov[e]) : 0.f;
+  }
+  float acc = 0.f, hacc = 0.f;
+#pragma unroll
+  for (int u = 0; u < SEG_U; ++u) {
+    if (ri[u] >= 0) {
+      acc = fmaf(v[u], ldcg(a.r + ri[u]), acc);
+      if constexpr (NEWTON) hacc = fmaf(v[u] * v[u], ldcg(a.w + ri[u]), hacc);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    if constexpr (NEWTON)
+      hacc = __fadd_rn(hacc, __shfl_xor_sync(0xffffffffu, hacc, off));
+  }
+  if (lane == 0) {
+    a.gpart[(long long)lo * a.seg_slots + s] = acc;
+    if constexpr (NEWTON) a.hpart[(long long)lo * a.seg_slots + s] = hacc;
+  }
+}
+
+// OVF, phase A2: warp `warp` of item (k, column group) finishes column c of
+// drawn block k: the sum of its segment partials (lane l takes slots l,
+// l + 32, … in order, then a fixed xor tree) added to the tile sum, then δ
+// as phase A takes it for a column with no spilled entries.
+template <int LOSS, bool NEWTON>
+__device__ __forceinline__ void ovf_delta(const SparseArgs& a, const int* idx,
+                                          int k, int c) {
+  const int lane = threadIdx.x & 31;
+  const long long b = idx[k];
+  const long long cj = b * BLOCK + c;
+  const int base = a.oseg[b * BLOCK];
+  const int lo = a.oseg[cj] - base, hi = a.oseg[cj + 1] - base;
+  const float* gp = a.gpart + (long long)k * a.seg_slots;
+  const float* hp = a.hpart + (long long)k * a.seg_slots;
+  float g = 0.f, h = 0.f;
+  for (int s = lo + lane; s < hi; s += 32) {
+    g = __fadd_rn(g, ldcg(gp + s));
+    if constexpr (NEWTON) h = __fadd_rn(h, ldcg(hp + s));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    g = __fadd_rn(g, __shfl_xor_sync(0xffffffffu, g, off));
+    if constexpr (NEWTON) h = __fadd_rn(h, __shfl_xor_sync(0xffffffffu, h, off));
+  }
+  if (lane == 0) {
+    float gs = ldcg(a.gt + k * BLOCK + c), hs = 0.f;
+    if constexpr (NEWTON) hs = ldcg(a.ht + k * BLOCK + c);
+    if (lo < hi) {
+      gs = __fadd_rn(gs, g);
+      if constexpr (NEWTON) hs = __fadd_rn(hs, h);
+    }
+    const float lm = scal(a, 0, 0), bt = scal(a, 1, 0);
+    const int ke = (int)scal(a, 2, 0);
+    const float xs = ldcg(a.x + cj);
+    const float hh = NEWTON ? (hs < 1e-8f ? 1e-8f : hs) : bt;
+    const float xn = soft_threshold(xs - gs / hh, lm / hh);
+    a.delta[k * BLOCK + c] = (xn - xs) * (k < ke ? 1.f : 0.f);
+  }
+}
+
+// The OVF launch's shared arrays, allocated only in the kernels that call
+// these (static shared memory of a device function).
+__device__ __forceinline__ int* ovf_kpre() {
+  __shared__ int kpre[OVF_KMAX + 1];
+  return kpre;
+}
+__device__ __forceinline__ long long* ovf_srun() {
+  __shared__ long long srun[FUSED_KC];
+  return srun;
+}
+
+// The rounds of one launch: every fused sparse kernel below is this body.
+// OVF (unbatched, no EMIT_DZ) adds a design's overflow store: phase A also
+// sums the drawn blocks' spilled segments (items after the |x| partials,
+// one segment a warp) and writes the tile sums instead of δ; a phase A2,
+// with a barrier of its own, adds each column's segment sums to its tile
+// sum and writes δ; BC's range_sums reads the spilled entries with the tile
+// slots.  A round then costs three barriers, and its gather work follows
+// the drawn blocks' entries, not their deepest column.
+template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED,
+          bool OVF>
+__device__ __forceinline__ void fused_sparse_rounds(SparseArgs a) {
   static_assert(!(EMIT_DZ && BATCHED), "no batched delta kernel");
+  static_assert(!(OVF && (EMIT_DZ || BATCHED)), "OVF is unbatched #2 only");
   cg::grid_group grid = cg::this_grid();
   __shared__ float s[THREADS];
   __shared__ int si[THREADS];
@@ -567,7 +729,13 @@ fused_sparse_kernel(SparseArgs a) {
   __shared__ int sblk[FUSED_KC], slo[FUSED_KC], soff[FUSED_KC + 1];
   __shared__ int wsum[WARPS];
   __shared__ int carry;
-  const RangeBufs rb{part, sv, sd, skey, sblk, slo, soff, wsum, &carry};
+  int* kpre = nullptr;
+  long long* srun = nullptr;
+  if constexpr (OVF) {
+    kpre = ovf_kpre();
+    srun = ovf_srun();
+  }
+  const RangeBufs rb{part, sv, sd, skey, sblk, slo, soff, wsum, &carry, srun};
   const TV* vals = static_cast<const TV*>(a.vals);
   const int S = BATCHED ? a.S : 1;
   const long long n = a.n;
@@ -627,7 +795,23 @@ fused_sparse_kernel(SparseArgs a) {
     const int* idx = a.idx + (long long)min(rd, a.R - 1) * K;
     // A: δ of round rd; the |x| / nnz partials of round rd − 1's chunks.
     const int n_d = rd < a.R ? n_pair : 0;
-    const int n_a = n_d + (!EMIT_DZ && rd > 0 ? K : 0);
+    const int n_x = !EMIT_DZ && rd > 0 ? K : 0;
+    int n_s = 0;      // OVF: items of the drawn blocks' spilled segments
+    if constexpr (OVF) {
+      if (rd < a.R) {
+        int cnt = 0, total;
+        if (threadIdx.x < K) {
+          const long long b = idx[threadIdx.x];
+          cnt = a.oseg[(b + 1) * BLOCK] - a.oseg[b * BLOCK];
+        }
+        const int off = block_exclusive_scan(cnt, wsum, total);
+        if (threadIdx.x < K) kpre[threadIdx.x] = off;
+        if (threadIdx.x == 0) kpre[K] = total;
+        __syncthreads();
+        n_s = (total + WARPS - 1) / WARPS;
+      }
+    }
+    const int n_a = n_d + n_x + n_s;
     for (int it = blockIdx.x; it < S * n_a; it += gridDim.x) {
       const int so = BATCHED ? it / n_a : 0;
       const int j = it - so * n_a;
@@ -644,11 +828,22 @@ fused_sparse_kernel(SparseArgs a) {
           gather_col<TV, NEWTON>(a.rows + so * ts, vals + so * ts,
                                  a.r + so * n, a.w + (NEWTON ? so * n : 0),
                                  ik[k], c, a.tile, g, h);
-          const float xs =
-              ldcg(a.x + so * a.d_pad + (long long)ik[k] * BLOCK + c);
-          const float hh = NEWTON ? (h < 1e-8f ? 1e-8f : h) : bt;
-          const float xn = soft_threshold(xs - g / hh, lm / hh);
-          (a.delta + so * kb)[k * BLOCK + c] = (xn - xs) * (k < ke ? 1.f : 0.f);
+          if constexpr (OVF) {
+            a.gt[k * BLOCK + c] = g;
+            if constexpr (NEWTON) a.ht[k * BLOCK + c] = h;
+          } else {
+            const float xs =
+                ldcg(a.x + so * a.d_pad + (long long)ik[k] * BLOCK + c);
+            const float hh = NEWTON ? (h < 1e-8f ? 1e-8f : h) : bt;
+            const float xn = soft_threshold(xs - g / hh, lm / hh);
+            (a.delta + so * kb)[k * BLOCK + c] =
+                (xn - xs) * (k < ke ? 1.f : 0.f);
+          }
+        }
+      } else if (OVF && j >= n_d + n_x) {
+        if constexpr (OVF) {
+          const int f = (j - n_d - n_x) * WARPS + (threadIdx.x >> 5);
+          if (f < kpre[K]) ovf_segment<TV, NEWTON>(a, idx, kpre, K, f);
         }
       } else if constexpr (!EMIT_DZ) {
         // chunk of round rd − 1's draw k, on its first k only
@@ -666,6 +861,16 @@ fused_sparse_kernel(SparseArgs a) {
       }
     }
     grid.sync();
+    if constexpr (OVF) {
+      // A2: each drawn column's g (and h) and δ, a warp a column.
+      if (rd < a.R) {
+        constexpr int GROUPS = BLOCK / WARPS;
+        for (int it = blockIdx.x; it < K * GROUPS; it += gridDim.x)
+          ovf_delta<LOSS, NEWTON>(a, idx, it / GROUPS,
+                                  (it % GROUPS) * WARPS + (threadIdx.x >> 5));
+        grid.sync();
+      }
+    }
     if (stamp) a.stamps[ns++] = clock64();
     // Slot s's finish of round rd − 1 on block G − 1 − s % G of the G
     // blocks (unbatched: the last), which BC's items, dealt from block 0
@@ -697,12 +902,13 @@ fused_sparse_kernel(SparseArgs a) {
         const long long vo = so * n;
         const bool owner = i < n;
         bool bad;
-        float acc = range_sums<TV, FUSED_ROWS, FUSED_KC, FUSED_STAGE, true>(
+        float acc = range_sums<TV, FUSED_ROWS, FUSED_KC, FUSED_STAGE, true,
+                               OVF>(
             a.rows + so * ts, vals + so * ts, a.order + so * ts,
             a.rstart + so * qs, a.zmask + so * zs, ik, a.delta + so * kb,
             nq1, (long long)a.tile * BLOCK, K, 2 * j,
             2 * j + 2 < nq1 ? 2 : 1, j * FUSED_ROWS, j == 0, owner,
-            !EMIT_DZ && owner ? ldcg(a.z + vo + i) : 0.f, rb, bad);
+            !EMIT_DZ && owner ? ldcg(a.z + vo + i) : 0.f, rb, bad, a.ovf);
         if (i == 0 && K > 0) acc = add_padding(acc, bad);
         if constexpr (EMIT_DZ) {
           if (owner) {
@@ -749,6 +955,22 @@ fused_sparse_kernel(SparseArgs a) {
     if (stamp) a.stamps[ns++] = clock64();
   }
   if (stamp) a.stamps[2 * a.R + 5] = globaltimer_ns();
+}
+
+// Two CTAs per SM (the cooperative grid, sparse_coop_blocks): up to 128
+// registers a thread.  Without the bound ptxas kept the unbatched
+// instantiations at 48–64 registers and spilled in the delta ones.
+template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_sparse_kernel(SparseArgs a) {
+  fused_sparse_rounds<TV, LOSS, NEWTON, EMIT_DZ, BATCHED, false>(a);
+}
+
+// #2 on a design with an overflow store (sp_fused_shotgun_rounds_ovf).
+template <typename TV, int LOSS, bool NEWTON>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_sparse_ovf_kernel(SparseArgs a) {
+  fused_sparse_rounds<TV, LOSS, NEWTON, false, false, true>(a);
 }
 
 namespace {
@@ -800,6 +1022,21 @@ const void* pick_sparse(int v_bf16, int code) {
                   : pick_sparse<float, false, true>(loss);
   return v_bf16 ? pick_sparse<__nv_bfloat16, false, false>(loss)
                 : pick_sparse<float, false, false>(loss);
+}
+
+template <typename TV>
+const void* pick_sparse_ovf(int loss) {
+  switch (loss) {
+    case 0: return reinterpret_cast<const void*>(
+        &fused_sparse_ovf_kernel<TV, LOSS_LASSO, false>);
+    case 1: return reinterpret_cast<const void*>(
+        &fused_sparse_ovf_kernel<TV, LOSS_LOGISTIC, false>);
+    case 2: return reinterpret_cast<const void*>(
+        &fused_sparse_ovf_kernel<TV, LOSS_LASSO, true>);
+    case 3: return reinterpret_cast<const void*>(
+        &fused_sparse_ovf_kernel<TV, LOSS_LOGISTIC, true>);
+    default: return nullptr;
+  }
 }
 
 // The arguments every fused entry takes; the rest null (or one slot).
@@ -945,6 +1182,49 @@ int sp_fused_shotgun_rounds(const int* rows, const void* vals, int v_bf16,
   a.health = health;
   a.stamps = stamps;
   return launch_sparse(pick_sparse(v_bf16, loss), a, stream);
+}
+
+// #2 on a design with an overflow store: the arguments of
+// sp_fused_shotgun_rounds, with order and rstart overflow_layouts' (data/
+// sparse.py), then the store (orows, ovals, ocols, optr, oseg, oseg_col:
+// data/sparse.py::Overflow) and its workspaces: gpart and hpart (K,
+// seg_slots), gt and ht (K, 128) f32 (hpart, ht one element unless
+// Newton).  K is at most OVF_KMAX.  The grid is the cooperative grid of
+// the other fused launches; a round's segment items cover the drawn
+// blocks' own segments, at most K·seg_slots of them.
+int sp_fused_shotgun_rounds_ovf(
+    const int* rows, const void* vals, int v_bf16, int loss, const int* order,
+    const int* rstart, const unsigned char* zmask, const float* y,
+    const int* idx, const float* const* sp, const float* sv, const float* z0,
+    float* z, const float* x0, float* x, float* r, float* w, float* delta,
+    float* lpart, float* xl1, int* xnz, float* f, int* nnz, float* health,
+    long long* stamps, long long n, long long d_pad, int R, int K, int tile,
+    const int* orows, const void* ovals, const unsigned char* ocols,
+    const long long* optr, const int* oseg, const unsigned char* oseg_col,
+    float* gpart, float* hpart, float* gt, float* ht, int seg_slots,
+    void* stream) {
+  if ((loss & ~3) || K < 1 || K > OVF_KMAX || seg_slots < 1)
+    return (int)cudaErrorInvalidValue;
+  SparseArgs a = fused_args(rows, vals, order, rstart, zmask, y, idx, sp, sv,
+                            z0, z, x0, x, r, w, delta, n, d_pad, R, K, tile);
+  a.lpart = lpart;
+  a.xl1 = xl1;
+  a.xnz = xnz;
+  a.f = f;
+  a.nnz = nnz;
+  a.health = health;
+  a.stamps = stamps;
+  a.ovf = OvfStore{orows, ovals, ocols, optr};
+  a.oseg = oseg;
+  a.oseg_col = oseg_col;
+  a.gpart = gpart;
+  a.hpart = hpart;
+  a.gt = gt;
+  a.ht = ht;
+  a.seg_slots = seg_slots;
+  return launch_sparse(v_bf16 ? pick_sparse_ovf<__nv_bfloat16>(loss)
+                              : pick_sparse_ovf<float>(loss),
+                       a, stream);
 }
 
 // The slot kernel: every array but the tiles, the order, the table and

@@ -56,6 +56,9 @@ _ARGTYPES = {
                                + [_L, _L, _I, _I, _I, _P],
     "sp_fused_shotgun_delta_rounds": [_P, _P, _I, _I] + [_P] * 16
                                      + [_L, _L, _I, _I, _I, _P],
+    "sp_fused_shotgun_rounds_ovf": [_P, _P, _I, _I] + [_P] * 21
+                                   + [_L, _L, _I, _I, _I] + [_P] * 10
+                                   + [_I, _P],
     "sp_fused_grid_blocks": [_I, _I],
     "sp_batched_fused_shotgun_rounds": [_P, _P, _I, _I, _L] + [_P] * 21
                                        + [_L, _L, _I, _I, _I, _I, _P],

@@ -265,6 +265,10 @@ def _sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss, x0=None,
                   guard=None):
     """Round loop over the sparse two-kernel round; blk_idx (rounds, K).
     x stays f32 also for bf16 vals."""
+    if S.ovf is not None:
+        raise ValueError("the two-kernel sparse round reads the tiles only; "
+                         "a design with an overflow store takes the fused "
+                         "path (spec.fused=True)")
     x, z = _sparse_start(S, x0)
     order, rstart = S.scatter_order(), S.range_starts()
     ones = torch.ones_like(y, dtype=torch.float32)
@@ -282,7 +286,8 @@ def _sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss, x0=None,
 def _fused_sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss: Loss,
                         x0=None, guard=None):
     """Loop over launches of the fused sparse kernel, one per R rounds;
-    blk_idx (L, R, K); launch-granular rollback with ``guard``."""
+    blk_idx (L, R, K); launch-granular rollback with ``guard``.  A design's
+    overflow store goes with its tiles."""
     x, z = _sparse_start(S, x0)
     order, rstart = S.scatter_order(), S.range_starts()
     ones = torch.ones_like(y, dtype=torch.float32)
@@ -291,7 +296,7 @@ def _fused_sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss: Loss,
         return fused_sparse_shotgun_rounds(S.rows, S.vals, z, x, idx, lam,
                                            beta, y, loss=loss, k_eff=k_eff,
                                            guard_f=guard_f, order=order,
-                                           rstart=rstart)
+                                           rstart=rstart, ovf=S.ovf)
 
     return _launch_loop(launch, _objective(y, ones, lam, loss.name), x, z,
                         blk_idx, guard)

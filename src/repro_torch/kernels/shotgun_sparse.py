@@ -22,6 +22,11 @@ falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
 There is no sample mask on the sparse path: z is full length (n,), and
 padded tile slots (row 0, value 0) are additive no-ops in both directions
 (0·δ is NaN for a non-finite δ, as in the reference).
+
+``fused_sparse_shotgun_rounds`` also takes a design's overflow store
+(``ovf=``, ``data/sparse.py::Overflow``): a column's spilled segments add
+their partial sums to its tile sum in segment order, and its spilled
+entries reach z through the same row-range owners as its tile slots.
 """
 from __future__ import annotations
 
@@ -30,7 +35,9 @@ import math
 
 import torch
 
-from repro_torch.data.sparse import (BLOCK, RANGE_ROWS, ScatterOrder,
+from repro_torch import obs
+from repro_torch.data.sparse import (BLOCK, RANGE_ROWS, SEG, Overflow,
+                                     ScatterOrder, overflow_layouts,
                                      range_starts, scatter_order)
 from repro_torch.kernels.shotgun_block import (LASSO, _RAW_STREAM, Loss, _as,
                                                _check_rc, _contig,
@@ -47,6 +54,11 @@ LAUNCHES = {"fused_sparse_shotgun_rounds": 0,
 
 _THREADS = 256     # CUDA threads per block, every sparse kernel
 _XCHUNK = 4096     # |x| / nnz partial: elements per item (fused kernel)
+
+# The host side of a launch's overflow work (its workspaces, sized from the
+# store's segment slots on the host), and its counters: launches, and the
+# segments of the drawn blocks that they cover (counted on the device).
+OVERFLOW_SPAN = "repro_torch.solve.overflow"
 
 
 def reset_launches() -> None:
@@ -272,16 +284,50 @@ def sparse_scatter_block_update(rows, vals, z, blk_idx, delta, *,
 # Kernel 3: fused multi-round sparse Shotgun — R rounds per launch
 # ---------------------------------------------------------------------------
 
-def _plain_round(ls: Loss, rows, vals, z, xb, idx, lam, beta, y, one, live):
+def _spilled(ovf: Overflow, b: int):
+    """Block b's spilled entries: (rows long, vals f32, columns long within
+    the block, segment of each within the block)."""
+    lo, hi = (int(v) for v in ovf.ptr[[b * BLOCK, (b + 1) * BLOCK]])
+    cols = ovf.cols[lo:hi].long()
+    cj = b * BLOCK + cols
+    seg = (ovf.seg_ptr[cj].long() - int(ovf.seg_ptr[b * BLOCK])
+           + (torch.arange(lo, hi, device=cols.device) - ovf.ptr[cj]) // SEG)
+    return ovf.rows[lo:hi].long(), ovf.vals[lo:hi].float(), cols, seg
+
+
+def _spilled_sums(ovf: Overflow, idx, terms):
+    """(K, 128): each drawn block's columns' sums of ``terms(rows, vals)``
+    over its spilled entries, as the kernel adds them: each segment's sum,
+    then a column's segment sums in segment order."""
+    out = []
+    for b in idx.tolist():
+        r, v, cols, seg = _spilled(ovf, b)
+        nseg = int(ovf.blk_seg[b + 1] - ovf.blk_seg[b])
+        part = torch.zeros(nseg, device=v.device).index_add_(0, seg,
+                                                             terms(r, v))
+        col_of = torch.zeros(nseg, dtype=torch.long, device=v.device)
+        col_of[seg] = cols
+        out.append(torch.zeros(BLOCK, device=v.device).index_add_(
+            0, col_of, part))
+    return torch.stack(out)
+
+
+def _plain_round(ls: Loss, rows, vals, z, xb, idx, lam, beta, y, one, live,
+                 ovf: Overflow | None = None):
     """One round of the fused plain versions: every δ from the residual
     (and Newton weights) of the round-start margin z and the pre-round x;
     x[blk] += δ in k order in place.  Returns the drawn tiles and δ."""
     rows_k, vals_k = _take_tiles(rows, vals, idx)
-    g = torch.sum(vals_k * ls.residual(z, y, one)[rows_k], dim=1)
+    res = ls.residual(z, y, one)
+    g = torch.sum(vals_k * res[rows_k], dim=1)
+    if ovf is not None:
+        g = g + _spilled_sums(ovf, idx, lambda r, v: v * res[r])
     if ls.newton:
         w = ls.curvature_weights(z, y, one)
-        h = torch.clamp_min(torch.sum(vals_k * vals_k * w[rows_k], dim=1),
-                            1e-8)
+        hs = torch.sum(vals_k * vals_k * w[rows_k], dim=1)
+        if ovf is not None:
+            hs = hs + _spilled_sums(ovf, idx, lambda r, v: v * v * w[r])
+        h = torch.clamp_min(hs, 1e-8)
     else:
         h = beta
     dlt = block_delta(xb[idx], g, lam, h) * live
@@ -290,15 +336,27 @@ def _plain_round(ls: Loss, rows, vals, z, xb, idx, lam, beta, y, one, live):
     return rows_k, vals_k, dlt
 
 
+def _scatter_spilled(ovf: Overflow, idx, z, delta):
+    """z + each drawn block's spilled entries' vals·δ, block by block."""
+    out = z
+    for k, b in enumerate(idx.tolist()):
+        r, v, cols, _ = _spilled(ovf, b)
+        out = out + torch.zeros_like(z).index_add_(0, r, v * delta[k][cols])
+    return out
+
+
 def fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx, lam, beta,
                                       y, loss: str | Loss = LASSO,
-                                      k_eff=None, guard_f=None):
+                                      k_eff=None, guard_f=None,
+                                      ovf: Overflow | None = None):
     """Plain version of ``fused_sparse_shotgun_rounds``, with the kernel's
     dataflow: each round takes the residual (and Newton weights) of the
     round-start margin, computes every δ from the pre-round x, adds block
     k's contributions to z through row k of a (K, n) buffer in k order,
     applies x[blk] += δ in k order at round end (duplicates accumulate),
-    then computes F and nnz from the updated (x, z)."""
+    then computes F and nnz from the updated (x, z).  With ``ovf`` a
+    column's spilled terms join its sums segment by segment, and the
+    spilled entries' vals·δ reach z after the tiles'."""
     ls = resolve_loss(loss)
     nblk, _ = _check_tiles(rows, vals)
     R, K = blk_idx.shape
@@ -313,10 +371,12 @@ def fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx, lam, beta,
     health = torch.zeros((), dtype=torch.float32, device=vals.device)
     fs, nnzs = [], []
     for t in range(R):
-        rows_k, vals_k, dlt = _plain_round(ls, rows, vals, z, xb,
-                                           blk_idx[t].long(), lam, beta, y,
-                                           one, live)
+        idx = blk_idx[t].long()
+        rows_k, vals_k, dlt = _plain_round(ls, rows, vals, z, xb, idx, lam,
+                                           beta, y, one, live, ovf)
         z = _scatter_plain(rows_k, vals_k, z, dlt)
+        if ovf is not None:
+            z = _scatter_spilled(ovf, idx, z, dlt)
         f = ls.objective(z, y, one, xb, lam)
         bad = ~torch.isfinite(f) | (f > guard)
         health = torch.maximum(health, bad.float())
@@ -326,12 +386,45 @@ def fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx, lam, beta,
             torch.stack(nnzs).to(torch.int32), health)
 
 
+def _overflow_work(ovf: Overflow, ls: Loss, nblk: int, blk_idx, dtype,
+                   on_cuda: bool, dev):
+    """The host side of a launch's overflow work: check the store, count
+    the launch and the drawn blocks' segments (a device sum, read after
+    the profiled window), and on the card allocate the workspaces (gpart,
+    hpart (K, seg_slots); gt, ht (K, 128); the h ones one element unless
+    Newton)."""
+    K = blk_idx.shape[1]
+    with obs.span(OVERFLOW_SPAN):
+        if K > _THREADS:
+            raise ValueError(f"K={K} blocks a round > {_THREADS}: the "
+                             "overflow launch takes at most that many")
+        if ovf.ptr.numel() != nblk * BLOCK + 1 or ovf.vals.dtype != dtype:
+            raise ValueError(f"overflow store of {ovf.ptr.numel() - 1} "
+                             f"columns in {ovf.vals.dtype} for {nblk} "
+                             f"blocks of {dtype} tiles")
+        slots = max(1, ovf.seg_slots)
+        obs.count("solver.overflow_launches", 1)
+        if obs.enabled():
+            drawn = blk_idx.reshape(-1).to(ovf.seg_ptr.device)
+            obs.count("solver.overflow_segments",
+                      ovf.seg_ptr[BLOCK::BLOCK].index_select(0, drawn).sum()
+                      - ovf.seg_ptr[:-1:BLOCK].index_select(0, drawn).sum())
+        if not on_cuda:
+            return None
+        f32 = dict(dtype=torch.float32, device=dev)
+        return (torch.empty((K, slots), **f32),
+                torch.empty((K, slots) if ls.newton else 1, **f32),
+                torch.empty((K, BLOCK), **f32),
+                torch.empty((K, BLOCK) if ls.newton else 1, **f32))
+
+
 def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
                                 loss: str | Loss = LASSO, k_eff=None,
                                 guard_f=None, *,
                                 order: ScatterOrder | None = None,
                                 rstart: torch.Tensor | None = None,
-                                stamps: torch.Tensor | None = None):
+                                stamps: torch.Tensor | None = None,
+                                ovf: Overflow | None = None):
     """R Block-Shotgun rounds over BlockedCSC tiles in ONE kernel launch.
 
     rows/vals  (nblk, tile, 128) BlockedCSC tiles, vals f32 or bf16.
@@ -349,6 +442,14 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
                barrier (two a round: A, then BC) and at the end (phase
                breakdown), then the card's ns timer at launch start and at
                the end (ignored on the CPU).
+    ovf        the design's overflow store, or None.  With it, ``order``
+               and ``rstart`` are ``overflow_layouts``'s (the container's
+               own), K is at most 256, and the launch adds a phase a round
+               (A, the spilled segments' partials beside the tile sums;
+               A2, a column's sums and δ; then BC): the first barrier's
+               stamp is the A2 barrier's.  Under a profiler a few small
+               device operations beside the launch count the drawn
+               blocks' segments.
 
     ``lam``, ``beta``, ``k_eff`` and ``guard_f`` are numbers (passed by
     value) or one-element device tensors (read by the kernel, never read
@@ -362,17 +463,29 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
     nblk, tile = _check_tiles(rows, vals)
     R, K = blk_idx.shape
     n = z.shape[0]
-    _check_rstart(rstart, (), nblk, n, vals.device)
-    if not _on_cuda(rows, vals, z, x, blk_idx, y):
+    dev = vals.device
+    _check_rstart(rstart, (), nblk, n, dev)
+    on_cuda = _on_cuda(rows, vals, z, x, blk_idx, y,
+                       *(() if ovf is None else (ovf.rows, ovf.vals)))
+    if ovf is not None:
+        work = _overflow_work(ovf, ls, nblk, blk_idx, vals.dtype, on_cuda,
+                              dev)
+    if not on_cuda:
         return fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx,
                                                  lam, beta, y, ls, k_eff,
-                                                 guard_f)
+                                                 guard_f, ovf=ovf)
     _require_contiguous(rows, vals)
+    if ovf is not None and (order is None or rstart is None):
+        order, rstart = overflow_layouts(rows, vals, ovf, n)
     od = scatter_order(rows, vals) if order is None else order
     rs = range_starts(rows, od, n) if rstart is None else rstart
+    if ovf is not None and od.order.numel() != rows.numel() + \
+            ovf.rows.numel():
+        raise ValueError("order must be overflow_layouts' (the container's "
+                         "scatter_order()) for a design with an overflow "
+                         "store")
     from repro_torch.kernels import _build
     lib = _build.load()
-    dev = vals.device
     d_pad = nblk * BLOCK
     sp, sv, keep = _scalar_args(
         (lam, beta, K if k_eff is None else k_eff,
@@ -395,15 +508,21 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
     nnz = torch.empty(R, dtype=torch.int32, device=dev)
     health = torch.empty((), **f32)
     _check_stamps(stamps, R, dev)
-    with torch.cuda.device(dev):
-        rc = lib.sp_fused_shotgun_rounds(
-            _ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
+    args = (_ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
             _loss_code(ls), _ptr(od.order), _ptr(rs), _ptr(od.zmask),
             _ptr(yv), _ptr(idx), sp, sv, _ptr(z0), _ptr(z_out), _ptr(x0),
             _ptr(x_out), _ptr(r), _ptr(w), _ptr(dlt), _ptr(lpart),
             _ptr(xl1), _ptr(xnz), _ptr(f), _ptr(nnz), _ptr(health),
             _ptr(stamps) if stamps is not None else None, n, d_pad, R, K,
-            tile, _stream(dev))
+            tile)
+    with torch.cuda.device(dev):
+        if ovf is None:
+            rc = lib.sp_fused_shotgun_rounds(*args, _stream(dev))
+        else:
+            rc = lib.sp_fused_shotgun_rounds_ovf(
+                *args, _ptr(ovf.rows), _ptr(ovf.vals), _ptr(ovf.cols),
+                _ptr(ovf.ptr), _ptr(ovf.seg_ptr), _ptr(ovf.seg_col),
+                *(_ptr(t) for t in work), work[0].shape[1], _stream(dev))
     _check_rc(rc, "fused_sparse_shotgun_rounds")
     LAUNCHES["fused_sparse_shotgun_rounds"] += 1
     del keep

@@ -11,7 +11,9 @@ while a ``torch.profiler`` (or ``emit_nvtx``) session records.
                           of the device records, and keeps (name, parent,
                           request id, start, end) on ``time.perf_counter_ns``.
 ``count(name, n)``        adds ``n`` to a counter, only while a profiler
-                          records.
+                          records; a device tensor ``n`` is kept as it is
+                          and read by ``totals()``, so counting what lies
+                          on the device makes no host wait.
 ``totals()``              each span name's calls, inclusive seconds and
                           self seconds (inclusive less its children's), the
                           counters, and how many span records the cap
@@ -109,6 +111,7 @@ _stack: list[_Open] = []
 _records: list = []
 _spans: dict[str, list[int]] = {}    # name -> [calls, inclusive, self] ns
 _counters: dict[str, int] = {}
+_pending: dict[str, list] = {}       # name -> device tensors not read yet
 _dropped = 0
 
 
@@ -125,8 +128,13 @@ def span(name: str, rid=None):
 
 
 def count(name: str, n) -> None:
-    """Add ``n`` to the counter ``name`` while a profiler records."""
-    if _enabled():
+    """Add ``n`` to the counter ``name`` while a profiler records; a
+    tensor ``n`` is read only by ``totals()``."""
+    if not _enabled():
+        return
+    if isinstance(n, torch.Tensor):
+        _pending.setdefault(name, []).append(n)
+    else:
         _counters[name] = _counters.get(name, 0) + int(n)
 
 
@@ -146,11 +154,15 @@ def nbytes(*arrays) -> int:
 
 def totals() -> dict:
     """{"spans": {name: {"calls", "seconds", "self_seconds"}},
-    "counters": {name: n}, "dropped": records the cap dropped}."""
+    "counters": {name: n}, "dropped": records the cap dropped}.  Reads
+    the counters' device tensors (a host wait where there are any)."""
+    counters = dict(_counters)
+    for k, ts in _pending.items():
+        counters[k] = counters.get(k, 0) + int(torch.stack(ts).sum())
     return {"spans": {k: {"calls": c, "seconds": t / 1e9,
                           "self_seconds": s / 1e9}
                       for k, (c, t, s) in _spans.items()},
-            "counters": dict(_counters), "dropped": _dropped}
+            "counters": counters, "dropped": _dropped}
 
 
 def spans() -> list[SpanRecord]:
@@ -166,4 +178,5 @@ def reset() -> None:
     _records.clear()
     _spans.clear()
     _counters.clear()
+    _pending.clear()
     _dropped = 0

@@ -418,7 +418,8 @@ def test_sl101_anchors_each_kernel_at_its_definition():
     csrc = REPO / "src" / "repro_torch" / "csrc"
     anchors = tc._kernel_anchors(csrc, REPO)
     assert sorted(anchors) == [
-        "fused_rounds_kernel", "fused_sparse_kernel", "gather_chunk_kernel",
+        "fused_rounds_kernel", "fused_sparse_kernel",
+        "fused_sparse_ovf_kernel", "gather_chunk_kernel",
         "scatter_rows_kernel", "scatter_task_kernel",
         "sparse_gather_split_kernel"]
     for name, (path, line) in anchors.items():

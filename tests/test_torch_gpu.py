@@ -1890,3 +1890,162 @@ def test_dryrun_cell_on_card_fake_tensors(cuda, tmp_path, monkeypatch):
         assert rec["device_type"] == "cuda"
         mem = rec["memory"]
         assert mem["argument_bytes"] == mem["argument_bytes_from_specs"]
+
+
+# ---------------------------------------------------------------------------
+# Kernel #2 on a design with an overflow store (BlockedCSC.from_csc)
+# ---------------------------------------------------------------------------
+
+def _skewed_csc(n=3000, d=4000, seed=8):
+    """A heavy-tailed design in CSC (numpy): two columns in every row, a
+    few hundred rows deep in a dozen more, the rest at density 0.5%."""
+    rng = np.random.default_rng(seed)
+    p = np.full(d, 0.005)
+    p[rng.permutation(d)[:14]] = np.r_[1.0, 1.0, np.full(12, 0.2)]
+    cols, rows = [], []
+    for j in range(d):
+        r = np.nonzero(rng.random(n) < p[j])[0]
+        rows.append(r)
+        cols.append(np.full(r.size, j))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    col_ptr = np.r_[0, np.cumsum(np.bincount(cols, minlength=d))]
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    return col_ptr, rows.astype(np.int32), vals, n, d, y
+
+
+def _ovf_problem(dev, loss, tile=8):
+    col_ptr, rows, vals, n, d, y = _skewed_csc()
+    S = tsp.BlockedCSC.from_csc(col_ptr, rows, vals, n, d, tile=tile,
+                                device=dev)
+    name = "lasso" if loss == "lasso" else "logistic"
+    if name == "lasso":
+        y = np.random.default_rng(9).standard_normal(n).astype(np.float32)
+    prob = tobj.make_problem(S, y, 1.0, loss=name, device=dev)
+    return prob._replace(lam=0.1 * tobj.lambda_max(prob.A, prob.y, name))
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
+def test_overflow_fused_matches_plain_and_repeats_bitwise(cuda, loss, store):
+    """The OVF instantiation of #2 against its plain version on the same
+    store, a duplicate draw included, and bit for bit on a repeat."""
+    cpu, card = (_ovf_problem(dev, loss) for dev in ("cpu", cuda))
+    A = {k: (p.A.astype(torch.bfloat16) if store == "bf16" else p.A)
+         for k, p in (("cpu", cpu), ("cuda", card))}
+    assert A["cuda"].ovf is not None and A["cuda"].ovf.seg_slots > 1
+    rng = np.random.default_rng(4)
+    idx = np.stack([rng.permutation(A["cpu"].nblk)[:6] for _ in range(8)])
+    idx[3, -1] = idx[3, 0]                             # duplicate draw
+    idx = torch.from_numpy(idx.astype(np.int32))
+    x = torch.zeros(A["cpu"].d_pad)
+    x[torch.from_numpy(rng.permutation(A["cpu"].d)[:300])] = 0.02
+    z = A["cpu"].matvec(x)
+    want = tss.fused_sparse_shotgun_rounds(
+        A["cpu"].rows, A["cpu"].vals, z, x, idx, cpu.lam, cpu.beta, cpu.y,
+        loss=loss, ovf=A["cpu"].ovf)
+    S = A["cuda"]
+    args = (S.rows, S.vals, z.to(cuda), x.to(cuda), idx.to(cuda), card.lam,
+            card.beta, card.y)
+    kw = dict(loss=loss, order=S.scatter_order(), rstart=S.range_starts(),
+              ovf=S.ovf)
+    tss.reset_launches()
+    got = tss.fused_sparse_shotgun_rounds(*args, **kw)
+    assert tss.LAUNCHES["fused_sparse_shotgun_rounds"] == 1
+    tol = 1e-3 if store == "bf16" else 1e-4
+    for u, v in zip(got[:3], want[:3]):
+        torch.testing.assert_close(u.cpu(), v, rtol=tol, atol=tol)
+    assert float(got[4]) == float(want[4]) == 0.0
+    again = tss.fused_sparse_shotgun_rounds(*args, **kw)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+    *_, h = tss.fused_sparse_shotgun_rounds(*args, **kw, guard_f=0.0)
+    assert float(h) == 1.0
+
+
+def test_overflow_guarded_newton_solve_on_card_matches_cpu(cuda):
+    """``block_shotgun_solve`` takes a design with an overflow store through
+    its fused path, guard and Newton steps on: the card's trace and iterate
+    against the CPU's, and bit for bit on a repeat."""
+    from repro_torch.core.health import GuardConfig
+    spec = SolverSpec(loss="logistic", P=512, rounds=16, fused=True,
+                      newton=True, guard=GuardConfig(factor=10.0, p_min=1))
+    rng = np.random.default_rng(0)
+    idx = np.stack([rng.permutation(32)[:4] for _ in range(16)]).astype(
+        np.int32)
+    res = {}
+    for dev in ("cpu", cuda):
+        prob = _ovf_problem(dev, "logistic")
+        res[str(dev)] = [tops.block_shotgun_solve(prob, spec=spec,
+                                                  blk_idx=idx)
+                         for _ in range(2)]
+    cpu, (gpu, again) = res["cpu"][0], res["cuda"]
+    torch.testing.assert_close(gpu.trace.objective.cpu(),
+                               cpu.trace.objective, rtol=1e-4, atol=0)
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=1e-4, atol=1e-4)
+    assert int(gpu.status) == int(cpu.status)
+    assert torch.equal(gpu.x, again.x) and torch.equal(gpu.z, again.z)
+
+
+def _news20_tiles(seed=5, n=20000, d=100000, density=3.36e-4):
+    """A news20-shaped design as raw tiles (numpy), with its draws, an
+    iterate and labels."""
+    rng = np.random.default_rng(seed)
+    counts = np.minimum(rng.binomial(n, density, d), 24)
+    tile = 24
+    nblk = -(-d // 128)
+    rows = np.zeros((nblk * 128, tile), np.int32)
+    vals = np.zeros((nblk * 128, tile), np.float32)
+    for j in np.nonzero(counts)[0]:
+        r = np.sort(rng.choice(n, counts[j], replace=False))
+        rows[j, :counts[j]] = r
+        vals[j, :counts[j]] = rng.exponential(1.0, counts[j])
+    rows = rows.reshape(nblk, 128, tile).transpose(0, 2, 1).copy()
+    vals = vals.reshape(nblk, 128, tile).transpose(0, 2, 1).copy()
+    y = rng.standard_normal(n).astype(np.float32)
+    ylab = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    idx = np.stack([rng.permutation(nblk)[:32] for _ in range(8)]).astype(
+        np.int32)
+    x = np.zeros(nblk * 128, np.float32)
+    hot = rng.permutation(d)[:2000]
+    x[hot] = 0.05 * rng.standard_normal(2000)
+    return rows, vals, n, d, y, ylab, idx, x
+
+
+# sha256 of (x, z, f, nnz, health) from kernel #2 of the tree before the
+# overflow store, on an H100 (the same inputs, raw tiles).
+PARENT_BITS = {
+    "lasso": "18e2a0b1463e727fda3f1545f3250072eb5ac5cf0c79f5ffbac4d9beb2825f0d",
+    "logistic_newton":
+        "284f6e76dcfa5be37b828d483d85b1cfe4d0256f486f2b8a19fea1666f0bd5c9"}
+
+
+def test_no_overflow_design_keeps_the_parents_bits(cuda):
+    """A news20-shaped design with no column deeper than its tile has no
+    overflow store, and #2 gives it the bits the kernel gave it before the
+    store existed (``from_csc`` packs the same tiles)."""
+    import hashlib
+    rows, vals, n, d, y, ylab, idx, x = _news20_tiles()
+    S = tsp.BlockedCSC(rows=torch.from_numpy(rows).to(cuda),
+                       vals=torch.from_numpy(vals).to(cuda), n=n, d=d)
+    cr = rows.transpose(0, 2, 1).reshape(-1, rows.shape[1])[:d]
+    cv = vals.transpose(0, 2, 1).reshape(-1, rows.shape[1])[:d]
+    live = (cr != 0) | (cv != 0)
+    C = tsp.BlockedCSC.from_csc(np.r_[0, np.cumsum(live.sum(1))], cr[live],
+                                cv[live], n, d, tile=rows.shape[1],
+                                device=cuda)
+    assert C.ovf is None
+    assert torch.equal(C.rows, S.rows) and torch.equal(C.vals, S.vals)
+    xt = torch.from_numpy(x).to(cuda)
+    z = S.matvec(xt)
+    for loss, store, yy in (("lasso", torch.float32, y),
+                            ("logistic_newton", torch.bfloat16, ylab)):
+        A = S.astype(store)
+        got = tss.fused_sparse_shotgun_rounds(
+            A.rows, A.vals, z, xt, torch.from_numpy(idx).to(cuda), 0.05,
+            0.25 if loss != "lasso" else 1.0, torch.from_numpy(yy).to(cuda),
+            loss=loss, order=A.scatter_order(), rstart=A.range_starts())
+        h = hashlib.sha256()
+        for t in got:
+            h.update(t.cpu().numpy().tobytes())
+        assert h.hexdigest() == PARENT_BITS[loss], loss

@@ -74,6 +74,23 @@ def _children(records, i):
     return [r for r in records if r.parent == i]
 
 
+def test_tensor_counts_are_read_by_totals():
+    """A tensor count is kept as it is under a profiler and summed by
+    ``totals()`` with the counter's numbers; without a profiler it is
+    dropped."""
+    obs.count("t.n", torch.tensor(5))
+    assert obs.totals()["counters"] == {}
+
+    def run():
+        obs.count("t.n", 2)
+        obs.count("t.n", torch.tensor(5))
+        obs.count("t.n", torch.tensor(7, dtype=torch.int32))
+    _profiled(run)
+    assert obs.totals()["counters"] == {"t.n": 14}
+    obs.reset()
+    assert obs.totals()["counters"] == {}
+
+
 def test_solve_spans_nest_and_lie_on_the_profilers_timeline():
     prob = _problem()
     _, events = _profiled(lambda: _solve(prob))
@@ -246,3 +263,59 @@ def test_admission_bytes_of_a_served_sparse_job():
     want = len(reqs) * (request + write) + len(designs) * layouts \
         + tables + canvas
     assert obs.totals()["counters"]["serve.admit_bytes"] == want
+
+
+def _skewed_csc(n=200, d=400, tile=8):
+    """A design in CSC whose first columns run 10–40× deeper than ``tile``
+    (their entries past it spill into the overflow store)."""
+    rng = np.random.default_rng(3)
+    A = (rng.random((n, d)) < 0.03) * rng.standard_normal((n, d))
+    A[:, :3] = rng.standard_normal((n, 3))
+    A[:, 130] = rng.standard_normal(n) * (rng.random(n) < 0.5)
+    cols, rows = np.nonzero(A.T)
+    col_ptr = np.r_[0, np.cumsum(np.bincount(cols, minlength=d))]
+    return col_ptr, rows, A[rows, cols].astype(np.float32), n, d, tile
+
+
+def test_overflow_spans_and_counters():
+    """``from_csc`` and a solve on its overflow store record their spans
+    and counters only under a profiler; the store's bytes are what the
+    shapes give, and the segments are those of the drawn blocks."""
+    from repro_torch.data.sparse import BlockedCSC
+    args = _skewed_csc()
+    S = BlockedCSC.from_csc(*args[:5], tile=args[5], device="cpu")
+    prob = obj.make_problem(S, np.sign(np.arange(S.n) % 2 - 0.5), lam=0.1,
+                            loss="logistic", device="cpu")
+    spec = SolverSpec(loss="logistic", P=256, rounds=8, fused=True,
+                      newton=True)
+    ops.block_shotgun_solve(prob, torch.Generator().manual_seed(1),
+                            spec=spec, rounds_per_launch=4)
+    assert obs.totals() == {"spans": {}, "counters": {}, "dropped": 0}
+
+    idx = ops.draw_blocks(torch.Generator().manual_seed(1), 8, 2, S.nblk,
+                          "cpu")
+
+    def run():
+        T = BlockedCSC.from_csc(*args[:5], tile=args[5], device="cpu")
+        ops.block_shotgun_solve(prob, spec=spec, blk_idx=idx,
+                                rounds_per_launch=4)
+        return T
+    T, _ = _profiled(run)
+    t = obs.totals()
+    assert t["spans"]["repro_torch.design.from_csc"]["calls"] == 1
+    assert t["counters"]["design.tile_bytes"] == T.rows.nbytes + \
+        T.vals.nbytes
+    o = T.ovf
+    assert t["counters"]["design.overflow_bytes"] == sum(
+        a.nbytes for a in (o.rows, o.vals, o.cols, o.ptr, o.seg_ptr,
+                           o.seg_col))
+    assert t["spans"]["repro_torch.solve.overflow"]["calls"] == 2
+    assert t["counters"]["solver.overflow_launches"] == 2
+    per_block = np.diff(o.blk_seg)
+    assert int(np.max(per_block)) == o.seg_slots > 1
+    assert t["counters"]["solver.overflow_segments"] == int(
+        per_block[idx.numpy()].sum()) > 0
+    parents = {r.name: r.parent for r in obs.spans()}
+    records = obs.spans()
+    assert records[parents["repro_torch.solve.overflow"]].name == \
+        "repro_torch.solve.launches"

@@ -197,6 +197,36 @@ def test_cached_second_sweep_takes_fewer_rounds():
     assert cache.stats.hits_exact == 4
 
 
+def test_cached_path_checks_convergence_once_a_launch(monkeypatch):
+    """With ``rounds_per_launch`` a cached path runs each λ in chunks of one
+    launch: every solver call takes that many rounds in one launch, a λ's
+    rounds are a multiple of it, and a length that does not divide the
+    budget is refused."""
+    A, y, _ = jsyn.sparco(seed=0, n=256, d=512)
+    tp = port_problem(jobj.make_problem(A, y, lam=2.0))
+    real, seen = tshot.get_solver, []
+
+    def spy(name):
+        solve = real(name)
+
+        def run(*args, spec, rounds_per_launch, **kw):
+            seen.append((spec.rounds, rounds_per_launch))
+            return solve(*args, spec=spec,
+                         rounds_per_launch=rounds_per_launch, **kw)
+        return run
+    monkeypatch.setattr(tpath.shotgun, "get_solver", spy)
+    kw = dict(lam_target=2.0, spec=SolverSpec(P=BLOCK, rounds=64),
+              num_lambdas=3, solver="block_fused", validate_p=False,
+              cache=WarmStartCache())
+    res = tpath.solve_path(tp, torch.Generator().manual_seed(0),
+                           rounds_per_launch=32, **kw)
+    assert set(seen) == {(32, 32)}
+    assert len(seen) * 32 == int(res.rounds.sum())
+    assert np.all(res.rounds % 32 == 0) and np.all(res.rounds <= 64)
+    with pytest.raises(ValueError, match="must divide"):
+        tpath.solve_path(tp, torch.Generator(), rounds_per_launch=24, **kw)
+
+
 @pytest.mark.parametrize("name", ["shotgun", "shooting", "shotgun_dup",
                                   "shotgun_cdn", "block", "block_fused",
                                   ("block_fused", "lasso")])
