@@ -343,23 +343,33 @@ class WarmStartCache:
     same problem_id otherwise — λ-path neighbours are the classic warm
     start (Sec. 4.1.1).  Keys carry the problem's loss tag (default
     "lasso"), so a lasso warm start never seeds a logistic solve of the
-    same problem_id.  Entries store the true-d (unpadded) x as host numpy
-    (a tensor is copied to the host); admission re-pads onto whatever
-    canvas the consuming stream uses.
+    same problem_id.  Entries store the true-d (unpadded) x as a float32
+    copy where it already lives: a tensor on a card stays on that card (a
+    device-to-device copy, no host wait), anything else (a CPU tensor, a
+    numpy or JAX array) is stored as host numpy.  Admission re-pads onto
+    whatever canvas the consuming stream uses.  Card entries hold device
+    memory for the cache's life (a news20-sized x is 5.4 MB) and nothing
+    bounds their number.
     """
 
     def __init__(self, lam_rtol: float = 1e-6):
         self.lam_rtol = lam_rtol
-        self._store: dict = {}     # (pid, loss) -> {float(lam): np.ndarray}
+        self._store: dict = {}     # (pid, loss) -> {float(lam): x}
         self.stats = CacheStats()
 
     def __len__(self) -> int:
         return sum(len(v) for v in self._store.values())
 
     def put(self, problem_id, lam, x, loss: str = "lasso") -> None:
-        if isinstance(x, torch.Tensor):
-            obs.count("serve.cache_host_bytes", x.nbytes)
-        self._store.setdefault((problem_id, loss), {})[float(lam)] = _host(x)
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            # a copy, so a caller writing into its x later leaves the entry
+            obs.count("serve.cache_host_bytes", 0)
+            x = x.detach().to(torch.float32, copy=True)
+        else:
+            if isinstance(x, torch.Tensor):
+                obs.count("serve.cache_host_bytes", x.nbytes)
+            x = _host(x)
+        self._store.setdefault((problem_id, loss), {})[float(lam)] = x
 
     def get(self, problem_id, lam, loss: str = "lasso"):
         """(x0 | None, kind) with kind in "exact" / "near" / "miss"."""

@@ -294,7 +294,7 @@ class SolverService:
         m, dev = self.meta, self.device
         if x0 is None:
             return torch.zeros(m.d_pad, dtype=torch.float32, device=dev)
-        if not (isinstance(x0, torch.Tensor) and x0.device == dev):
+        if not (isinstance(x0, torch.Tensor) and x0.device.type == dev.type):
             obs.count("serve.cache_host_bytes", x0.nbytes)
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
         return F.pad(x0, (0, m.d_pad - x0.shape[0]))

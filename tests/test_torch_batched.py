@@ -558,6 +558,43 @@ def test_warm_cache_nearest_lambda_fallback():
     assert cache.stats.misses == 1 and cache.stats.hits_exact == 1
 
 
+def test_warm_cache_keeps_a_device_tensor_on_its_device():
+    """A put of a tensor off the CPU (``meta`` stands in for the card)
+    stores a float32 copy on that device and moves no bytes to the host;
+    a CPU tensor and a numpy array are still stored as float32 host numpy
+    and counted as before."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    cache = tcb.WarmStartCache()
+    on_dev = torch.ones(6, dtype=torch.float64, device="meta")
+    on_cpu = torch.full((6,), 2.0, dtype=torch.float64)
+    as_np = np.full(6, 3.0, np.float64)
+    obs.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            cache.put("p", 0.5, on_dev)
+            c_dev = obs.totals()["counters"]
+            cache.put("p", 0.7, on_cpu)
+            c_cpu = obs.totals()["counters"]
+            cache.put("p", 0.9, as_np)
+            c_np = obs.totals()["counters"]
+    finally:
+        obs.reset()
+    assert c_dev == {"serve.cache_host_bytes": 0}
+    assert c_cpu == {"serve.cache_host_bytes": on_cpu.nbytes}
+    assert c_np == c_cpu                      # numpy was never counted
+    got, kind = cache.get("p", 0.5)
+    assert kind == "exact" and isinstance(got, torch.Tensor)
+    assert got is not on_dev and got.device.type == "meta"
+    assert got.dtype == torch.float32 and got.shape == on_dev.shape
+    for lam, want in ((0.7, 2.0), (0.9, 3.0)):
+        got, kind = cache.get("p", lam)
+        assert kind == "exact" and isinstance(got, np.ndarray)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, np.full(6, want, np.float32))
+
+
 def test_launch_converged_matches_jax_on_a_grid():
     prevs = [100.0, 0.5, -3.0, 0.0, INF]
     ends = [100.0, 100.001, 150.0, 50.0, 0.5000001, -3.0001, 0.0, 1e-7,

@@ -974,6 +974,87 @@ def test_served_stream_on_card_equals_sequential_queue(cuda, kind):
         assert torch.equal(a.x, b.x), rid
 
 
+class _HostCache(tcb.WarmStartCache):
+    """A warm-start cache whose entries are forced to host numpy."""
+
+    def put(self, problem_id, lam, x, loss="lasso"):
+        super().put(problem_id, lam, x.cpu().numpy(), loss=loss)
+
+
+def _host_copies(prof, tmp_path, nbytes):
+    """The device's copies between the host and the card of ``nbytes``
+    bytes in a profiled window (read from its exported trace, where each
+    copy carries its size)."""
+    import json
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e["name"] for e in events
+            if e.get("cat") == "gpu_memcpy"
+            and ("DtoH" in e["name"] or "HtoD" in e["name"])
+            and e.get("args", {}).get("bytes") == nbytes]
+
+
+def test_served_warm_starts_stay_on_card_and_equal_a_host_cache(cuda,
+                                                                 tmp_path):
+    """A λ-grid job over two BlockedCSC designs, repeated so that warm
+    starts hit: served with the card-resident cache it gives the same bits
+    (x, f, rounds, warm verdicts) as with a cache forced to host numpy,
+    copies no x between the card and the host, and its entries are copies
+    that a caller writing into its answers leaves alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    probs = [_sparse("lasso", cuda, seed=s) for s in range(2)]
+    grid = (1.0, 1.5)
+
+    def job():
+        return [tserve.SolveRequest(
+            rid=i, problem_id=("d", i % 2),
+            prob=probs[i % 2]._replace(lam=probs[0].lam * grid[i // 2 % 2]),
+            seed=2000 + i) for i in range(8)]
+
+    kw = dict(slots=2, K=1, max_rounds=24, rounds_per_launch=8, tol=1e-4,
+              device=cuda)
+    meta = tcb.batch_meta_of(probs[0])
+    caches = {"host": _HostCache(), "card": tcb.WarmStartCache()}
+    runs, copies, counted = {}, {}, {}
+    for name, cache in caches.items():
+        svc = tserve.SolverService(meta, cache=cache, **kw)
+        obs.reset()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                runs[name] = {r.rid: r for r in svc.serve(job())}
+                torch.cuda.synchronize()
+            counted[name] = obs.totals()["counters"]["serve.cache_host_bytes"]
+        finally:
+            obs.reset()
+        copies[name] = _host_copies(prof, tmp_path, probs[0].d * 4)
+    warm = [runs["card"][i].warm for i in range(8)]
+    assert sum(w in ("exact", "near") for w in warm) >= 2, warm
+    for rid, a in runs["card"].items():
+        b = runs["host"][rid]
+        assert a.status == b.status == "ok", rid
+        assert (a.f_final, a.rounds_used, a.warm) == (
+            b.f_final, b.rounds_used, b.warm), rid
+        assert torch.equal(a.x.view(torch.int32), b.x.view(torch.int32)), rid
+    assert counted["card"] == 0 and counted["host"] > 0
+    assert copies["card"] == [] and copies["host"], copies
+    cache = caches["card"]
+    kept = {}
+    for r in runs["card"].values():
+        key = (r.problem_id, float(r.prob.lam))
+        entry, kind = cache.get(*key)
+        assert kind == "exact" and entry.device.type == "cuda"
+        kept[key] = entry.clone()
+    for r in runs["card"].values():
+        r.x.fill_(float("nan"))
+    for key, entry in kept.items():
+        assert torch.equal(cache.get(*key)[0], entry), key
+
+
 # ---------------------------------------------------------------------------
 # The scalar family, CDN and the λ-path on the card (torch code, no kernel
 # of their own; the block_fused path launches the fused kernels)
@@ -1105,6 +1186,31 @@ def test_block_fused_path_on_card_launches_and_hits_the_cache(cuda):
     assert cache.stats.hits_exact == 4
     assert int(sweeps[1].rounds.sum()) <= int(sweeps[0].rounds.sum())
     assert np.all(np.isfinite(sweeps[1].objectives))
+
+
+def test_path_cache_keeps_entries_on_card_and_equals_a_host_cache(cuda):
+    """``solve_path(cache=)`` on the card stores each λ's x on the card;
+    two sweeps give the same x, rounds and objectives, bit for bit, as the
+    same sweeps with a cache forced to host numpy."""
+    from repro_torch.core import path as tpath
+    prob = _sparse("lasso", cuda)
+    kw = dict(lam_target=float(prob.lam), spec=SolverSpec(P=BLOCK, rounds=32),
+              num_lambdas=4, solver="block_fused", problem_id="p",
+              validate_p=False)
+    sweeps = {}
+    for name, cache in (("card", tcb.WarmStartCache()), ("host", _HostCache())):
+        sweeps[name] = [tpath.solve_path(
+            prob, torch.Generator(device=cuda).manual_seed(seed), cache=cache,
+            **kw) for seed in range(2)]
+        assert cache.stats.hits_exact == 4
+        if name == "card":
+            for lam in sweeps[name][0].lambdas:
+                entry, kind = cache.get("p", float(lam))
+                assert kind == "exact" and entry.device.type == "cuda"
+    for a, b in zip(sweeps["card"], sweeps["host"]):
+        assert torch.equal(a.x.view(torch.int32), b.x.view(torch.int32))
+        np.testing.assert_array_equal(a.rounds, b.rounds)
+        np.testing.assert_array_equal(a.objectives, b.objectives)
 
 
 # ---------------------------------------------------------------------------
