@@ -17,6 +17,8 @@ on a leading *slot* axis and drives the batched fused kernels
     dtype, loss, batched) and never re-selected on refill or backoff.
     Padded rows and columns are fixed points of the update, so a slot's
     trajectory equals the standalone solve of the same padded problem.
+  * ``empty_slots`` / ``admit_slot`` — the service's empty stack and one
+    admission; the service itself never branches on the layout.
   * ``batched_block_shotgun_solve`` — the fixed-budget stacked solve: slot
     i is bit-identical to ``ops.block_shotgun_solve(probs[i], spec=...,
     blk_idx=...)`` with ``fused=True`` on the same draws (dense and
@@ -44,14 +46,16 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.core import health
+from repro_torch.core import objectives as obj
 from repro_torch.core.objectives import Problem
 from repro_torch.core.shotgun import Result, Trace
 from repro_torch.core.spec import SolverSpec
 from repro_torch.data.sparse import BlockedCSC, ScatterOrder, bcsc_matvec
-from repro_torch.device import exact_f32_matmul
 from repro_torch.kernels.batched import (batched_fused_shotgun_rounds,
-                                         batched_fused_sparse_shotgun_rounds)
-from repro_torch.kernels.ops import _block_stream
+                                         batched_fused_sparse_shotgun_rounds,
+                                         stacked_range_starts,
+                                         stacked_scatter_order)
+from repro_torch.kernels.ops import block_stream
 from repro_torch.kernels.shotgun_block import BLOCK, TILE_N
 
 
@@ -122,6 +126,11 @@ def normalize_problem(prob: Problem, meta: BatchMeta) -> SlotArrays:
     design's own (or its cached canvas copy's) tiles and layouts, not
     copies: the layouts live as long as the container, which must not be
     changed in place after its first use."""
+    return _normalize(prob, meta)[0]
+
+
+def _normalize(prob: Problem, meta: BatchMeta):
+    """``normalize_problem`` and the design it holds (A or the canvas)."""
     sparse = isinstance(prob.A, BlockedCSC)
     layout = "bcsc" if sparse else "dense"
     if layout != meta.layout:
@@ -153,7 +162,7 @@ def normalize_problem(prob: Problem, meta: BatchMeta) -> SlotArrays:
         S = S.on_canvas(meta.nblk, meta.tile)
         return SlotArrays(A=None, rows=S.rows, vals=S.vals, y=y, mask=None,
                           lam=lam, beta=beta, order=S.scatter_order(),
-                          rstart=S.range_starts())
+                          rstart=S.range_starts()), S
     n, d = prob.A.shape
     if d > meta.d_pad:
         raise ValueError(f"d={d} > stream d_pad={meta.d_pad}")
@@ -163,7 +172,7 @@ def normalize_problem(prob: Problem, meta: BatchMeta) -> SlotArrays:
                  (0, meta.n_pad - n))
     return SlotArrays(A=A, rows=None, vals=None, y=F.pad(y, (0, meta.n_pad
                                                              - n)),
-                      mask=mask, lam=lam, beta=beta)
+                      mask=mask, lam=lam, beta=beta), A
 
 
 def stack_problems(probs: Sequence[Problem], meta: BatchMeta | None = None
@@ -188,15 +197,91 @@ def stack_problems(probs: Sequence[Problem], meta: BatchMeta | None = None
             d_pad=max(m.d_pad for m in metas),
             tile=max(m.tile for m in metas))
     slots = [normalize_problem(p, meta) for p in probs]
+    return meta, map_slot_arrays(lambda *xs: torch.stack(xs), *slots)
 
-    def stack(*xs):
+
+def map_slot_arrays(fn, *arrays: SlotArrays) -> SlotArrays:
+    """``fn`` over the matching tensors of ``arrays``, field by field (a
+    ``ScatterOrder`` field by each of its tensors), as a ``SlotArrays``; a
+    field that is None stays None."""
+    def field(*xs):
         if xs[0] is None:
             return None
         if isinstance(xs[0], ScatterOrder):
-            return ScatterOrder(*(torch.stack(f) for f in zip(*xs)))
-        return torch.stack(xs)
+            return ScatterOrder(*(fn(*f) for f in zip(*xs)))
+        return fn(*xs)
 
-    return meta, SlotArrays(*(stack(*xs) for xs in zip(*slots)))
+    return SlotArrays(*(field(*xs) for xs in zip(*arrays)))
+
+
+def empty_slots(meta: BatchMeta, S: int, device) -> SlotArrays:
+    """S stacked empty slots of ``meta``'s canvas on ``device``: zero
+    designs (all-padding tiles with their scatter order and range starts
+    for bcsc), zero y and λ, β = 1."""
+    def zero(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    ones = torch.ones(S, dtype=torch.float32, device=device)
+    if meta.layout == "bcsc":
+        rows = zero(S, meta.nblk, meta.tile, meta.block, dtype=torch.int32)
+        vals = zero(S, meta.nblk, meta.tile, meta.block)
+        order = stacked_scatter_order(rows, vals)
+        return SlotArrays(A=None, rows=rows, vals=vals, y=zero(S, meta.n_pad),
+                          mask=None, lam=zero(S), beta=ones, order=order,
+                          rstart=stacked_range_starts(rows, order,
+                                                      meta.n_pad))
+    return SlotArrays(A=zero(S, meta.n_pad, meta.d_pad), rows=None,
+                      vals=None, y=zero(S, meta.n_pad),
+                      mask=zero(S, meta.n_pad), lam=zero(S), beta=ones)
+
+
+class Admission(NamedTuple):
+    """One served problem on its stream's canvas (``admit_slot``): the
+    design its margin is taken on (the padded A, or the BlockedCSC canvas)
+    and the mask its objective reads.  ``reused``: a BlockedCSC design
+    brought its canvas and layouts cached (None for dense); ``copied``: its
+    canvas is a padded or cast copy of its tiles."""
+    slot: SlotArrays
+    design: torch.Tensor | BlockedCSC
+    mask: torch.Tensor
+    reused: bool | None
+    copied: bool
+
+    def count(self, made) -> None:
+        """``serve.layout_hits``/``builds`` of a BlockedCSC admission, and
+        ``serve.admit_bytes``: the tensors ``made``, and what was built —
+        a dense problem's every array; a BlockedCSC's y, λ, β and only
+        where built its layouts and canvas copy."""
+        if not obs.enabled():
+            return
+        sa = self.slot
+        if self.reused is None:
+            obs.count("serve.admit_bytes", obs.nbytes(*made, *sa))
+            return
+        obs.count("serve.layout_hits" if self.reused
+                  else "serve.layout_builds", 1)
+        built = obs.nbytes(*made, sa.y, sa.lam, sa.beta)
+        if not self.reused:
+            built += obs.nbytes(*sa.order, sa.rstart,
+                                self.design.row_table())
+            if self.copied:
+                built += obs.nbytes(self.design.rows, self.design.vals)
+        obs.count("serve.admit_bytes", built)
+
+
+def admit_slot(prob: Problem, meta: BatchMeta) -> Admission:
+    """``normalize_problem`` for a served slot, with what the service needs
+    of the layout (a BlockedCSC's mask is ones: it never pads samples)."""
+    reused = None
+    if meta.layout == "bcsc":
+        # checked before normalizing, which builds what is missing
+        reused = (isinstance(prob.A, BlockedCSC)
+                  and prob.A.has_layouts(meta.nblk, meta.tile))
+    sa, design = _normalize(prob, meta)
+    mask = (sa.mask if sa.mask is not None else
+            torch.ones(meta.n_pad, dtype=torch.float32, device=sa.y.device))
+    return Admission(slot=sa, design=design, mask=mask, reused=reused,
+                     copied=design is not prob.A)
 
 
 # ---------------------------------------------------------------------------
@@ -229,29 +314,26 @@ def launch_rounds(meta: BatchMeta, stacked: SlotArrays, z, x, idx, k_eff,
 
 def init_margin(meta: BatchMeta, stacked: SlotArrays, x):
     """Stacked warm-start margins z0 = A x0 in f32, slot by slot exactly as
-    the standalone solves start (``ops._start`` / ``_sparse_start``)."""
+    the standalone solves start (``objectives.start``)."""
     S = x.shape[0]
     if meta.layout == "bcsc":
         return torch.stack([bcsc_matvec(stacked.rows[s], stacked.vals[s],
                                         x[s], meta.n_pad) for s in range(S)])
-    if x.is_cuda:
-        exact_f32_matmul()
-    return torch.stack([stacked.A[s].to(torch.float32) @ x[s]
-                        for s in range(S)])
+    return torch.stack([obj.matvec(stacked.A[s], x[s]) for s in range(S)])
+
+
+def x_on_canvas(x0, d_pad: int, device) -> torch.Tensor:
+    """A true-d warm start (None for cold) as a padded f32 iterate."""
+    if x0 is None:
+        return torch.zeros(d_pad, dtype=torch.float32, device=device)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
+    return F.pad(x0, (0, d_pad - x0.shape[0]))
 
 
 def _stack_x0(x0s, S: int, d_pad: int, device):
     if x0s is None:
         return torch.zeros((S, d_pad), dtype=torch.float32, device=device)
-    cols = []
-    for x0 in x0s:
-        if x0 is None:
-            cols.append(torch.zeros(d_pad, dtype=torch.float32,
-                                    device=device))
-        else:
-            x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
-            cols.append(F.pad(x0, (0, d_pad - x0.shape[0])))
-    return torch.stack(cols)
+    return torch.stack([x_on_canvas(x0, d_pad, device) for x0 in x0s])
 
 
 def batched_block_shotgun_solve(probs: Sequence[Problem], generators=None,
@@ -290,7 +372,7 @@ def batched_block_shotgun_solve(probs: Sequence[Problem], generators=None,
     for name, given in (("generators", generators), ("blk_idx", blk_idx)):
         if given is not None and len(given) != S:
             raise ValueError(f"{len(given)} {name} for {S} problems")
-    idx = torch.stack([_block_stream(
+    idx = torch.stack([block_stream(
         None if blk_idx is None else blk_idx[s],
         None if generators is None else generators[s], rounds, K,
         meta.nblk, dev) for s in range(S)])

@@ -28,9 +28,8 @@ import torch
 
 from repro_torch.core import objectives as obj
 from repro_torch.core.objectives import Problem
-from repro_torch.core.shotgun import (ROUNDS_RANGE, Result, _start,
-                                      _trace_result, add_draws,
-                                      coord_stream)
+from repro_torch.core.shotgun import (ROUNDS_RANGE, Result, add_draws,
+                                      coord_stream, trace_result)
 
 ARMIJO_SIGMA = 0.01
 MAX_BACKTRACK = 12
@@ -115,7 +114,7 @@ def shotgun_cdn_solve(prob: Problem, generator: torch.Generator | None = None,
             raise ValueError("uniforms feed the active-set draws: pass idx "
                              "with active_set=False")
         stream = coord_stream(idx, generator, rounds, P, d, dev)
-    x, z = _start(A, x0, d)
+    x, z = obj.start(A, x0, d)
     logits = torch.zeros(d, dtype=torch.float32, device=dev)
     alphas = 0.5 ** torch.arange(MAX_BACKTRACK + 1, dtype=torch.float32,
                                  device=dev)
@@ -159,7 +158,7 @@ def shotgun_cdn_solve(prob: Problem, generator: torch.Generator | None = None,
                 stuck = (x == 0) & (torch.abs(g_full) < lam * (1.0 - 1e-3))
                 logits = torch.where(stuck, -10.0, 0.0)
             nnzs.append(torch.sum(x != 0))
-    return _trace_result(x, z, fs, nnzs)
+    return trace_result(x, z, fs, nnzs)
 
 
 def shooting_cdn_solve(prob: Problem,

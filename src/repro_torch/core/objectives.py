@@ -140,6 +140,18 @@ def rmatvec(A, r) -> torch.Tensor:
     return _dense_product(A.T, r)
 
 
+def start(A, x0, d: int):
+    """(x0, z0 = A x0) in f32 on A's device, for A (dense, bf16 too, or
+    BlockedCSC) of width ``d``; a cold start (``x0`` None) is exactly zero
+    (what A·0 gives), with no product."""
+    dev = A.device
+    if x0 is None:
+        return (torch.zeros(d, dtype=torch.float32, device=dev),
+                torch.zeros(A.shape[0], dtype=torch.float32, device=dev))
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    return x0, matvec(A, x0).float()
+
+
 def take(v: torch.Tensor, j: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """``v``'s slice at the 0-dim device index ``j`` along ``dim``, with no
     host sync: ``v[j]`` with a tensor index reads ``j`` back to the host
@@ -276,6 +288,11 @@ def masked_data_loss(z: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
         e = z - y
         return 0.5 * torch.sum(e * (e * mask))
     return torch.sum(mask * torch.logaddexp(torch.zeros_like(z), -y * z))
+
+
+def masked_objective(z, x, y, mask, lam, loss: str) -> torch.Tensor:
+    """F = ``masked_data_loss`` + λ‖x‖₁ from the margin ``z``."""
+    return masked_data_loss(z, y, mask, loss) + lam * torch.sum(torch.abs(x))
 
 
 def lambda_max(A, y: torch.Tensor, loss: str) -> torch.Tensor:

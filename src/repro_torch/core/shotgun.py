@@ -92,17 +92,6 @@ def coord_stream(idx, generator, rounds: int, P: int, d: int, device,
     return idx.to(device)
 
 
-def _start(A, x0, d: int):
-    """(x0, z0 = A x0) in f32 on A's device; a cold start is exactly zero
-    (what A·0 gives), with no product."""
-    dev = A.device
-    if x0 is None:
-        return (torch.zeros(d, dtype=torch.float32, device=dev),
-                torch.zeros(A.shape[0], dtype=torch.float32, device=dev))
-    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
-    return x0, obj.matvec(A, x0).float()
-
-
 def add_draws(x, ii, delta, live=None) -> torch.Tensor:
     """x with δ_k added at ii[k] for every live draw k: Alg. 2's Δx.  All
     of a round's deltas come from one iterate, so duplicate draws of a
@@ -119,7 +108,7 @@ def add_draws(x, ii, delta, live=None) -> torch.Tensor:
     return x.index_put((ii,), x[ii] + cnt[ii].to(x.dtype) * delta)
 
 
-def _trace_result(x, z, fs, nnzs, backoffs=None) -> Result:
+def trace_result(x, z, fs, nnzs, backoffs=None) -> Result:
     fs = torch.stack(fs)
     return Result(x=x, z=z, trace=Trace(
         objective=fs, nnz=torch.stack(nnzs).to(torch.int32)),
@@ -159,7 +148,7 @@ def _shotgun_core(prob: Problem, generator, P: int, rounds: int, *,
     A, y, lam, beta = prob.A, prob.y, prob.lam, prob.beta
     d = prob.d
     stream = coord_stream(idx, generator, rounds, P, d, A.device, replace)
-    x, z = _start(A, x0, d)
+    x, z = obj.start(A, x0, d)
 
     def update(x, z, ii, live):
         r = obj.residual_like(z, y, prob.loss)
@@ -181,7 +170,7 @@ def _shotgun_core(prob: Problem, generator, P: int, rounds: int, *,
                 x, z, f = update(x, z, ii, None)
                 fs.append(f)
                 nnzs.append(torch.sum(x != 0))
-        return _trace_result(x, z, fs, nnzs)
+        return trace_result(x, z, fs, nnzs)
 
     p_floor = max(1, min(guard.p_min, P))
     gs = health.init_guard_state(x, z, obj.objective_from_margin(z, x, prob),
@@ -195,7 +184,7 @@ def _shotgun_core(prob: Problem, generator, P: int, rounds: int, *,
                 p_floor=p_floor)
             fs.append(f)
             nnzs.append(torch.sum(x != 0))
-    return _trace_result(x, z, fs, nnzs, gs.backoffs)
+    return trace_result(x, z, fs, nnzs, gs.backoffs)
 
 
 def shooting_solve(prob: Problem, generator: torch.Generator | None = None,
@@ -245,7 +234,7 @@ def shotgun_dup_solve(dp: DupProblem,
             fs.append(obj.data_loss_from_margin(z, y, dp.loss)
                       + lam * torch.sum(xhat))
             nnzs.append(torch.sum(obj.dup_to_signed(xhat) != 0))
-    return _trace_result(xhat, z, fs, nnzs)
+    return trace_result(xhat, z, fs, nnzs)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,6 @@ from repro_torch.core.objectives import Problem
 from repro_torch.core.shotgun import Result, Trace
 from repro_torch.core.spec import SolverSpec
 from repro_torch.data.sparse import BlockedCSC
-from repro_torch.device import exact_f32_matmul
 from repro_torch.kernels.shotgun_block import (BLOCK, TILE_N, Loss,
                                                fused_shotgun_rounds,
                                                gather_block_matvec,
@@ -97,19 +96,6 @@ def block_shotgun_round(A, z, x, blk_idx, lam, beta, y, mask,
                                          device=delta.device)[:, None]
     z_new = scatter_block_update(A, z, blk_idx, delta)
     return _add_blocks(xb, idx, delta).reshape(d), z_new, delta
-
-
-def _start(A, x0):
-    """(x0, z0 = A x0) in f32; the margin accumulates in f32 even when A
-    is stored bf16 (cast before the product)."""
-    n, d = A.shape
-    if x0 is None:
-        return (torch.zeros(d, dtype=torch.float32, device=A.device),
-                torch.zeros(n, dtype=torch.float32, device=A.device))
-    x0 = x0.to(torch.float32)
-    if A.is_cuda:
-        exact_f32_matmul()
-    return x0, A.to(torch.float32) @ x0
 
 
 def _round_loop(step, objective, x, z, blk_idx, guard):
@@ -191,8 +177,7 @@ def _launch_loop(launch, objective, x, z, blk_idx, guard):
 
 def _objective(y, mask, lam, loss: str):
     def objective(z, x):
-        return (obj.masked_data_loss(z, y, mask, loss)
-                + lam * torch.sum(torch.abs(x)))
+        return obj.masked_objective(z, x, y, mask, lam, loss)
     return objective
 
 
@@ -200,7 +185,7 @@ def _solve(A, y, mask, lam, beta, blk_idx, loss, x0=None, guard=None):
     """Round loop over the two-kernel round; blk_idx (rounds, K).  x stays
     f32 also for bf16 A."""
     mask = mask.to(torch.float32)
-    x, z = _start(A, x0)
+    x, z = obj.start(A, x0, A.shape[1])
 
     def step(z, x, idx, k_eff):
         x, z, _ = block_shotgun_round(A, z, x, idx, lam, beta, y, mask,
@@ -216,7 +201,7 @@ def _fused_solve(A, y, mask, lam, beta, blk_idx, loss: Loss, x0=None,
     """Loop over launches: one fused kernel launch per R rounds; blk_idx
     (L, R, K)."""
     mask = mask.to(torch.float32)
-    x, z = _start(A, x0)
+    x, z = obj.start(A, x0, A.shape[1])
 
     def launch(z, x, idx, k_eff, guard_f):
         return fused_shotgun_rounds(A, z, x, idx, lam, beta, y, mask,
@@ -251,16 +236,6 @@ def sparse_block_shotgun_round(rows, vals, z, x, blk_idx, lam, beta, y,
     return _add_blocks(xb, idx, delta).reshape(-1), z_new, delta
 
 
-def _sparse_start(S: BlockedCSC, x0):
-    """(x0, z0 = A x0) in f32 at the padded width; a cold start is exactly
-    zero (what A·0 gives), with no product."""
-    if x0 is None:
-        return (torch.zeros(S.d_pad, dtype=torch.float32, device=S.device),
-                torch.zeros(S.n, dtype=torch.float32, device=S.device))
-    x0 = x0.to(torch.float32)
-    return x0, S.matvec(x0)
-
-
 def _sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss, x0=None,
                   guard=None):
     """Round loop over the sparse two-kernel round; blk_idx (rounds, K).
@@ -269,7 +244,7 @@ def _sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss, x0=None,
         raise ValueError("the two-kernel sparse round reads the tiles only; "
                          "a design with an overflow store takes the fused "
                          "path (spec.fused=True)")
-    x, z = _sparse_start(S, x0)
+    x, z = obj.start(S, x0, S.d_pad)
     order, rstart = S.scatter_order(), S.range_starts()
     ones = torch.ones_like(y, dtype=torch.float32)
 
@@ -288,7 +263,7 @@ def _fused_sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss: Loss,
     """Loop over launches of the fused sparse kernel, one per R rounds;
     blk_idx (L, R, K); launch-granular rollback with ``guard``.  A design's
     overflow store goes with its tiles."""
-    x, z = _sparse_start(S, x0)
+    x, z = obj.start(S, x0, S.d_pad)
     order, rstart = S.scatter_order(), S.range_starts()
     ones = torch.ones_like(y, dtype=torch.float32)
 
@@ -302,8 +277,8 @@ def _fused_sparse_solve(S: BlockedCSC, y, lam, beta, blk_idx, loss: Loss,
                         blk_idx, guard)
 
 
-def _block_stream(blk_idx, generator, rounds: int, K: int, nblk: int,
-                  device) -> torch.Tensor:
+def block_stream(blk_idx, generator, rounds: int, K: int, nblk: int,
+                 device) -> torch.Tensor:
     """(rounds, K) int32 block indices on ``device``: the caller's, checked
     once on the host, or K distinct blocks per round drawn on the device."""
     if K > nblk:
@@ -380,7 +355,7 @@ def _block_shotgun_solve(prob, generator, spec, blk_idx, x0,
             x0 = F.pad(torch.as_tensor(x0, dtype=torch.float32, device=dev),
                        (0, S.d_pad - prob.d))
         with obs.span(DRAWS_SPAN):
-            idx = _block_stream(blk_idx, generator, rounds, K, S.nblk, dev)
+            idx = block_stream(blk_idx, generator, rounds, K, S.nblk, dev)
         if spec.fused:
             res = _fused_sparse_solve(
                 S, prob.y, prob.lam, prob.beta,
@@ -398,8 +373,8 @@ def _block_shotgun_solve(prob, generator, spec, blk_idx, x0,
         x0 = F.pad(torch.as_tensor(x0, dtype=torch.float32, device=dev),
                    (0, A.shape[1] - prob.d))
     with obs.span(DRAWS_SPAN):
-        idx = _block_stream(blk_idx, generator, rounds, K,
-                            A.shape[1] // BLOCK, dev)
+        idx = block_stream(blk_idx, generator, rounds, K,
+                           A.shape[1] // BLOCK, dev)
     if spec.fused:
         res = _fused_solve(A, y, mask, prob.lam, prob.beta,
                            idx.reshape(rounds // rounds_per_launch,

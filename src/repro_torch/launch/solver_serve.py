@@ -44,19 +44,16 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.core import objectives as obj
 from repro_torch.core.batched import (BatchMeta, SlotArrays, WarmStartCache,
-                                      batch_meta_of, launch_converged,
-                                      launch_rounds, normalize_problem)
+                                      admit_slot, batch_meta_of, empty_slots,
+                                      launch_converged, launch_rounds,
+                                      map_slot_arrays, x_on_canvas)
 from repro_torch.core.objectives import Problem
-from repro_torch.data.sparse import BlockedCSC, ScatterOrder
-from repro_torch.device import exact_f32_matmul, resolve_device
-from repro_torch.kernels.batched import (stacked_range_starts,
-                                         stacked_scatter_order)
-from repro_torch.kernels.ops import _block_stream
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import block_stream
 from repro_torch.launch.slots import SlotBoard
 
 GUARD_FACTOR = 10.0         # trip threshold: F > factor·|F_prev| + factor
@@ -102,34 +99,6 @@ class SolveRequest:
 
 # --- the service's device steps, plain functions ---------------------------
 
-def _slot_objective(z, y, mask, lam, x, loss):
-    return obj.masked_data_loss(z, y, mask, loss) + lam * torch.sum(
-        torch.abs(x))
-
-
-def _dense_margin(A, x0):
-    if A.is_cuda:
-        exact_f32_matmul()
-    return A.to(torch.float32) @ x0
-
-
-def _built_bytes(sa: SlotArrays, A, meta: BatchMeta, reused: bool) -> int:
-    """Bytes of the slot arrays an admission builds: every normalized
-    array of a dense problem; of a BlockedCSC problem its y, λ and β, and
-    its layouts (the canvas copy of its tiles where it needs one, the
-    scatter order, the range starts, the row table) only when the
-    admission built them."""
-    if meta.layout == "dense":
-        return obs.nbytes(*sa)
-    built = obs.nbytes(sa.y, sa.lam, sa.beta)
-    if not reused:
-        design = A.on_canvas(meta.nblk, meta.tile)
-        built += obs.nbytes(*sa.order, sa.rstart, design.row_table())
-        if design is not A:
-            built += obs.nbytes(design.rows, design.vals)
-    return built
-
-
 def _write_slot(stacked: SlotArrays, x, z, x_snap, z_snap, slot: int,
                 sa: SlotArrays, x0, z0) -> None:
     """Admit one normalized problem into slot ``slot`` of the stacked state
@@ -137,12 +106,7 @@ def _write_slot(stacked: SlotArrays, x, z, x_snap, z_snap, slot: int,
     tensors belong to the service, and an admission copies one slot's
     worth instead of rebuilding all S."""
     obs.count("serve.admit_bytes", obs.nbytes(*sa) + 2 * obs.nbytes(x0, z0))
-    for full, v in zip(stacked, sa):
-        if isinstance(full, ScatterOrder):
-            for f, u in zip(full, v):
-                f[slot].copy_(u)
-        elif full is not None:
-            full[slot].copy_(v)
+    map_slot_arrays(lambda full, v: full[slot].copy_(v), stacked, sa)
     for full, v in ((x, x0), (z, z0), (x_snap, x0), (z_snap, z0)):
         full[slot].copy_(v)
 
@@ -188,19 +152,7 @@ class SolverService:
         def zero(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        ones = torch.ones(S, dtype=torch.float32, device=dev)
-        if m.layout == "bcsc":
-            rows = zero(S, m.nblk, m.tile, m.block, dtype=torch.int32)
-            vals = zero(S, m.nblk, m.tile, m.block)
-            order = stacked_scatter_order(rows, vals)
-            sa = SlotArrays(A=None, rows=rows, vals=vals, y=zero(S, m.n_pad),
-                            mask=None, lam=zero(S), beta=ones, order=order,
-                            rstart=stacked_range_starts(rows, order, m.n_pad))
-        else:
-            sa = SlotArrays(A=zero(S, m.n_pad, m.d_pad), rows=None,
-                            vals=None, y=zero(S, m.n_pad),
-                            mask=zero(S, m.n_pad), lam=zero(S), beta=ones)
-        self.stacked = sa
+        self.stacked = empty_slots(m, S, dev)
         self.x = zero(S, m.d_pad)
         self.z = zero(S, m.n_pad)
         self.x_snap = zero(S, m.d_pad)
@@ -231,19 +183,13 @@ class SolverService:
                 f"mixed-loss stream: request {req.problem_id!r} carries "
                 f"loss {req.prob.loss!r} but this stream is admitted for "
                 f"loss {m.loss!r}")
-        sparse = m.layout == "bcsc"
         with obs.span(ADMIT_SPAN, rid=req.rid):
             with obs.span(ADMIT_SPAN + ".layout"):
-                # a BlockedCSC design served before brings its canvas and
-                # layouts cached on its container
-                reused = (sparse and isinstance(req.prob.A, BlockedCSC)
-                          and req.prob.A.has_layouts(m.nblk, m.tile))
-                sa = normalize_problem(req.prob, m)
+                # a design served before brings its canvas and layouts
+                # cached on its container
+                adm = admit_slot(req.prob, m)
             with obs.span(ADMIT_SPAN + ".warm"):
                 x0 = self._to_canvas(self._warm_start(req))
-            mask = (sa.mask if m.layout == "dense"
-                    else torch.ones(m.n_pad, dtype=torch.float32,
-                                    device=dev))
             with obs.span(ADMIT_SPAN + ".margin"):
                 if req.z_resume is not None:
                     # deadline-evicted solve resuming mid-trajectory:
@@ -254,21 +200,15 @@ class SolverService:
                     req.z_resume = None
                     made = (x0,)
                 else:
-                    z0 = (req.prob.A.on_canvas(m.nblk, m.tile).matvec(x0)
-                          if sparse else _dense_margin(sa.A, x0))
+                    z0 = obj.matvec(adm.design, x0)
                     made = (x0, z0)
-            if obs.enabled():
-                if sparse:
-                    obs.count("serve.layout_hits" if reused
-                              else "serve.layout_builds", 1)
-                obs.count("serve.admit_bytes", obs.nbytes(*made)
-                          + _built_bytes(sa, req.prob.A, m, reused))
+            adm.count(made)
             _write_slot(self.stacked, self.x, self.z, self.x_snap,
-                        self.z_snap, slot, sa, x0, z0)
+                        self.z_snap, slot, adm.slot, x0, z0)
             if req.f_prev == float("inf"):
                 with obs.span(ADMIT_SPAN + ".objective"):
-                    req.f_prev = float(_slot_objective(z0, sa.y, mask,
-                                                       sa.lam, x0, m.loss))
+                    req.f_prev = float(obj.masked_objective(
+                        z0, x0, adm.slot.y, adm.mask, adm.slot.lam, m.loss))
             req.k_eff = self.K if req.k_eff == 0 else req.k_eff
             if req.sched is None:
                 # The request's whole draw schedule is fixed at first
@@ -283,7 +223,7 @@ class SolverService:
                            int(req.seed)))
                 rounds = self.max_launches * self.R
                 with obs.span(ADMIT_SPAN + ".draws"):
-                    req.sched = _block_stream(
+                    req.sched = block_stream(
                         req.blk_sched, gen, rounds, self.K, m.nblk,
                         dev).reshape(self.max_launches, self.R, self.K)
             self.board.place(req, slot)
@@ -291,13 +231,11 @@ class SolverService:
     def _to_canvas(self, x0) -> torch.Tensor:
         """A warm start (true-d, on the host or the card; None for cold)
         as a padded f32 iterate on the service's device."""
-        m, dev = self.meta, self.device
-        if x0 is None:
-            return torch.zeros(m.d_pad, dtype=torch.float32, device=dev)
-        if not (isinstance(x0, torch.Tensor) and x0.device.type == dev.type):
+        dev = self.device
+        if x0 is not None and not (isinstance(x0, torch.Tensor)
+                                   and x0.device.type == dev.type):
             obs.count("serve.cache_host_bytes", x0.nbytes)
-        x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
-        return F.pad(x0, (0, m.d_pad - x0.shape[0]))
+        return x_on_canvas(x0, self.meta.d_pad, dev)
 
     # -- the batched scheduler step ---------------------------------------
     def _launch_step(self) -> None:
@@ -366,7 +304,7 @@ class SolverService:
             if r is None or r.done or self.board.age[i] < \
                     self.board.max_rounds:
                 continue
-            r.x0 = self.x[i, : req_d(r)].clone()
+            r.x0 = self.x[i, : r.prob.d].clone()
             r.z_resume = self.z[i].clone()
             r.warm = r.warm or "given"
 
@@ -400,10 +338,6 @@ class SolverService:
         """Mean live-slot fraction over all scheduler steps."""
         return (float(np.mean(self.occupancy_samples))
                 if self.occupancy_samples else 0.0)
-
-
-def req_d(req: SolveRequest) -> int:
-    return req.prob.d
 
 
 def solve_queue_sequential(requests, *, K: int = 2, max_rounds: int = 64,

@@ -28,7 +28,9 @@ from repro.data import synthetic as jsyn  # noqa: E402
 from repro.kernels.batched import batched_draw_blocks  # noqa: E402
 from repro.launch import solver_serve as jserve  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.core.batched import WarmStartCache, batch_meta_of  # noqa: E402
+from repro_torch.core.batched import (SlotArrays,  # noqa: E402
+                                      WarmStartCache, batch_meta_of,
+                                      stack_problems)
 from repro_torch.launch import solver_serve as tserve  # noqa: E402
 from repro_torch.launch.solver_serve import (SolveRequest,  # noqa: E402
                                              SolverService, make_stream,
@@ -310,6 +312,38 @@ def test_served_sparse_stream_equals_one_that_reuses_nothing():
         assert torch.equal(a.x, b.x), rid
         assert (a.f_final, a.status, a.launches, a.rounds_used, a.warm) == \
             (b.f_final, b.status, b.launches, b.rounds_used, b.warm), rid
+
+
+def _dense_pair():
+    """Two dense Lasso designs of 300 rows, 384 and 500 columns, so a
+    canvas of the wider pads the first's columns."""
+    from repro_torch.core import objectives as tobj
+    from repro_torch.data import synthetic as tsyn
+    probs = []
+    for seed, d in ((0, 384), (1, 500)):
+        A, y, _ = tsyn.sparco(seed=seed, n=300, d=d)
+        probs.append(tobj.make_problem(A, y, 0.1, device="cpu"))
+    return probs
+
+
+@pytest.mark.parametrize("layout", ["dense", "bcsc"])
+def test_admitted_slots_equal_the_stacked_solves_stack(layout):
+    """The service's empty stack with problem i admitted into slot i is,
+    field by field and bit for bit, the stack ``stack_problems`` builds of
+    the same problems on the same canvas (one of them padded to it): the
+    served slots hold what the stacked solve's slots hold."""
+    probs = _dense_pair() if layout == "dense" else _sparse_pair()
+    meta = batch_meta_of(probs[1])
+    assert meta.layout == layout
+    svc = SolverService(meta, slots=len(probs), device="cpu", **KW)
+    for i, p in enumerate(probs):
+        svc._admit(SolveRequest(rid=i, problem_id=i, prob=p, seed=i), i)
+    _, want = stack_problems(probs, meta)
+    for name, a, b in zip(SlotArrays._fields, svc.stacked, want):
+        assert (a is None) == (b is None), name
+        for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert u is None or (u.dtype == v.dtype and torch.equal(u, v)), \
+                name
 
 
 def test_mixed_loss_request_raises():

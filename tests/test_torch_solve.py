@@ -134,8 +134,8 @@ def test_default_draws_are_distinct_blocks_from_the_generator():
                                  spec=spec)
     assert torch.equal(a.x, b.x) and torch.equal(a.trace.objective,
                                                  b.trace.objective)
-    idx = tops._block_stream(None, torch.Generator().manual_seed(5), 8, 4, 8,
-                             "cpu")
+    idx = tops.block_stream(None, torch.Generator().manual_seed(5), 8, 4, 8,
+                            "cpu")
     assert idx.dtype == torch.int32 and idx.shape == (8, 4)
     assert all(len(set(row.tolist())) == 4 for row in idx)
     # the same stream through blk_idx reproduces the generator's solve
