@@ -1088,41 +1088,48 @@ def dense_phases(launch, ms: float, R: int, dev) -> dict:
     return out
 
 
+SPARSE_PHASES = ("A_gather_delta_xpartial_ms",
+                 "BC_rowrange_sums_xupdate_finish_ms")
+OVF_PHASES = ("A_gather_segments_xpartial_ms", "A2_segment_sums_delta_ms",
+              "BC_row_items_xupdate_finish_ms")
+
+
 def sparse_phases(launch, ms: float | None, R: int, dev,
-                  reps: int = 5) -> dict:
+                  reps: int = 5, phases=SPARSE_PHASES) -> dict:
     """Phase breakdown of a fused sparse launch: ``launch(stamps)`` runs it
-    with the grid's last block's SM clock stamped at each barrier (two a
-    round: A, then BC) and the card's ns timer at launch start and end.  Of
-    ``reps`` stamped launches the one of median ns span is broken down, its
-    cycles turned into ms by its own ns per cycle, so the phases need no
-    other clock.  ``ms`` (the profiler's device time per launch, or None)
-    is set beside the stamped span, and the SM clock the stamps imply
-    beside the card's maximum: three clocks that must agree."""
+    with the grid's last block's SM clock stamped at each barrier (one a
+    phase of ``phases`` a round: A, then BC; the OVF launch's A, A2, BC)
+    and the card's ns timer at launch start and end.  Of ``reps`` stamped
+    launches the one of median ns span is broken down, its cycles turned
+    into ms by its own ns per cycle, so the phases need no other clock.
+    ``ms`` (the profiler's device time per launch, or None) is set beside
+    the stamped span, and the SM clock the stamps imply beside the card's
+    maximum: three clocks that must agree."""
+    per = len(phases)
     runs = []
     for _ in range(reps):
-        stamps = torch.zeros(2 * R + 6, dtype=torch.int64, device=dev)
+        stamps = torch.zeros(per * R + 6, dtype=torch.int64, device=dev)
         launch(stamps)
         torch.cuda.synchronize()
         runs.append(stamps.cpu())
     runs.sort(key=lambda t: int(t[-1] - t[-2]))
     spans = [float(t[-1] - t[-2]) / 1e6 for t in runs]
     st = runs[reps // 2].double()
-    clk = st[:2 * R + 4]
+    clk = st[:per * R + 4]
     cyc = clk[1:] - clk[:-1]
     span = spans[reps // 2]
     per_cycle = span / float(clk[-1] - clk[0])
-    rounds = cyc[1:1 + 2 * R].reshape(R, 2)
+    rounds = cyc[1:1 + per * R].reshape(R, per)
     return {
         "profiler_ms": ms, "stamped_ms": span, "stamped_ms_min": spans[0],
         "stamped_ms_max": spans[-1], "launch_cycles": float(clk[-1] - clk[0]),
         "sm_ghz": 1e-6 / per_cycle, "sm_ghz_max": sm_clock_max_ghz(),
         "launch_start_ms": float(cyc[0]) * per_cycle,
         "round_ms": float(rounds.sum(1).mean()) * per_cycle,
-        "A_gather_delta_xpartial_ms": float(rounds[:, 0].mean()) * per_cycle,
-        "BC_rowrange_sums_xupdate_finish_ms":
-            float(rounds[:, 1].mean()) * per_cycle,
-        "final_A_xpartial_only_ms": float(cyc[1 + 2 * R]) * per_cycle,
-        "final_finish_only_ms": float(cyc[2 + 2 * R]) * per_cycle}
+        **{name: float(rounds[:, i].mean()) * per_cycle
+           for i, name in enumerate(phases)},
+        "final_A_xpartial_only_ms": float(cyc[1 + per * R]) * per_cycle,
+        "final_finish_only_ms": float(cyc[2 + per * R]) * per_cycle}
 
 
 def print_sparse_phases(label: str, p: dict) -> None:
@@ -1615,6 +1622,11 @@ def ovf_leg(args):
           f"ms, device {t['device_ms']:.4f} ms, bound {t['bound'][0]:.4f} "
           f"ms ({t['bound'][1]}; {drawn_nnz} drawn nonzeros), plain "
           f"{t['plain_ms']:.4f} ms")
+    stamped = lambda st: ss.fused_sparse_shotgun_rounds(  # noqa: E731
+        *fargs, loss="logistic_newton", **sk, stamps=st)
+    print_sparse_phases(f"{name} [logistic_newton url K={K} R={R}]",
+                        sparse_phases(stamped, t["device_ms"], R, dev,
+                                      phases=OVF_PHASES))
 
     spec = SolverSpec(loss="logistic", P=K * B, rounds=URL_ROUNDS,
                       fused=True, newton=True,

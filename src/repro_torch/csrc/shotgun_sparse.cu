@@ -223,8 +223,7 @@ __device__ __forceinline__ float load_delta(const float* p) {
 }
 
 // The shared arrays of one row-range item: part (KC·ROWS), sv/sd/skey
-// (STAGE), sblk/slo (KC), soff (KC + 1), wsum (WARPS), carry; with an
-// overflow store also srun (KC).
+// (STAGE), sblk/slo (KC), soff (KC + 1), wsum (WARPS), carry.
 struct RangeBufs {
   float* part;
   float* sv;
@@ -235,7 +234,6 @@ struct RangeBufs {
   int* soff;
   int* wsum;
   int* carry;     // key of the previous window's last slot
-  long long* srun;  // OVF: where each chunk block's run starts in `order`
 };
 
 // A design's overflow store as the scatter reads it: block b's local slots
@@ -260,20 +258,16 @@ struct OvfStore {
 // row's owner then adds the chunk's part[k][row] to acc in k order.
 // `first`: the CTA owns row 0 and sets `bad` (block-wide) when a δ_k,c of
 // a column with a padding slot is non-finite: row 0's K padding terms then
-// add up to NaN, else to +0.  Every thread of the CTA calls it.
-//
-// OVF: `order` and `rstart` are overflow_layouts' (data/sparse.py): block
-// b's run of the flat order starts at b·tslots + ptr[b·128] and holds its
-// tile slots and spilled entries (local slots >= tslots) sorted by row
-// together, so a row's run sums both kinds in slot order.
-template <typename TV, int ROWS, int KC, int STAGE, bool CG, bool OVF = false>
+// add up to NaN, else to +0.  Every thread of the CTA calls it.  (A design
+// with an overflow store takes ovf_rows below, a warp an item.)
+template <typename TV, int ROWS, int KC, int STAGE, bool CG>
 __device__ __forceinline__ float range_sums(
     const int* __restrict__ rows, const TV* __restrict__ vals,
     const int* __restrict__ order, const int* __restrict__ rstart,
     const unsigned char* __restrict__ zmask, const int* __restrict__ idx,
     const float* __restrict__ delta, long long nq1, long long tslots, int K,
     int c0, int dc, int row0, bool first, bool owner, float acc,
-    const RangeBufs& m, bool& bad_out, const OvfStore& ov = OvfStore{}) {
+    const RangeBufs& m, bool& bad_out) {
   bool bad = false;                      // first: a padding term is NaN
   for (int k0 = 0; k0 < K; k0 += KC) {
     const int nk = min(KC, K - k0);
@@ -285,8 +279,6 @@ __device__ __forceinline__ float range_sums(
       len = rs[dc] - lo;
       m.sblk[threadIdx.x] = b;
       m.slo[threadIdx.x] = lo;
-      if constexpr (OVF)
-        m.srun[threadIdx.x] = b * tslots + ov.ptr[(long long)b * BLOCK];
     }
     int total;
     const int off = block_exclusive_scan(len, m.wsum, total);
@@ -318,35 +310,13 @@ __device__ __forceinline__ float range_sums(
             const int mid = (lo + hi) >> 1;
             if (m.soff[mid] <= f) lo = mid; else hi = mid;
           }
-          if constexpr (OVF) {
-            const long long bo = m.sblk[lo] * tslots;
-            const long long run = m.srun[lo];
-            const int s = order[run + m.slo[lo] + (f - m.soff[lo])];
-            int row, col;
-            float v;
-            if (s < tslots) {
-              row = rows[bo + s];
-              v = to_f32(vals[bo + s]);
-              col = s & (BLOCK - 1);
-            } else {
-              const long long q = run - bo + (s - tslots);
-              row = ov.rows[q];
-              v = to_f32(static_cast<const TV*>(ov.vals)[q]);
-              col = ov.cols[q];
-            }
-            m.skey[e] = lo * ROWS + (row - row0);
-            m.sv[e] = v;
-            m.sd[e] = load_delta<CG>(delta + (long long)(k0 + lo) * BLOCK
-                                     + col);
-          } else {
-            const long long bo = m.sblk[lo] * tslots;
-            const int s = order[bo + m.slo[lo] + (f - m.soff[lo])];
-            const int row = rows[bo + s];
-            m.skey[e] = lo * ROWS + (row - row0);
-            m.sv[e] = to_f32(vals[bo + s]);
-            m.sd[e] = load_delta<CG>(delta + (long long)(k0 + lo) * BLOCK
-                                     + (s & (BLOCK - 1)));
-          }
+          const long long bo = m.sblk[lo] * tslots;
+          const int s = order[bo + m.slo[lo] + (f - m.soff[lo])];
+          const int row = rows[bo + s];
+          m.skey[e] = lo * ROWS + (row - row0);
+          m.sv[e] = to_f32(vals[bo + s]);
+          m.sd[e] = load_delta<CG>(delta + (long long)(k0 + lo) * BLOCK
+                                   + (s & (BLOCK - 1)));
         }
       }
       __syncthreads();
@@ -504,7 +474,8 @@ struct SparseArgs {
   int* nnz;           // (R,)
   float* health;      // ()  0 → 1 when a round's F is non-finite or > guard
                       //     (EMIT_DZ: when a row of the view is non-finite)
-  long long* stamps;  // (2R + 6,) phase clock and ns stamps, or null
+  long long* stamps;  // (2R + 6,) phase clock and ns stamps (OVF: 3R + 6),
+                      //   or null
   long long n, d_pad;
   int R, K, tile;
   float* dz;          // (n,)  EMIT_DZ: out, the launch's own Σ A_B δ
@@ -696,15 +667,309 @@ __device__ __forceinline__ void ovf_delta(const SparseArgs& a, const int* idx,
   }
 }
 
-// The OVF launch's shared arrays, allocated only in the kernels that call
-// these (static shared memory of a device function).
+// The OVF launch's shared array, allocated only in the kernels that call
+// it (static shared memory of a device function).
 __device__ __forceinline__ int* ovf_kpre() {
   __shared__ int kpre[OVF_KMAX + 1];
   return kpre;
 }
-__device__ __forceinline__ long long* ovf_srun() {
-  __shared__ long long srun[FUSED_KC];
-  return srun;
+
+// OVF, phase BC: a warp an item.  A design with an overflow store is tall
+// (url: 9,360 row items a round, ≈ 35 a CTA), and an item is a chain of
+// dependent loads (range table → order → tile or spilled entry → δ) over
+// few slots (≈ 37).  So each warp walks its own items, with no CTA barrier,
+// and loads its next item's range-start pairs while it sums this one: a
+// CTA has 8 chains in flight where it had one.  Each warp's arena (4 KB of
+// the CTA's `part`): skey/sv/sd, the window's slots (OVF_WIN), and mask,
+// one word a row of the item: bit k says that drawn block k (of the chunk)
+// has a complete run at that row in the window.
+// Slots a lane stages a window (8 ran BC 17% slower at url's shape).
+constexpr int OVF_WU = 4;
+constexpr int OVF_WIN = 32 * OVF_WU;
+constexpr int OVF_ARENA = FUSED_KC * FUSED_ROWS / WARPS;   // words a warp
+static_assert(3 * OVF_WIN + FUSED_ROWS <= OVF_ARENA, "warp arena");
+static_assert(FUSED_KC == 32, "a chunk's drawn blocks are a warp's lanes");
+
+// acc ⊕ s, where the row's last folded block was `last` and this one is k:
+// the blocks between (no run at the row) each add +0, and k adds s.  Adding
+// +0 twice gives what adding it once gives (−0 turns +0, NaN stays NaN), so
+// one add stands for them all: the sum is range_sums' z + s_0 + … in k order.
+__device__ __forceinline__ float fold_run(float acc, int& last, int k,
+                                          float s) {
+  if (k > last + 1) acc = __fadd_rn(acc, 0.f);
+  last = k;
+  return __fadd_rn(acc, s);
+}
+
+// Row item j of BC for one warp: rows [j·256, j·256 + 256), lane l owning
+// rows j·256 + l + 32u (u < 8).  For each chunk of up to 32 drawn blocks
+// (lane k holds block k's id b, where its run of the flat order starts,
+// and its segment lo, len of the item's two ranges of the range-start
+// table), the segments are laid end to end (a warp scan) and staged in
+// windows of OVF_WIN slots: order → (row, val) from the tile or the store
+// → δ.  The head of each run of one key sums it in slot order (fmaf, the
+// first term a product), a run cut by the window's edge going on from its
+// partial in the next window, as in range_sums; the owners then fold the
+// window's complete runs into their rows in k order (a run carried over
+// and complete comes first: its block precedes the window's).  Then row
+// 0's padding terms, the loss tile, and the loss partial's fixed 256-row
+// tree (block_sum's: 128, 64, 32 in registers, then the lanes).  `lo0`,
+// `len0`, `b0` and `run0` are chunk 0's, loaded by the caller.
+template <typename TV, int LOSS, bool NEWTON>
+__device__ __forceinline__ void ovf_rows(const SparseArgs& a, const int* idx,
+                                         int j, int n_lt, int rd,
+                                         long long nq1, int* arena, int b0,
+                                         long long run0, int lo0, int len0) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int K = a.K;
+  const long long n = a.n;
+  const long long tslots = (long long)a.tile * BLOCK;
+  const int row0 = j * FUSED_ROWS;
+  const TV* vals = static_cast<const TV*>(a.vals);
+  const TV* ovals = static_cast<const TV*>(a.ovf.vals);
+  int* skey = arena;
+  float* sv = reinterpret_cast<float*>(arena + OVF_WIN);
+  float* sd = reinterpret_cast<float*>(arena + 2 * OVF_WIN);
+  int* mask = arena + 3 * OVF_WIN;
+  float acc[FUSED_ROWS / 32], yv[FUSED_ROWS / 32];
+  int last[FUSED_ROWS / 32];
+#pragma unroll
+  for (int u = 0; u < FUSED_ROWS / 32; ++u) {
+    const long long i = (long long)row0 + u * 32 + lane;
+    acc[u] = i < n ? ldcg(a.z + i) : 0.f;
+    yv[u] = i < n ? a.y[i] : 0.f;
+    last[u] = -1;
+    mask[u * 32 + lane] = 0;
+  }
+  const int c0 = 2 * j, dc = 2 * j + 2 < nq1 ? 2 : 1;
+  bool bad = false;                    // item 0: a padding term is NaN
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int nk = min(32, K - k0);
+    int b = b0, lo = lo0, len = len0;
+    long long run = run0;
+    if (k0 > 0) {
+      len = 0;
+      if (lane < nk) {
+        b = idx[k0 + lane];
+        run = b * tslots + a.ovf.ptr[(long long)b * BLOCK];
+        const int* rs = a.rstart + b * nq1 + c0;
+        lo = rs[0];
+        len = rs[dc] - lo;
+      }
+    }
+    int incl = len;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(ALL, incl, off);
+      if (lane >= off) incl += v;
+    }
+    const int off = incl - len, total = __shfl_sync(ALL, incl, 31);
+    if (j == 0) {          // lane l checks columns 4l .. 4l + 3 of each block
+      for (int kk = 0; kk < nk; ++kk) {
+        const long long bk = __shfl_sync(ALL, b, kk);
+        const unsigned char* zm = a.zmask + bk * BLOCK + 4 * lane;
+        const float* dk = a.delta + (long long)(k0 + kk) * BLOCK + 4 * lane;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          bad |= (zm[u] != 0) & !isfinite(ldcg(dk + u));
+      }
+    }
+    bool cvalid = false;                 // a run cut by the window's edge
+    int ckey = 0;
+    float csum = 0.f;
+    for (int w0 = 0; w0 < total; w0 += OVF_WIN) {
+      const int wn = min(OVF_WIN, total - w0);
+      // stage: slot f of the chunk's segments, in three waves of loads
+      int sk[OVF_WU], ss[OVF_WU], bk[OVF_WU];
+      long long rk[OVF_WU];
+#pragma unroll
+      for (int u = 0; u < OVF_WU; ++u) {
+        const int f = w0 + min(u * 32 + lane, wn - 1);
+        int kk = 0;                      // off[kk] <= f < off[kk + 1]
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1) {
+          const int c = kk + step;
+          const int oc = __shfl_sync(ALL, off, c);
+          if (c < nk && oc <= f) kk = c;
+        }
+        sk[u] = kk;
+        bk[u] = __shfl_sync(ALL, b, kk);
+        rk[u] = __shfl_sync(ALL, run, kk);
+        const int lk = __shfl_sync(ALL, lo, kk);
+        const int ok = __shfl_sync(ALL, off, kk);
+        ss[u] = u * 32 + lane < wn ? a.order[rk[u] + lk + (f - ok)] : 0;
+      }
+      int row[OVF_WU], col[OVF_WU];
+      float v[OVF_WU];
+#pragma unroll
+      for (int u = 0; u < OVF_WU; ++u) {
+        row[u] = row0;
+        v[u] = 0.f;
+        col[u] = 0;
+        if (u * 32 + lane < wn) {
+          const long long bo = bk[u] * tslots;
+          if (ss[u] < tslots) {
+            row[u] = a.rows[bo + ss[u]];
+            v[u] = to_f32(vals[bo + ss[u]]);
+            col[u] = ss[u] & (BLOCK - 1);
+          } else {
+            const long long q = rk[u] - bo + (ss[u] - tslots);
+            row[u] = a.ovf.rows[q];
+            v[u] = to_f32(ovals[q]);
+            col[u] = a.ovf.cols[q];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < OVF_WU; ++u) {
+        const int e = u * 32 + lane;
+        if (e < wn) {
+          skey[e] = sk[u] * FUSED_ROWS + (row[u] - row0);
+          sv[e] = v[u];
+          sd[e] = ldcg(a.delta + (long long)(k0 + sk[u]) * BLOCK + col[u]);
+        }
+      }
+      __syncwarp();
+      // run sums: a complete run's sum goes to its head's sv, and its bit
+      // to its row's mask; the run at the edge, if the chunk goes on, is
+      // carried
+      const bool more = w0 + wn < total;
+      bool cut = false;
+      int cutkey = 0;
+      float cutsum = 0.f;
+#pragma unroll
+      for (int u = 0; u < OVF_WU; ++u) {
+        const int e = u * 32 + lane;
+        if (e < wn) {
+          const int key = skey[e];
+          if (e == 0 || skey[e - 1] != key) {
+            float s = (e == 0 && cvalid && ckey == key)
+                          ? fmaf(sv[0], sd[0], csum)
+                          : __fmul_rn(sv[e], sd[e]);
+            int e2 = e + 1;
+            for (; e2 < wn && skey[e2] == key; ++e2)
+              s = fmaf(sv[e2], sd[e2], s);
+            if (e2 == wn && more) {
+              cut = true;
+              cutkey = key;
+              cutsum = s;
+            } else {
+              sv[e] = s;
+              atomicOr(reinterpret_cast<unsigned*>(mask)
+                           + (key & (FUSED_ROWS - 1)),
+                       1u << (key / FUSED_ROWS));
+            }
+          }
+        }
+      }
+      __syncwarp();
+      // owners: a carried run that the window did not continue, then the
+      // window's runs, each found at its head (the first slot of its key)
+      const bool pend = cvalid && skey[0] != ckey;
+#pragma unroll
+      for (int u = 0; u < FUSED_ROWS / 32; ++u) {
+        const int r = u * 32 + lane;
+        if (pend && (ckey & (FUSED_ROWS - 1)) == r)
+          acc[u] = fold_run(acc[u], last[u], k0 + ckey / FUSED_ROWS, csum);
+        unsigned m = static_cast<unsigned>(mask[r]);
+        while (m) {
+          const int kk = __ffs(m) - 1;
+          m &= m - 1;
+          const int key = kk * FUSED_ROWS + r;
+          int lo2 = 0, hi2 = wn;
+          while (lo2 < hi2) {
+            const int mid = (lo2 + hi2) >> 1;
+            if (skey[mid] < key) lo2 = mid + 1; else hi2 = mid;
+          }
+          acc[u] = fold_run(acc[u], last[u], k0 + kk, sv[lo2]);
+        }
+        mask[r] = 0;
+      }
+      const unsigned cm = __ballot_sync(ALL, cut);
+      cvalid = cm != 0;
+      if (cvalid) {
+        const int src = __ffs(cm) - 1;
+        ckey = __shfl_sync(ALL, cutkey, src);
+        csum = __shfl_sync(ALL, cutsum, src);
+      }
+      __syncwarp();
+    }
+  }
+  bad = __any_sync(ALL, bad);
+  float ll[FUSED_ROWS / 32];
+#pragma unroll
+  for (int u = 0; u < FUSED_ROWS / 32; ++u) {
+    const long long i = (long long)row0 + u * 32 + lane;
+    if (last[u] < K - 1) acc[u] = __fadd_rn(acc[u], 0.f);
+    if (i == 0) acc[u] = add_padding(acc[u], bad);
+    ll[u] = 0.f;
+    if (i < n) {
+      float rr, ww;
+      a.z[i] = acc[u];
+      loss_tile<LOSS>(acc[u], yv[u], 1.f, rr, ww, ll[u]);
+      a.r[i] = rr;
+      if constexpr (NEWTON) a.w[i] = ww;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) ll[u] = __fadd_rn(ll[u], ll[u + 4]);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) ll[u] = __fadd_rn(ll[u], ll[u + 2]);
+  float tot = __fadd_rn(ll[0], ll[1]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    tot = __fadd_rn(tot, __shfl_down_sync(ALL, tot, o));
+  if (lane == 0) a.lpart[(rd & 1) * n_lt + j] = tot;
+}
+
+// BC of an OVF round: warp w of the grid's W·G takes items w, w + W·G, …:
+// the n_lt row items (ovf_rows), then the 4K column items x[b_k, c] +=
+// δ_k,c (32 columns of drawn block k an item, on its first k only, the
+// duplicates' δ in k order).  A warp loads its next row item's range-start
+// pairs (chunk 0's) before it sums the current one.
+template <typename TV, int LOSS, bool NEWTON>
+__device__ __forceinline__ void ovf_bc(const SparseArgs& a, const int* idx,
+                                       int rd, int n_lt, long long nq1,
+                                       float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int K = a.K, nw = gridDim.x * WARPS;
+  int* arena = reinterpret_cast<int*>(part) + warp * OVF_ARENA;
+  int b0 = 0, plo = 0, phi = 0;
+  long long run0 = 0;
+  if (lane < min(32, K)) {
+    b0 = idx[lane];
+    run0 = (long long)b0 * a.tile * BLOCK + a.ovf.ptr[(long long)b0 * BLOCK];
+  }
+  const auto fetch = [&](int jj) {
+    if (jj < n_lt && lane < min(32, K)) {
+      const int* rs = a.rstart + b0 * nq1 + 2 * jj;
+      plo = rs[0];
+      phi = rs[2 * jj + 2 < nq1 ? 2 : 1];
+    }
+  };
+  const int j0 = blockIdx.x * WARPS + warp;
+  fetch(j0);
+  for (int j = j0; j < n_lt + 4 * K; j += nw) {
+    if (j < n_lt) {
+      const int lo = plo, len = phi - plo;
+      fetch(j + nw);
+      ovf_rows<TV, LOSS, NEWTON>(a, idx, j, n_lt, rd, nq1, arena, b0, run0,
+                                 lo, len);
+    } else {
+      const int p = j - n_lt, k = p >> 2, c = (p & 3) * 32 + lane;
+      const int b = idx[k];
+      bool first = true;
+      for (int kk = 0; kk < k; ++kk) first &= (idx[kk] != b);
+      if (first) {
+        const long long o = (long long)b * BLOCK + c;
+        float v = ldcg(a.x + o);
+        for (int kk = k; kk < K; ++kk)
+          if (idx[kk] == b) v += ldcg(a.delta + kk * BLOCK + c);
+        a.x[o] = v;
+      }
+    }
+  }
 }
 
 // The rounds of one launch: every fused sparse kernel below is this body.
@@ -712,9 +977,11 @@ __device__ __forceinline__ long long* ovf_srun() {
 // sums the drawn blocks' spilled segments (items after the |x| partials,
 // one segment a warp) and writes the tile sums instead of δ; a phase A2,
 // with a barrier of its own, adds each column's segment sums to its tile
-// sum and writes δ; BC's range_sums reads the spilled entries with the tile
-// slots.  A round then costs three barriers, and its gather work follows
-// the drawn blocks' entries, not their deepest column.
+// sum and writes δ; BC (ovf_bc) reads the spilled entries with the tile
+// slots, a warp an item.  A round then costs three barriers, and its
+// gather work follows the drawn blocks' entries, not their deepest column.
+// Its stamps: one more a round, after A's own barrier (3R + 4 clocks, the
+// ns times at 3R + 4 and 3R + 5).
 template <typename TV, int LOSS, bool NEWTON, bool EMIT_DZ, bool BATCHED,
           bool OVF>
 __device__ __forceinline__ void fused_sparse_rounds(SparseArgs a) {
@@ -730,12 +997,8 @@ __device__ __forceinline__ void fused_sparse_rounds(SparseArgs a) {
   __shared__ int wsum[WARPS];
   __shared__ int carry;
   int* kpre = nullptr;
-  long long* srun = nullptr;
-  if constexpr (OVF) {
-    kpre = ovf_kpre();
-    srun = ovf_srun();
-  }
-  const RangeBufs rb{part, sv, sd, skey, sblk, slo, soff, wsum, &carry, srun};
+  if constexpr (OVF) kpre = ovf_kpre();
+  const RangeBufs rb{part, sv, sd, skey, sblk, slo, soff, wsum, &carry};
   const TV* vals = static_cast<const TV*>(a.vals);
   const int S = BATCHED ? a.S : 1;
   const long long n = a.n;
@@ -756,7 +1019,7 @@ __device__ __forceinline__ void fused_sparse_rounds(SparseArgs a) {
                      threadIdx.x == 0;
   int ns = 0;
   if (stamp) {
-    a.stamps[2 * a.R + 4] = globaltimer_ns();
+    a.stamps[(OVF ? 3 : 2) * a.R + 4] = globaltimer_ns();
     a.stamps[ns++] = clock64();
   }
 
@@ -864,6 +1127,7 @@ __device__ __forceinline__ void fused_sparse_rounds(SparseArgs a) {
     if constexpr (OVF) {
       // A2: each drawn column's g (and h) and δ, a warp a column.
       if (rd < a.R) {
+        if (stamp) a.stamps[ns++] = clock64();
         constexpr int GROUPS = BLOCK / WARPS;
         for (int it = blockIdx.x; it < K * GROUPS; it += gridDim.x)
           ovf_delta<LOSS, NEWTON>(a, idx, it / GROUPS,
@@ -892,60 +1156,63 @@ __device__ __forceinline__ void fused_sparse_rounds(SparseArgs a) {
       break;
     }
     // BC: the row tiles' sums; x[blk_k] += δ_k for each distinct block.
-    const int n_c = n_lt + n_pair;
-    for (int it = blockIdx.x; it < S * n_c; it += gridDim.x) {
-      const int so = BATCHED ? it / n_c : 0;
-      const int j = it - so * n_c;
-      const int* ik = idx + so * rk;
-      if (j < n_lt) {
-        const long long i = (long long)j * THREADS + threadIdx.x;
-        const long long vo = so * n;
-        const bool owner = i < n;
-        bool bad;
-        float acc = range_sums<TV, FUSED_ROWS, FUSED_KC, FUSED_STAGE, true,
-                               OVF>(
-            a.rows + so * ts, vals + so * ts, a.order + so * ts,
-            a.rstart + so * qs, a.zmask + so * zs, ik, a.delta + so * kb,
-            nq1, (long long)a.tile * BLOCK, K, 2 * j,
-            2 * j + 2 < nq1 ? 2 : 1, j * FUSED_ROWS, j == 0, owner,
-            !EMIT_DZ && owner ? ldcg(a.z + vo + i) : 0.f, rb, bad, a.ovf);
-        if (i == 0 && K > 0) acc = add_padding(acc, bad);
-        if constexpr (EMIT_DZ) {
-          if (owner) {
-            const float zn = ldcg(a.z + i) + acc;
-            a.z[i] = zn;
-            a.dz[i] = ldcg(a.dz + i) + acc;
-            if (!isfinite(zn)) a.health[0] = 1.f;   // max-accumulated
-            float rr, ww, ll;
-            loss_tile<LOSS>(zn, a.y[i], 1.f, rr, ww, ll);
-            a.r[i] = rr;
-            if constexpr (NEWTON) a.w[i] = ww;
+    if constexpr (OVF) {
+      ovf_bc<TV, LOSS, NEWTON>(a, idx, rd, n_lt, nq1, part);
+    } else {
+      const int n_c = n_lt + n_pair;
+      for (int it = blockIdx.x; it < S * n_c; it += gridDim.x) {
+        const int so = BATCHED ? it / n_c : 0;
+        const int j = it - so * n_c;
+        const int* ik = idx + so * rk;
+        if (j < n_lt) {
+          const long long i = (long long)j * THREADS + threadIdx.x;
+          const long long vo = so * n;
+          const bool owner = i < n;
+          bool bad;
+          float acc = range_sums<TV, FUSED_ROWS, FUSED_KC, FUSED_STAGE, true>(
+              a.rows + so * ts, vals + so * ts, a.order + so * ts,
+              a.rstart + so * qs, a.zmask + so * zs, ik, a.delta + so * kb,
+              nq1, (long long)a.tile * BLOCK, K, 2 * j,
+              2 * j + 2 < nq1 ? 2 : 1, j * FUSED_ROWS, j == 0, owner,
+              !EMIT_DZ && owner ? ldcg(a.z + vo + i) : 0.f, rb, bad);
+          if (i == 0 && K > 0) acc = add_padding(acc, bad);
+          if constexpr (EMIT_DZ) {
+            if (owner) {
+              const float zn = ldcg(a.z + i) + acc;
+              a.z[i] = zn;
+              a.dz[i] = ldcg(a.dz + i) + acc;
+              if (!isfinite(zn)) a.health[0] = 1.f;   // max-accumulated
+              float rr, ww, ll;
+              loss_tile<LOSS>(zn, a.y[i], 1.f, rr, ww, ll);
+              a.r[i] = rr;
+              if constexpr (NEWTON) a.w[i] = ww;
+            }
+          } else {
+            float ll = 0.f;
+            if (owner) {
+              float rr, ww;
+              a.z[vo + i] = acc;
+              loss_tile<LOSS>(acc, a.y[vo + i], 1.f, rr, ww, ll);
+              a.r[vo + i] = rr;
+              if constexpr (NEWTON) a.w[vo + i] = ww;
+            }
+            const float tot = block_sum(ll, s);
+            if (threadIdx.x == 0)
+              a.lpart[(so * 2 + (rd & 1)) * n_lt + j] = tot;
           }
         } else {
-          float ll = 0.f;
-          if (owner) {
-            float rr, ww;
-            a.z[vo + i] = acc;
-            loss_tile<LOSS>(acc, a.y[vo + i], 1.f, rr, ww, ll);
-            a.r[vo + i] = rr;
-            if constexpr (NEWTON) a.w[vo + i] = ww;
-          }
-          const float tot = block_sum(ll, s);
-          if (threadIdx.x == 0)
-            a.lpart[(so * 2 + (rd & 1)) * n_lt + j] = tot;
-        }
-      } else {
-        const int k = (j - n_lt) * HALF + sub;
-        if (k < K) {
-          const int b = ik[k];
-          bool first = true;
-          for (int kk = 0; kk < k; ++kk) first &= (ik[kk] != b);
-          if (first) {
-            const long long o = so * a.d_pad + (long long)b * BLOCK + c;
-            float v = ldcg(a.x + o);
-            for (int kk = k; kk < K; ++kk)
-              if (ik[kk] == b) v += ldcg(a.delta + so * kb + kk * BLOCK + c);
-            a.x[o] = v;
+          const int k = (j - n_lt) * HALF + sub;
+          if (k < K) {
+            const int b = ik[k];
+            bool first = true;
+            for (int kk = 0; kk < k; ++kk) first &= (ik[kk] != b);
+            if (first) {
+              const long long o = so * a.d_pad + (long long)b * BLOCK + c;
+              float v = ldcg(a.x + o);
+              for (int kk = k; kk < K; ++kk)
+                if (ik[kk] == b) v += ldcg(a.delta + so * kb + kk * BLOCK + c);
+              a.x[o] = v;
+            }
           }
         }
       }
@@ -954,7 +1221,7 @@ __device__ __forceinline__ void fused_sparse_rounds(SparseArgs a) {
     grid.sync();
     if (stamp) a.stamps[ns++] = clock64();
   }
-  if (stamp) a.stamps[2 * a.R + 5] = globaltimer_ns();
+  if (stamp) a.stamps[(OVF ? 3 : 2) * a.R + 5] = globaltimer_ns();
 }
 
 // Two CTAs per SM (the cooperative grid, sparse_coop_blocks): up to 128
@@ -1147,9 +1414,14 @@ int sp_scatter_block_update(const int* rows, const void* vals, int v_bf16,
 }
 
 // Grid size (CUDA blocks) of the fused launch for this value type and loss
-// code (bit 0 logistic, bit 1 Newton, bit 2 the delta kernel); negative
-// CUDA error on failure.
+// code (bit 0 logistic, bit 1 Newton, bit 2 the delta kernel; bit 4 the
+// OVF kernel, the grid its launches take); negative CUDA error on failure.
 int sp_fused_grid_blocks(int v_bf16, int loss) {
+  if (loss & 16) {
+    if (loss & ~19) return -(int)cudaErrorInvalidValue;
+    return sparse_grid(v_bf16 ? pick_sparse_ovf<__nv_bfloat16>(loss & 3)
+                              : pick_sparse_ovf<float>(loss & 3));
+  }
   if (loss & ~7) return -(int)cudaErrorInvalidValue;
   const void* kern = pick_sparse(v_bf16, loss);
   if (!kern) return -(int)cudaErrorInvalidValue;

@@ -32,7 +32,11 @@ def build_old(csrc: pathlib.Path, work: pathlib.Path,
 @contextlib.contextmanager
 def library(lib: ctypes.CDLL):
     """Route the wrappers' launches through ``lib`` (an earlier build with
-    the same C interface for the entries they call)."""
+    the same C interface for the entries they call).  What the wrappers
+    ask of ``shotgun_block._lib()`` (the grid size behind the overflow
+    launch's counters) stays with this package's build."""
+    from repro_torch.kernels import shotgun_block as sb
+    sb._lib()
     saved = _build.load()
     _build._lib = lib
     try:

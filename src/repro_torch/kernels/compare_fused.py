@@ -28,7 +28,11 @@ Shapes are ``chip_smoke.py``'s, drawn on the card from ``--seed``, R = 8:
   kernel's chunk of 32 drawn blocks), S2 cut to an odd tile of 7, and S2
   with a NaN iterate in a column with a padding slot (row 0 goes NaN);
   #10 on 4 stacked copies of S1 (slot k_eff 32, 32, 16, 0) and on S2
-  shared by 4 slots (logistic Newton), once with slot 2 frozen (k_eff 0).
+  shared by 4 slots (logistic Newton), once with slot 2 frozen (k_eff 0);
+* #2's OVF instantiation (a design with an overflow store) at LIBSVM
+  url_combined's row count (2,396,130 rows, 262,144 heavy-tailed columns,
+  tile 64, K = 32, logistic Newton, f32), k_eff = K and K − 1, a duplicate
+  draw: its BC walks ≈ 9,360 row items a round.
 
 Equality is of the bit patterns of every output (x, z or Δz, F, nnz,
 health).  Two device clocks per call, over ``--iters`` calls (fewer at
@@ -60,12 +64,15 @@ LASSO = dict(n=16384, d=32768, K=8)
 ZETA = dict(n=500_000, d=2000, K=2)
 S1 = dict(n=19_996, d=1_355_191, density=3.36e-4, K=32)
 S2 = dict(n=20_242, d=47_236, density=0.0016, K=8)
+URL = dict(n=2_396_130, d=262_144, tile=64, K=32)
 R = 8
 DENSE, SPARSE = ("fused_rounds_kernel",), ("fused_sparse_kernel",)
+OVF = ("fused_sparse_ovf_kernel",)
 _OLD_ARGTYPES = {name: _build._ARGTYPES[name] for name in (
     "sb_fused_shotgun_rounds", "sb_fused_shotgun_delta_rounds",
     "sb_batched_fused_shotgun_rounds", "sp_fused_shotgun_rounds",
-    "sp_fused_shotgun_delta_rounds", "sp_batched_fused_shotgun_rounds")}
+    "sp_fused_shotgun_delta_rounds", "sp_batched_fused_shotgun_rounds",
+    "sp_fused_shotgun_rounds_ovf")}
 
 
 def on(lib, fn):
@@ -116,6 +123,58 @@ def _sparse_designs(seed: int, dev):
         prob = prob._replace(lam=0.1 * obj.lambda_max(prob.A, prob.y, loss))
         out.append(prob)
     return out
+
+
+def _ovf_design(seed: int, dev):
+    """A logistic problem at url_combined's row count on a heavy-tailed
+    design: the column of rank r (a seeded permutation) draws ⌊n / r⌋
+    uniform rows (repeats kept once), values N(0, 1), labels ±1 at random;
+    ``BlockedCSC.from_csc`` at tile 64, so each column deeper than 64
+    spills into the overflow store."""
+    from repro_torch.core import objectives as obj
+    from repro_torch.data.sparse import BlockedCSC
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    n, d = URL["n"], URL["d"]
+    count = n // (torch.randperm(d, generator=g, device=dev) + 1)
+    col = torch.repeat_interleave(torch.arange(d, device=dev), count)
+    key = torch.unique(col * n + torch.randint(
+        0, n, (col.numel(),), generator=g, device=dev))
+    del col, count
+    col, row = key // n, (key % n).to(torch.int32)
+    col_ptr = torch.searchsorted(col, torch.arange(d + 1, device=dev))
+    vals = torch.randn(row.numel(), generator=g, device=dev)
+    A = BlockedCSC.from_csc(col_ptr, row, vals, n, d, tile=URL["tile"],
+                            device=dev)
+    del key, col, row, vals
+    y = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, 1.0, -1.0)
+    prob = obj.make_problem(A, y, 1.0, loss="logistic", device=dev)
+    return prob._replace(lam=0.1 * obj.lambda_max(prob.A, prob.y,
+                                                   "logistic"))
+
+
+def ovf_cases(old, seed: int, g, record, timed, iters: int) -> None:
+    """#2's OVF instantiation at url's row count, new against ``old``:
+    bit for bit at k_eff = K and K − 1 (a duplicate draw, a small start),
+    then device time per call from zero in turns."""
+    dev = g.device
+    prob = _ovf_design(seed, dev)
+    A, K = prob.A, URL["K"]
+    kw = dict(loss="logistic_newton", order=A.scatter_order(),
+              rstart=A.range_starts(), ovf=A.ovf)
+    tag = f"url n={A.n} logistic_newton f32 tile={A.tile} K={K} R={R}"
+    for k_eff in (None, K - 1):
+        x0 = torch.randn(A.d_pad, generator=g, device=dev) * 0.01
+        x0[A.d:] = 0.0
+        fa = (A.rows, A.vals, A.matvec(x0), x0, _draws(g, K, A.nblk),
+              prob.lam, prob.beta, prob.y)
+        fn = lambda: ss.fused_sparse_shotgun_rounds(  # noqa: E731
+            *fa, k_eff=k_eff, **kw)
+        record(f"#2 OVF {tag} k_eff={k_eff}", fn(), on(old, fn)())
+    fa = (A.rows, A.vals, torch.zeros(A.n, device=dev),
+          torch.zeros(A.d_pad, device=dev),
+          _draws(g, K, A.nblk, dup=False), prob.lam, prob.beta, prob.y)
+    fn = lambda: ss.fused_sparse_shotgun_rounds(*fa, **kw)  # noqa: E731
+    timed(f"#2 OVF {tag}", on(old, fn), fn, iters, OVF)
 
 
 def _draws(g, K, nblk, dup=True):
@@ -357,6 +416,9 @@ def main(argv=None) -> int:
         fn = lambda: kb.batched_fused_sparse_shotgun_rounds(  # noqa: E731
             *fa, **kw)
         timed(f"#10 {tag} R={R}", on(old, fn), fn, args.iters, SPARSE)
+
+    # ---- #2's OVF instantiation at url_combined's row count ---------------
+    ovf_cases(old, args.seed, g, record, timed, max(2, args.iters // 2))
     print(json.dumps({"compare_fused": summary, "times": times,
                       "ok": not failed}))
     return 1 if failed else 0

@@ -53,11 +53,14 @@ LAUNCHES = {"fused_sparse_shotgun_rounds": 0,
             "fused_sparse_shotgun_delta_rounds": 0}
 
 _THREADS = 256     # CUDA threads per block, every sparse kernel
+_WARPS = _THREADS // 32
 _XCHUNK = 4096     # |x| / nnz partial: elements per item (fused kernel)
+_OVF_GRID = 16     # grid-size query's bit for the OVF kernel
 
 # The host side of a launch's overflow work (its workspaces, sized from the
-# store's segment slots on the host), and its counters: launches, and the
-# segments of the drawn blocks that they cover (counted on the device).
+# store's segment slots on the host), and its counters: launches, the
+# segments of the drawn blocks that they cover (counted on the device), and
+# BC's row items, with those whose inputs a warp loaded under its last one.
 OVERFLOW_SPAN = "repro_torch.solve.overflow"
 
 
@@ -104,11 +107,14 @@ def _require_contiguous(*tensors: torch.Tensor) -> None:
                              "tiles")
 
 
-def _check_stamps(stamps, R: int, dev) -> None:
+def _check_stamps(stamps, R: int, dev, ovf: bool = False) -> None:
+    """Two clock stamps a round and six more; an OVF launch (a design with
+    an overflow store) stamps three a round."""
+    need = (3 if ovf else 2) * R + 6
     if stamps is not None and (stamps.dtype != torch.int64
-                               or stamps.numel() < 2 * R + 6
+                               or stamps.numel() < need
                                or stamps.device != dev):
-        raise ValueError(f"stamps must be an int64 tensor of >= {2 * R + 6} "
+        raise ValueError(f"stamps must be an int64 tensor of >= {need} "
                          f"elements on {dev}")
 
 
@@ -386,14 +392,34 @@ def fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx, lam, beta,
             torch.stack(nnzs).to(torch.int32), health)
 
 
-def _overflow_work(ovf: Overflow, ls: Loss, nblk: int, blk_idx, dtype,
-                   on_cuda: bool, dev):
+def _bc_items(n: int, R: int, warps: int | None) -> tuple[int, int]:
+    """BC's row items in an OVF launch of R rounds over n rows (one a
+    256-row tile a round), and those a warp starts with its range-start
+    pairs already loaded under its previous item: each of the grid's
+    ``warps`` walks items w, w + warps, …, so all but its first.  None
+    (the plain version on the CPU) walks no warps."""
+    n_lt = -(-n // _THREADS)
+    return R * n_lt, 0 if warps is None else R * (n_lt - min(n_lt, warps))
+
+
+def _ovf_warps(ls: Loss, dtype, dev) -> int:
+    """Warps in the OVF kernel's cooperative grid on ``dev``."""
+    with torch.cuda.device(dev):
+        g = _lib().sp_fused_grid_blocks(int(dtype == torch.bfloat16),
+                                        _loss_code(ls) | _OVF_GRID)
+    if g <= 0:
+        raise RuntimeError(f"sp_fused_grid_blocks: CUDA error {-g}")
+    return _WARPS * g
+
+
+def _overflow_work(ovf: Overflow, ls: Loss, nblk: int, n: int, blk_idx,
+                   dtype, on_cuda: bool, dev):
     """The host side of a launch's overflow work: check the store, count
-    the launch and the drawn blocks' segments (a device sum, read after
-    the profiled window), and on the card allocate the workspaces (gpart,
-    hpart (K, seg_slots); gt, ht (K, 128); the h ones one element unless
-    Newton)."""
-    K = blk_idx.shape[1]
+    the launch, the drawn blocks' segments (a device sum, read after the
+    profiled window) and BC's row items (``_bc_items``), and on the card
+    allocate the workspaces (gpart, hpart (K, seg_slots); gt, ht (K, 128);
+    the h ones one element unless Newton)."""
+    R, K = blk_idx.shape
     with obs.span(OVERFLOW_SPAN):
         if K > _THREADS:
             raise ValueError(f"K={K} blocks a round > {_THREADS}: the "
@@ -409,6 +435,10 @@ def _overflow_work(ovf: Overflow, ls: Loss, nblk: int, blk_idx, dtype,
             obs.count("solver.overflow_segments",
                       ovf.seg_ptr[BLOCK::BLOCK].index_select(0, drawn).sum()
                       - ovf.seg_ptr[:-1:BLOCK].index_select(0, drawn).sum())
+            items, piped = _bc_items(
+                n, R, _ovf_warps(ls, dtype, dev) if on_cuda else None)
+            obs.count("solver.overflow_bc_items", items)
+            obs.count("solver.overflow_bc_pipelined_items", piped)
         if not on_cuda:
             return None
         f32 = dict(dtype=torch.float32, device=dev)
@@ -446,10 +476,10 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
                and ``rstart`` are ``overflow_layouts``'s (the container's
                own), K is at most 256, and the launch adds a phase a round
                (A, the spilled segments' partials beside the tile sums;
-               A2, a column's sums and δ; then BC): the first barrier's
-               stamp is the A2 barrier's.  Under a profiler a few small
-               device operations beside the launch count the drawn
-               blocks' segments.
+               A2, a column's sums and δ; then BC, a warp a row item):
+               ``stamps`` then takes (3R + 6,), three barriers a round (A,
+               A2, BC).  Under a profiler a few small device operations
+               beside the launch count the drawn blocks' segments.
 
     ``lam``, ``beta``, ``k_eff`` and ``guard_f`` are numbers (passed by
     value) or one-element device tensors (read by the kernel, never read
@@ -468,8 +498,8 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
     on_cuda = _on_cuda(rows, vals, z, x, blk_idx, y,
                        *(() if ovf is None else (ovf.rows, ovf.vals)))
     if ovf is not None:
-        work = _overflow_work(ovf, ls, nblk, blk_idx, vals.dtype, on_cuda,
-                              dev)
+        work = _overflow_work(ovf, ls, nblk, n, blk_idx, vals.dtype,
+                              on_cuda, dev)
     if not on_cuda:
         return fused_sparse_shotgun_rounds_plain(rows, vals, z, x, blk_idx,
                                                  lam, beta, y, ls, k_eff,
@@ -507,7 +537,7 @@ def fused_sparse_shotgun_rounds(rows, vals, z, x, blk_idx, lam, beta, y,
     f = torch.empty(R, **f32)
     nnz = torch.empty(R, dtype=torch.int32, device=dev)
     health = torch.empty((), **f32)
-    _check_stamps(stamps, R, dev)
+    _check_stamps(stamps, R, dev, ovf is not None)
     args = (_ptr(rows), _ptr(vals), int(vals.dtype == torch.bfloat16),
             _loss_code(ls), _ptr(od.order), _ptr(rs), _ptr(od.zmask),
             _ptr(yv), _ptr(idx), sp, sv, _ptr(z0), _ptr(z_out), _ptr(x0),

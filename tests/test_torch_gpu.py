@@ -2020,8 +2020,36 @@ def _skewed_csc(n=3000, d=4000, seed=8):
     return col_ptr, rows.astype(np.int32), vals, n, d, y
 
 
-def _ovf_problem(dev, loss, tile=8):
-    col_ptr, rows, vals, n, d, y = _skewed_csc()
+def _tall_csc(dev, n=2_200_000, d=4096, seed=11):
+    """A tall heavy-tailed design in CSC on ``dev`` (torch): three columns
+    in every row, twelve at 10%, the rest at 0.05%.  Its 8,594 row items a
+    round give each warp of the OVF launch's grid (2,112 on an H100) four
+    or more, and a drawn full column gives an item a segment longer than a
+    window of staged slots."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(d, generator=g, device=dev)
+    keys = []
+    for c, p in zip(perm[:15].tolist(), [1.0] * 3 + [0.1] * 12):
+        hit = torch.nonzero(torch.rand(n, generator=g, device=dev) < p)
+        keys.append(c * n + hit.reshape(-1))
+    light = perm[15:]
+    cnt = torch.binomial(torch.full((light.numel(),), float(n), device=dev),
+                         torch.full((light.numel(),), 5e-4, device=dev),
+                         generator=g).long()
+    col = torch.repeat_interleave(light, cnt)
+    keys.append(col * n + torch.randint(0, n, (col.numel(),), generator=g,
+                                        device=dev))
+    key = torch.unique(torch.cat(keys))
+    col, rows = key // n, (key % n).to(torch.int32)
+    col_ptr = torch.searchsorted(col, torch.arange(d + 1, device=dev))
+    vals = torch.randn(rows.numel(), generator=g, device=dev)
+    y = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, 1.0, -1.0)
+    return col_ptr, rows, vals, n, d, y
+
+
+def _ovf_problem(dev, loss, tile=8, shape="small"):
+    col_ptr, rows, vals, n, d, y = (_skewed_csc() if shape == "small"
+                                    else _tall_csc(dev))
     S = tsp.BlockedCSC.from_csc(col_ptr, rows, vals, n, d, tile=tile,
                                 device=dev)
     name = "lasso" if loss == "lasso" else "logistic"
@@ -2031,42 +2059,81 @@ def _ovf_problem(dev, loss, tile=8):
     return prob._replace(lam=0.1 * tobj.lambda_max(prob.A, prob.y, name))
 
 
+@pytest.mark.parametrize("shape", ["small", "tall"])
 @pytest.mark.parametrize("store", ["f32", "bf16"])
 @pytest.mark.parametrize("loss", ["lasso", "logistic", "logistic_newton"])
-def test_overflow_fused_matches_plain_and_repeats_bitwise(cuda, loss, store):
+def test_overflow_fused_matches_plain_and_repeats_bitwise(cuda, loss, store,
+                                                          shape):
     """The OVF instantiation of #2 against its plain version on the same
-    store, a duplicate draw included, and bit for bit on a repeat."""
-    cpu, card = (_ovf_problem(dev, loss) for dev in ("cpu", cuda))
+    store (on the CPU; "tall", 2.2 M rows, on the card), a duplicate draw
+    included, at k_eff = K and K − 1; bit for bit on a repeat; its guard;
+    its stamps, three barriers a round; and its BC item counters under a
+    profiler: every warp past its first item loads the next one's inputs
+    under the current one, none at the small shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    ref, card = ((_ovf_problem(dev, loss) for dev in ("cpu", cuda))
+                 if shape == "small" else [_ovf_problem(cuda, loss,
+                                                        shape=shape)] * 2)
     A = {k: (p.A.astype(torch.bfloat16) if store == "bf16" else p.A)
-         for k, p in (("cpu", cpu), ("cuda", card))}
+         for k, p in (("ref", ref), ("cuda", card))}
     assert A["cuda"].ovf is not None and A["cuda"].ovf.seg_slots > 1
     rng = np.random.default_rng(4)
-    idx = np.stack([rng.permutation(A["cpu"].nblk)[:6] for _ in range(8)])
+    idx = np.stack([rng.permutation(A["ref"].nblk)[:6] for _ in range(8)])
     idx[3, -1] = idx[3, 0]                             # duplicate draw
     idx = torch.from_numpy(idx.astype(np.int32))
-    x = torch.zeros(A["cpu"].d_pad)
-    x[torch.from_numpy(rng.permutation(A["cpu"].d)[:300])] = 0.02
-    z = A["cpu"].matvec(x)
-    want = tss.fused_sparse_shotgun_rounds(
-        A["cpu"].rows, A["cpu"].vals, z, x, idx, cpu.lam, cpu.beta, cpu.y,
-        loss=loss, ovf=A["cpu"].ovf)
+    x = torch.zeros(A["ref"].d_pad)
+    x[torch.from_numpy(rng.permutation(A["ref"].d)[:300])] = 0.02
+    on_ref = A["ref"].rows.device
+    x, idx = x.to(on_ref), idx.to(on_ref)
+    z = A["ref"].matvec(x)
     S = A["cuda"]
     args = (S.rows, S.vals, z.to(cuda), x.to(cuda), idx.to(cuda), card.lam,
             card.beta, card.y)
     kw = dict(loss=loss, order=S.scatter_order(), rstart=S.range_starts(),
               ovf=S.ovf)
-    tss.reset_launches()
-    got = tss.fused_sparse_shotgun_rounds(*args, **kw)
-    assert tss.LAUNCHES["fused_sparse_shotgun_rounds"] == 1
     tol = 1e-3 if store == "bf16" else 1e-4
-    for u, v in zip(got[:3], want[:3]):
-        torch.testing.assert_close(u.cpu(), v, rtol=tol, atol=tol)
-    assert float(got[4]) == float(want[4]) == 0.0
-    again = tss.fused_sparse_shotgun_rounds(*args, **kw)
-    for u, v in zip(got, again):
-        assert torch.equal(u, v)
+    for k_eff in (None, 5):
+        want = tss.fused_sparse_shotgun_rounds_plain(
+            A["ref"].rows, A["ref"].vals, z, x, idx, ref.lam, ref.beta,
+            ref.y, loss=loss, k_eff=k_eff, ovf=A["ref"].ovf)
+        tss.reset_launches()
+        got = tss.fused_sparse_shotgun_rounds(*args, **kw, k_eff=k_eff)
+        assert tss.LAUNCHES["fused_sparse_shotgun_rounds"] == 1
+        for u, v in zip(got[:3], want[:3]):
+            torch.testing.assert_close(u.cpu(), v.cpu(), rtol=tol, atol=tol)
+        assert float(got[4]) == float(want[4]) == 0.0
+        again = tss.fused_sparse_shotgun_rounds(*args, **kw, k_eff=k_eff)
+        for u, v in zip(got, again):
+            assert torch.equal(u, v)
     *_, h = tss.fused_sparse_shotgun_rounds(*args, **kw, guard_f=0.0)
     assert float(h) == 1.0
+    R = idx.shape[0]
+    stamps = torch.zeros(3 * R + 6, dtype=torch.int64, device=cuda)
+    timed = tss.fused_sparse_shotgun_rounds(*args, **kw, k_eff=k_eff,
+                                            stamps=stamps)
+    assert all(torch.equal(u, v) for u, v in zip(timed, got))
+    st = stamps[:3 * R + 4]
+    assert int(st[0]) > 0 and bool(torch.all(st[1:] > st[:-1]))
+    assert 0 < int(stamps[-1] - stamps[-2])
+    with pytest.raises(ValueError, match="stamps must be an int64"):
+        tss.fused_sparse_shotgun_rounds(*args, **kw, stamps=stamps[:-1])
+    obs.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            tss.fused_sparse_shotgun_rounds(*args, **kw)
+        counters = obs.totals()["counters"]
+    finally:
+        obs.reset()
+    n_lt = -(-S.n // 256)
+    warps = tss._ovf_warps(tss.resolve_loss(loss), S.vals.dtype, cuda)
+    assert warps % 8 == 0 and warps >= 8 * torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    assert counters["solver.overflow_bc_items"] == R * n_lt
+    piped = counters["solver.overflow_bc_pipelined_items"]
+    assert piped == R * max(0, n_lt - warps)
+    assert (piped > 0) == (shape == "tall")
 
 
 def test_overflow_guarded_newton_solve_on_card_matches_cpu(cuda):

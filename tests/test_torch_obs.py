@@ -277,6 +277,26 @@ def _skewed_csc(n=200, d=400, tile=8):
     return col_ptr, rows, A[rows, cols].astype(np.float32), n, d, tile
 
 
+@pytest.mark.parametrize("n,R,warps,items,piped", [
+    (2_396_130, 32, 2112, 32 * 9360, 32 * 7248),   # url, 264 CTAs of 8
+    (2_396_130, 8, 2112, 8 * 9360, 8 * 7248),
+    (2_200_000, 8, 2112, 8 * 8594, 8 * 6482),      # the card tests' tall
+    (3000, 8, 2112, 8 * 12, 0),                    # and small designs
+    (540_672, 4, 2112, 4 * 2112, 0),               # one item a warp
+    (540_673, 4, 2112, 4 * 2113, 4),
+    (2_396_130, 32, None, 32 * 9360, 0)])          # the plain version
+def test_bc_item_counts(n, R, warps, items, piped):
+    """``solver.overflow_bc_items`` is R·⌈n / 256⌉ and
+    ``solver.overflow_bc_pipelined_items`` R·(n_lt − min(n_lt, warps)):
+    each warp of the grid walks items w, w + warps, … and loads each
+    next item's range-start pairs under the one before."""
+    from repro_torch.kernels.shotgun_sparse import _bc_items
+    assert _bc_items(n, R, warps) == (items, piped)
+    if warps:
+        assert piped / items == pytest.approx(
+            1 - min(1, warps / -(-n // 256)))
+
+
 def test_overflow_spans_and_counters():
     """``from_csc`` and a solve on its overflow store record their spans
     and counters only under a profiler; the store's bytes are what the
@@ -315,6 +335,10 @@ def test_overflow_spans_and_counters():
     assert int(np.max(per_block)) == o.seg_slots > 1
     assert t["counters"]["solver.overflow_segments"] == int(
         per_block[idx.numpy()].sum()) > 0
+    # BC's row items: one a 256-row tile a round; the plain version walks
+    # them on no warps, so none is loaded under a previous one
+    assert t["counters"]["solver.overflow_bc_items"] == 8 * -(-S.n // 256)
+    assert t["counters"]["solver.overflow_bc_pipelined_items"] == 0
     parents = {r.name: r.parent for r in obs.spans()}
     records = obs.spans()
     assert records[parents["repro_torch.solve.overflow"]].name == \

@@ -388,6 +388,23 @@ def test_fused_wrappers_reject_a_wrong_range_table(wrapper, bad):
     assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
+@pytest.mark.parametrize("numel,ok", [(None, True), (18, True), (19, True),
+                                      (17, False), (14, False),
+                                      ("int32", False)])
+def test_ovf_stamps_are_three_a_round(numel, ok):
+    """An OVF launch (a design with an overflow store) stamps 3R + 4 clocks
+    (three barriers a round: A, A2, BC) and two ns times: R = 4 needs 18
+    int64 elements, and the 2R + 6 of the other fused launches are short."""
+    stamps = (None if numel is None else
+              torch.zeros(18, dtype=torch.int32) if numel == "int32" else
+              torch.zeros(numel, dtype=torch.int64))
+    if ok:
+        tss._check_stamps(stamps, 4, torch.device("cpu"), ovf=True)
+    else:
+        with pytest.raises(ValueError, match=">= 18 elements"):
+            tss._check_stamps(stamps, 4, torch.device("cpu"), ovf=True)
+
+
 @pytest.mark.parametrize("numel,ok", [(None, True), (14, True), (15, True),
                                       (13, False), ("int32", False)])
 def test_fused_sparse_stamps_are_two_a_round(numel, ok):
